@@ -1,0 +1,71 @@
+"""Load the packed-parameter artifacts that `bnn_pynq_tpu` writes.
+
+Ported from `bnn_pynq_tpu/compiler/artifacts.py` (`load_artifact`,
+`config_from_json`) with numpy only. Layout: one `.npz` holding every
+layer array under `layer{i}/{name}` plus `out_scale`/`out_bias`, and a
+JSON manifest under key `manifest` describing the network config.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+import numpy as np
+
+from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+                                              NetworkConfig, PoolSpec)
+
+FORMAT_VERSION = 1
+
+
+@dataclass
+class CompiledNetwork:
+    """Integer inference parameters for one network, as numpy arrays
+    (the fields of `bnn_pynq_tpu.compiler.finnthesizer.CompiledNetwork`).
+
+    layers: one dict per config layer — `{}` for a pool; `w_int8` (int8
+    levels, first conv of an int8-input net) or `w_packed` (uint32 words
+    packed along K), and `thr` (int32 [nthr, N]) on every layer but the
+    last."""
+    config: NetworkConfig
+    layers: List[Dict[str, np.ndarray]]
+    out_scale: np.ndarray                 # float32 [num_classes]
+    out_bias: np.ndarray                  # float32 [num_classes]
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+
+def config_from_json(d: dict) -> NetworkConfig:
+    specs = []
+    for s in d["layers"]:
+        if s["kind"] == "conv":
+            specs.append(ConvSpec(s["out_ch"], s["kernel"], s["stride"]))
+        elif s["kind"] == "pool":
+            specs.append(PoolSpec(s["window"]))
+        else:
+            specs.append(DenseSpec(s["out_features"]))
+    return NetworkConfig(
+        name=d["name"], wbits=d["wbits"], abits=d["abits"],
+        input_kind=d["input_kind"], input_shape=tuple(d["input_shape"]),
+        layers=tuple(specs), num_classes=d["num_classes"],
+        dataset=d.get("dataset", ""))
+
+
+def load_artifact(path: str) -> CompiledNetwork:
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(bytes(z["manifest"]).decode())
+        if manifest["format_version"] > FORMAT_VERSION:
+            raise ValueError(f"artifact format {manifest['format_version']} "
+                             f"newer than supported {FORMAT_VERSION}")
+        config = config_from_json(manifest["config"])
+        layers: List[Dict[str, np.ndarray]] = [
+            dict() for _ in range(manifest["num_layers"])]
+        for key in z.files:
+            if key.startswith("layer"):
+                idx_s, _, name = key.partition("/")
+                layers[int(idx_s[5:])][name] = z[key]
+        return CompiledNetwork(config=config, layers=layers,
+                               out_scale=z["out_scale"],
+                               out_bias=z["out_bias"],
+                               meta=manifest.get("meta", {}))

@@ -1,0 +1,257 @@
+"""Inference graph: config + decoded params → forward pass on tensors.
+
+Port of `bnn_pynq_tpu/models/network.py`, two forwards:
+- `forward_mega` / `mega_stages` (← the JAX `mega` route): the network as
+  a list of kernel stages and plain glue, with the same stage names as the
+  JAX route wherever the stage exists. For CNV: chain0-1 → pool2 →
+  chain3-4 → pool5 → block6 → mlp_tail, i.e. `conv_chain` (twice),
+  `dense_block` and `fused_mlp_forward`. The JAX route's `im2col0` stage
+  is gone: the conv kernel reads the raw image itself.
+- `forward_ref` (← `forward_xla(conv_mode="patches")`): per layer a
+  sliding window, an exact int matmul and a MultiThreshold. The port's
+  independent reference.
+
+`layers` is the first element of `params_from_numpy`'s result: per config
+layer `{}` (pool) or `{"w": WeightMatrix, "thr": int32 [nthr, N]}`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+                                              NetworkConfig, PoolSpec)
+from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
+from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
+from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
+from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
+                                               multithreshold)
+
+
+@dataclass(frozen=True)
+class LayerPlan:
+    kind: str                     # 'dense' | 'conv' | 'conv_int8' | 'pool'
+    k: int = 0                    # contraction length (dense/conv)
+    n: int = 0                    # output features/channels
+    kernel: int = 0
+    stride: int = 1
+    window: int = 0
+    last: bool = False            # last compute layer → int32 logits
+
+
+def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
+    """Derive the static per-layer execution plan from a config."""
+    h, w, c = config.input_shape
+    plans = []
+    specs = config.layers
+    last_compute = max(i for i, s in enumerate(specs)
+                       if not isinstance(s, PoolSpec))
+    flat = False
+    for i, spec in enumerate(specs):
+        if isinstance(spec, ConvSpec):
+            kind = "conv_int8" if (i == 0 and config.input_kind == "int8") \
+                else "conv"
+            k = spec.kernel * spec.kernel * c
+            plans.append(LayerPlan(kind=kind, k=k, n=spec.out_ch,
+                                   kernel=spec.kernel, stride=spec.stride,
+                                   last=(i == last_compute)))
+            h = (h - spec.kernel) // spec.stride + 1
+            w = (w - spec.kernel) // spec.stride + 1
+            c = spec.out_ch
+        elif isinstance(spec, PoolSpec):
+            plans.append(LayerPlan(kind="pool", window=spec.window))
+            h //= spec.window
+            w //= spec.window
+        elif isinstance(spec, DenseSpec):
+            if not flat:
+                k = h * w * c
+                flat = True
+            else:
+                k = c
+            plans.append(LayerPlan(kind="dense", k=k, n=spec.out_features,
+                                   last=(i == last_compute)))
+            c = spec.out_features
+            h = w = 1
+        else:
+            raise TypeError(f"unknown layer spec {spec!r}")
+    return tuple(plans)
+
+
+def prepare_input(config: NetworkConfig, x: torch.Tensor) -> torch.Tensor:
+    """Engine input → first activation: bipolar → codes ({0,1} for W1A1,
+    {1,2} = levels ±1 otherwise), int8 images stay int8 levels."""
+    if config.input_kind == "bipolar":
+        pos = x.reshape(x.shape[0], -1) > 0
+        if config.bits == 1:
+            return pos.to(torch.int8)
+        return (pos.to(torch.int8) + 1).to(torch.int8)
+    return x.to(torch.int8)
+
+
+# Below this many output positions a conv leaves the chain kernel and runs
+# as im2col + dense_block on B·OH·OW rows (the JAX route's threshold; kept
+# so both routes group layers into the same stages).
+_MEGA_SMALL_HW = 100
+
+Stage = Tuple[str, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
+                out_bias: torch.Tensor) -> List[Stage]:
+    """The kernel route as (name, fn) stages; folding the fns over
+    `prepare_input(config, x)` gives float32 logits [B, num_classes]."""
+    plan = make_plan(config)
+    abits = config.abits
+    if config.input_kind == "bipolar":
+        h, w = 1, 1
+        levels = False
+    else:
+        h, w, _ = config.input_shape
+        levels = True
+
+    stages: List[Stage] = []
+    idx = 0
+    n = len(plan)
+    # -- phase 1: large-spatial conv chains + pools ------------------------
+    while idx < n and plan[idx].kind != "dense":
+        lp = plan[idx]
+        if lp.kind == "pool":
+            stages.append((f"pool{idx}", partial(maxpool2d,
+                                                 window=lp.window)))
+            h //= lp.window
+            w //= lp.window
+            idx += 1
+            continue
+        oh = (h - lp.kernel) // lp.stride + 1
+        if oh * oh < _MEGA_SMALL_HW and lp.stride == 1:
+            break  # small-spatial tail (phase 2)
+        if lp.stride != 1:
+            raise NotImplementedError("the conv kernel is stride-1 only")
+        ow = (w - lp.kernel) // lp.stride + 1
+        group = [idx]
+        j = idx + 1
+        while (j < n and plan[j].kind == "conv" and plan[j].stride == 1
+               and plan[j].kernel == lp.kernel and not plan[j].last
+               and min(oh, ow) - len(group) * (lp.kernel - 1) > 0):
+            group.append(j)
+            j += 1
+        if plan[group[0]].last:
+            raise NotImplementedError(
+                "mega route expects a dense (or small-conv) final stage")
+        stages.append((f"chain{group[0]}-{group[-1]}", partial(
+            conv_chain, weights=[layers[g]["w"] for g in group],
+            thresholds=[layers[g]["thr"] for g in group],
+            kernel=lp.kernel, abits=abits, input_levels=levels)))
+        shrink = (len(group) - 1) * (lp.kernel - 1)
+        h, w = oh - shrink, ow - shrink
+        levels = False
+        idx = j
+
+    # -- phase 2: small-spatial convs + dense tail -------------------------
+    mlp_ws, mlp_ts = [], []
+    while idx < n:
+        lp = plan[idx]
+        p = layers[idx]
+        if lp.kind == "pool":
+            stages.append((f"pool{idx}", partial(maxpool2d,
+                                                 window=lp.window)))
+            h //= lp.window
+            w //= lp.window
+            idx += 1
+            continue
+        if lp.kind in ("conv", "conv_int8"):
+            oh = (h - lp.kernel) // lp.stride + 1
+            ow = (w - lp.kernel) // lp.stride + 1
+            if lp.last:
+                raise NotImplementedError(
+                    "mega route expects a dense (or 1×1-output conv) "
+                    "final stage")
+            if oh == 1 and ow == 1 and not levels:
+                # the kernel covers the map: conv ≡ dense on the flattened
+                # rows ((ki,kj,c) order equals a row-major reshape here),
+                # folded into the MLP tail
+                mlp_ws.append(p["w"])
+                mlp_ts.append(p["thr"])
+                idx += 1
+                continue
+            stages.append((f"block{idx}", partial(
+                _conv_block, w=p["w"], thr=p["thr"], kernel=lp.kernel,
+                stride=lp.stride, abits=abits, levels=levels)))
+            h, w = oh, ow
+            levels = False
+            idx += 1
+            continue
+        mlp_ws.append(p["w"])
+        if not lp.last:
+            mlp_ts.append(p["thr"])
+        idx += 1
+
+    if not mlp_ws:
+        raise NotImplementedError("mega route needs a dense final stage")
+    stages.append(("mlp_tail", partial(
+        _mlp_tail, weights=mlp_ws, thresholds=mlp_ts, out_scale=out_scale,
+        out_bias=out_bias, abits=abits)))
+    return stages
+
+
+def _conv_block(a, *, w, thr, kernel, stride, abits, levels):
+    patches = sliding_window(a, kernel, kernel, stride)
+    b, oh, ow, k = patches.shape
+    rows = dense_block(patches.reshape(b * oh * ow, k), [w], [thr],
+                       abits=abits, input_levels=levels)
+    return rows.reshape(b, oh, ow, w.kn.shape[1])
+
+
+def _mlp_tail(a, *, weights, thresholds, out_scale, out_bias, abits):
+    return fused_mlp_forward(a.reshape(a.shape[0], -1), weights, thresholds,
+                             out_scale, out_bias, abits=abits)
+
+
+def forward_mega(config: NetworkConfig, layers, x: torch.Tensor,
+                 out_scale: torch.Tensor,
+                 out_bias: torch.Tensor) -> torch.Tensor:
+    """Kernel-route forward: float32 logits [B, num_classes]."""
+    act = prepare_input(config, x)
+    for _, fn in mega_stages(config, layers, out_scale, out_bias):
+        act = fn(act)
+    return act
+
+
+def forward_ref(config: NetworkConfig, layers,
+                x: torch.Tensor) -> torch.Tensor:
+    """Reference forward: int32 logits [B, num_classes] (scale/bias not
+    applied, as in `forward_xla`)."""
+    plan = make_plan(config)
+    act = prepare_input(config, x)
+    for lp, p in zip(plan, layers):
+        if lp.kind == "pool":
+            act = maxpool2d(act, lp.window)
+            continue
+        if lp.kind == "conv_int8":
+            vals = act        # raw int8 image, already levels
+        else:
+            if act.ndim > 2 and lp.kind == "dense":
+                act = act.reshape(act.shape[0], -1)
+            vals = codes_to_values(act, config.abits)
+        if lp.kind in ("conv", "conv_int8"):
+            patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
+            b, oh, ow, k = patches.shape
+            acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
+                                 p["w"].kn).reshape(b, oh, ow, lp.n)
+        else:
+            acc = int_matmul_ref(vals, p["w"].kn)
+        act = acc if lp.last else multithreshold(acc, p["thr"])
+    return act
+
+
+def input_shape(config: NetworkConfig, batch: int) -> Tuple[int, ...]:
+    """Shape of a prepared engine input batch."""
+    if config.input_kind == "bipolar":
+        return (batch, int(np.prod(config.input_shape)))
+    return (batch,) + tuple(config.input_shape)

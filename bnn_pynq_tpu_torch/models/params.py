@@ -1,0 +1,110 @@
+"""Carry parameters across from the JAX package's format to tensors.
+
+`params_from_numpy` takes the per-layer numpy dicts of a `CompiledNetwork`
+(`w_packed` uint32 words, `w_int8` levels, `thr` int32) and returns the
+port's decoded parameters on a device. Packed words are decoded in numpy,
+following `bnn_pynq_tpu/ops/packing.py`: bit j of word w is element 32w+j
+(1-bit value 2b−1); 2-bit code j sits at bits [2j, 2j+2) (level 2c−3);
+the K padding of the last word is dropped, as
+`bnn_pynq_tpu/models/network.py::decode_params` does. (The decode stays in
+numpy because torch's uint32 tensors have no right shift on the CPU.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from bnn_pynq_tpu_torch.models.config import NetworkConfig
+from bnn_pynq_tpu_torch.models.network import make_plan
+
+# The kernels read K in 16-byte vectors (csrc/dense_tile.cuh, kVec), so
+# their weight copy pads K with zero levels to a multiple of 16. A zero
+# level adds nothing to the dot, whatever the activation it meets.
+K_ALIGN = 16
+
+
+@dataclass(frozen=True)
+class WeightMatrix:
+    """int8 weight levels of one layer in the two layouts in use.
+
+    kn: [K, N], K in (ki, kj, c) order — the JAX layout, used by the plain
+        versions and the reference.
+    nk: [N, Kp], K contiguous and zero-padded to Kp = K rounded up to
+        K_ALIGN — the layout the CUDA kernels read.
+    """
+    kn: torch.Tensor
+    nk: torch.Tensor
+
+
+def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
+    """Build both layouts from int8 levels [K, N] (on kn's device)."""
+    if kn.dtype != torch.int8 or kn.ndim != 2:
+        raise TypeError(f"weights must be int8 [K, N], got {kn.dtype} "
+                        f"{tuple(kn.shape)}")
+    k, n = kn.shape
+    kp = -(-k // K_ALIGN) * K_ALIGN
+    nk = torch.zeros((n, kp), dtype=torch.int8, device=kn.device)
+    nk[:, :k] = kn.t()
+    return WeightMatrix(kn=kn.contiguous(), nk=nk)
+
+
+def unpack_levels(w_packed: np.ndarray, k: int, bits: int) -> np.ndarray:
+    """uint32 words [Kw, N] packed along K → int8 levels [k, N]."""
+    w = np.asarray(w_packed, dtype=np.uint32)
+    if bits == 1:
+        shifts = np.arange(32, dtype=np.uint32)
+        bit = (w[:, None, :] >> shifts[None, :, None]) & np.uint32(1)
+        flat = bit.reshape(-1, w.shape[1])[:k].astype(np.int8)
+        return (2 * flat - 1).astype(np.int8)
+    if bits == 2:
+        shifts = 2 * np.arange(16, dtype=np.uint32)
+        code = (w[:, None, :] >> shifts[None, :, None]) & np.uint32(3)
+        flat = code.reshape(-1, w.shape[1])[:k].astype(np.int8)
+        return (2 * flat - 3).astype(np.int8)
+    raise ValueError(f"unsupported packing width bits={bits}")
+
+
+Params = Tuple[List[Dict[str, object]], torch.Tensor, torch.Tensor]
+
+
+def params_from_numpy(config: NetworkConfig,
+                      layers: Sequence[Dict[str, np.ndarray]],
+                      out_scale, out_bias, device) -> Params:
+    """Decode a CompiledNetwork's numpy layers onto `device`.
+
+    Returns `(layers, out_scale, out_bias)`: per config layer `{}` for a
+    pool, else `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr"
+    where the artifact has none, i.e. on the last layer); out_scale and
+    out_bias float32 [num_classes]. The engine publishes this tuple as one
+    unit.
+    """
+    device = torch.device(device)
+    plan = make_plan(config)
+    if len(layers) != len(plan):
+        raise ValueError(f"{len(layers)} parameter layers for a "
+                         f"{len(plan)}-layer network")
+    out = []
+    # np.array copies: the inputs may be read-only (jax or np.load views)
+    for lp, p in zip(plan, layers):
+        if lp.kind == "pool":
+            out.append({})
+            continue
+        if "w_int8" in p:
+            w_lev = np.array(p["w_int8"], dtype=np.int8)
+        else:
+            w_lev = unpack_levels(p["w_packed"], lp.k, config.bits)
+        if w_lev.shape != (lp.k, lp.n):
+            raise ValueError(f"layer weights {w_lev.shape} != "
+                             f"{(lp.k, lp.n)}")
+        q = {"w": weight_matrix(torch.from_numpy(w_lev).to(device))}
+        if "thr" in p:
+            q["thr"] = torch.from_numpy(
+                np.array(p["thr"], dtype=np.int32)).to(device)
+        out.append(q)
+    scale = torch.from_numpy(np.array(out_scale, dtype=np.float32)).to(device)
+    bias = torch.from_numpy(np.array(out_bias, dtype=np.float32)).to(device)
+    return out, scale, bias

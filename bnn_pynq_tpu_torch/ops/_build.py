@@ -1,0 +1,155 @@
+"""Build the CUDA kernels in `csrc/` with nvcc and bind them with ctypes.
+
+The sources compile, on their first use in a process, into one shared
+library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/libbnn_kernels_<hash>.so csrc/*.cu
+
+The library lands in `bnn_pynq_tpu_torch/_build/` (git-ignored), named by
+a hash of the sources and flags, so an edited source builds anew and an
+unchanged one loads at once. nvcc is `$CUDA_HOME/bin/nvcc`, else the
+one on PATH, else `/usr/local/cuda/bin/nvcc`. A failed build raises with
+nvcc's output. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every exported function: c_void_p for pointers (device and
+# host) and the stream, c_int for ints. Each returns a cudaError_t as int.
+_SIGNATURES = {
+    # x, m, k0, w_ptrs, thr_ptrs, kp, n, n_layers, nthr, abits, scale,
+    # bias, out, stream
+    "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                      _P),
+    # x, m, k0, input_levels, w_ptrs, thr_ptrs, kp, n, n_layers, nthr,
+    # abits, out, stream
+    "bnn_dense_block": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                        _P),
+    # x, b, h, w, c, ksize, input_levels, wt, kp, n_out, thr, nthr, abits,
+    # out, stream
+    "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
+                       _P, _P),
+}
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float      # 0.0 when an existing build was loaded
+    build_log: str            # nvcc's output (ptxas register/smem report)
+
+    def call(self, name: str, *args) -> None:
+        """Call an exported launcher; raise if it returns a CUDA error."""
+        rc = getattr(self.lib, name)(*args)
+        if rc != 0:
+            msg = self.lib.bnn_error_string(rc).decode()
+            raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel (thread-safe)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+_lock = threading.Lock()
+_library = None
+
+
+def library() -> KernelLibrary:
+    """The kernel library, built on first use (once per process)."""
+    global _library
+    with _lock:
+        if _library is None:
+            _library = _load()
+        return _library
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + \
+        [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source on first use")
+
+
+def _load() -> KernelLibrary:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    path = BUILD_DIR / f"libbnn_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)     # atomic: a concurrent loader sees all or none
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.bnn_error_string.argtypes = [ctypes.c_int]
+    lib.bnn_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib=lib, path=path, build_seconds=seconds,
+                         build_log=log)
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """Host array of device pointers (None → NULL) for a launcher."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def int_array(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)

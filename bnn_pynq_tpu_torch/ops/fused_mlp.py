@@ -1,0 +1,139 @@
+"""Whole quantized MLP in one kernel: codes in, float logits out.
+
+Port of `bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward` (and its
+`_padded` form: the kernel masks a ragged batch, so there is no padding).
+Per layer: levels · weights → int32, MultiThreshold back to levels; the
+last layer gives `float(acc) * out_scale + out_bias`. The CUDA kernel is
+`csrc/dense_chain.cu` (entry `bnn_fused_mlp`), which `dense_block` shares.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from bnn_pynq_tpu_torch.ops import _build
+from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
+from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
+                                               multithreshold)
+
+MAX_LAYERS = 8   # csrc/dense_chain.cu kMaxLayers
+
+
+def fused_mlp_forward_plain(x_codes, weights, thresholds, out_scale,
+                            out_bias, *, abits: int) -> torch.Tensor:
+    """Plain PyTorch version of `fused_mlp_forward` (same arguments)."""
+    act = codes_to_values(x_codes, abits)
+    for i, w in enumerate(weights):
+        acc = int_matmul_ref(act, w.kn)
+        if i < len(weights) - 1:
+            act = codes_to_values(multithreshold(acc, thresholds[i]), abits)
+    return acc.to(torch.float32) * out_scale + out_bias
+
+
+def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
+                      thresholds: Sequence[torch.Tensor],
+                      out_scale: torch.Tensor, out_bias: torch.Tensor, *,
+                      abits: int) -> torch.Tensor:
+    """Run a whole quantized MLP.
+
+    x_codes: int8 activation codes [B, K0] ({0,1} abits=1 / {0..3} abits=2).
+    weights: WeightMatrix per layer (models/params.py), levels [K_i, N_i].
+    thresholds: int32 [nthr, N_i] for all but the last layer.
+    out_scale/out_bias: float32 [ncls].
+    Returns float32 logits [B, ncls]. A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel.
+    """
+    if len(weights) != len(thresholds) + 1:
+        raise ValueError("need one threshold table per non-final layer")
+    check_chain(x_codes, weights, thresholds)
+    ncls = weights[-1].kn.shape[1]
+    for name, t in (("out_scale", out_scale), ("out_bias", out_bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (ncls,):
+            raise ValueError(f"{name} must be float32 [{ncls}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if x_codes.device.type == "cpu":
+        return fused_mlp_forward_plain(x_codes, weights, thresholds,
+                                       out_scale, out_bias, abits=abits)
+    check_cuda_operands(x_codes, weights, thresholds, out_scale, out_bias)
+    out = torch.empty((x_codes.shape[0], ncls), dtype=torch.float32,
+                      device=x_codes.device)
+    launch_dense_chain(x_codes, weights, thresholds, abits=abits, out=out,
+                       scale=out_scale, bias=out_bias)
+    fused_mlp_forward.launches.add()
+    return out
+
+
+fused_mlp_forward.launches = _build.LaunchCounter()
+
+
+def check_chain(x, weights, thresholds) -> None:
+    """Shapes and dtypes of a dense chain (any device)."""
+    if x.dtype != torch.int8 or x.ndim != 2:
+        raise ValueError(f"x must be int8 [M, K0], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    k_in = x.shape[1]
+    for i, w in enumerate(weights):
+        if w.kn.shape[0] != k_in:
+            raise ValueError(f"layer {i}: weight rows {w.kn.shape[0]} != "
+                             f"input width {k_in}")
+        k_in = w.kn.shape[1]
+    for i, t in enumerate(thresholds):
+        if t.dtype != torch.int32 or t.ndim != 2 or \
+                t.shape[1] != weights[i].kn.shape[1]:
+            raise ValueError(f"layer {i}: thresholds must be int32 "
+                             f"[nthr, {weights[i].kn.shape[1]}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def check_cuda_operands(x, weights, thresholds, *extra) -> None:
+    """What the CUDA launchers take: one CUDA device, contiguous operands,
+    the kernels' weight layout, nthr in 1..3, at most MAX_LAYERS layers."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}; tensors must be "
+                         "on the CPU (plain version) or on CUDA")
+    if len(weights) > MAX_LAYERS:
+        raise ValueError(f"{len(weights)} layers > kernel max {MAX_LAYERS}")
+    nthrs = {t.shape[0] for t in thresholds}
+    if len(nthrs) > 1 or not nthrs <= {1, 2, 3}:
+        raise ValueError(f"threshold counts {sorted(nthrs)}: the kernels "
+                         "take one count in 1..3 for the whole chain")
+    tensors = [x, *[w.nk for w in weights], *thresholds, *extra]
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"operands on {t.device} and {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the kernels take contiguous, 16-byte-aligned "
+                             "tensors")
+    for w in weights:
+        k, n = w.kn.shape
+        if w.nk.dtype != torch.int8 or \
+                tuple(w.nk.shape) != (n, -(-k // 16) * 16):
+            raise ValueError(f"kernel weight layout must be int8 "
+                             f"[{n}, {-(-k // 16) * 16}], got {w.nk.dtype} "
+                             f"{tuple(w.nk.shape)}")
+
+
+def launch_dense_chain(x, weights, thresholds, *, abits: int, out,
+                       input_levels: bool = False, scale=None,
+                       bias=None) -> None:
+    """Launch csrc/dense_chain.cu on x's current stream: `bnn_fused_mlp`
+    (float logits, last layer unthresholded) when scale/bias are given,
+    else `bnn_dense_block` (codes; one threshold table per layer)."""
+    lib = _build.library()
+    nthr = thresholds[0].shape[0] if len(thresholds) else 1
+    thr = list(thresholds) + [None] * (len(weights) - len(thresholds))
+    args = (_build.pointer_array([w.nk for w in weights]),
+            _build.pointer_array(thr),
+            _build.int_array([w.nk.shape[1] for w in weights]),
+            _build.int_array([w.kn.shape[1] for w in weights]),
+            len(weights), nthr, abits)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    m, k0 = x.shape
+    if scale is not None:
+        lib.call("bnn_fused_mlp", x.data_ptr(), m, k0, *args,
+                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(), stream)
+    else:
+        lib.call("bnn_dense_block", x.data_ptr(), m, k0, int(input_levels),
+                 *args, out.data_ptr(), stream)

@@ -1,0 +1,25 @@
+"""Exact integer matmul — the reference the kernels are held against.
+
+Port of `bnn_pynq_tpu/ops/ref.py::int_matmul_ref`. Operands are small
+integers: |a| ≤ 128 (raw image) or ≤ 3 (levels), |w| ≤ 3, so
+|acc| ≤ 27·128·3 for CNV's first conv and ≤ 2304·9 elsewhere.
+
+- CPU: an int32 matmul, accumulating in int32 as the JAX reference does
+  (`preferred_element_type=int32`); no partial sum comes near 2^31.
+  (int64 is as exact and about 5× slower here.)
+- CUDA: torch has no integer matmul there, so a float64 matmul rounded
+  back to int32. Every product and partial sum is an integer far below
+  2^53, so float64 holds it exactly (TF32 does not apply to float64).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [M, K] integer · w [K, N] integer → int32 [M, N], exact."""
+    if a.device.type == "cuda":
+        return torch.matmul(a.to(torch.float64),
+                            w.to(torch.float64)).round_().to(torch.int32)
+    return torch.matmul(a.to(torch.int32), w.to(torch.int32))

@@ -1,0 +1,45 @@
+"""MultiThreshold activation — integer threshold compare.
+
+Port of `bnn_pynq_tpu/ops/thresholds.py`. Given an integer accumulator
+`acc` and per-channel ascending thresholds `thr[nthr, N]`, the output code
+is `code[..., n] = Σ_t (acc[..., n] >= thr[t, n])`, in {0..nthr}:
+1-bit activations have nthr=1 (level 2c-1), 2-bit ones nthr=3 (level
+2c-3). Every compare is int32 against int32; nothing goes through float.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Sentinel thresholds for degenerate channels (gamma == 0 in BN folding):
+# acc is always < THR_NEVER and always >= THR_ALWAYS for any realistic
+# accumulator magnitude (|acc| <= 3 * 128 * K_max << 2^30).
+THR_NEVER = (1 << 30)
+THR_ALWAYS = -(1 << 30)
+
+
+def level_offset(abits: int) -> int:
+    """Level = 2·code − offset: {0,1} → ±1 (abits=1), {0..3} → ±1, ±3."""
+    if abits == 1:
+        return 1
+    if abits == 2:
+        return 3
+    raise ValueError(f"unsupported abits={abits}")
+
+
+def multithreshold(acc: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """acc: int32 [..., N]; thr: int32 [nthr, N] → int8 codes [..., N]."""
+    if acc.dtype != torch.int32 or thr.dtype != torch.int32:
+        raise TypeError(f"multithreshold compares int32 with int32, got "
+                        f"{acc.dtype} and {thr.dtype}")
+    code = (acc >= thr[0]).to(torch.int8)
+    for i in range(1, thr.shape[0]):
+        code += (acc >= thr[i]).to(torch.int8)
+    return code
+
+
+def codes_to_values(codes: torch.Tensor, abits: int) -> torch.Tensor:
+    """Codes → the integer levels the next layer consumes (int8):
+    abits=1: {0,1} → {-1,+1}; abits=2: {0..3} → {-3,-1,1,3}."""
+    off = level_offset(abits)
+    return (2 * codes.to(torch.int8) - off).to(torch.int8)

@@ -1,0 +1,248 @@
+"""The port's slice end to end on the CPU, against the JAX package: the
+kernel route stage by stage, the reference forward, the golden fixtures,
+every pretrained artifact, the batching server, and the port's promises
+(no CPU fallback for a CUDA engine, no jax import)."""
+
+import os
+import re
+import subprocess
+import sys
+import threading
+from concurrent.futures import wait
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bnn_pynq_tpu.models import config as jc
+from bnn_pynq_tpu.models import network as jax_net
+from bnn_pynq_tpu.runtime.engine import InferenceEngine as JaxEngine
+from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+from bnn_pynq_tpu_torch.models import config as pc
+from bnn_pynq_tpu_torch.models import network as port_net
+from bnn_pynq_tpu_torch.models.params import params_from_numpy
+from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
+
+REPO = Path(__file__).resolve().parents[1]
+FIXTURES = REPO / "tests" / "fixtures"
+PRETRAINED = sorted(p.stem for p in (REPO / "pretrained").glob("*.npz"))
+TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_golden_fixtures.py:36
+
+
+def _narrow_cnv(mod, wbits, abits):
+    """CNV topology at 32×32×3, narrowed: every mega stage kind occurs
+    (chain on the raw image, pool, chain on codes, pool, small-spatial
+    block, conv folded into the MLP tail, dense tail)."""
+    return mod.NetworkConfig(
+        name=f"cnv-narrow-w{wbits}a{abits}", wbits=wbits, abits=abits,
+        input_kind="int8", input_shape=(32, 32, 3),
+        layers=(mod.ConvSpec(32), mod.ConvSpec(32), mod.PoolSpec(),
+                mod.ConvSpec(32), mod.ConvSpec(32), mod.PoolSpec(),
+                mod.ConvSpec(64), mod.ConvSpec(64),
+                mod.DenseSpec(64), mod.DenseSpec(64), mod.DenseSpec(10)),
+        num_classes=10, dataset="cifar10")
+
+
+def _both(wbits, abits, seed):
+    """The narrow CNV's random params in both packages + a seeded batch."""
+    jcfg = _narrow_cnv(jc, wbits, abits)
+    pcfg = _narrow_cnv(pc, wbits, abits)
+    params = jax_net.init_random_params(jcfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.01, 1.0, size=10).astype(np.float32)
+    bias = rng.standard_normal(10).astype(np.float32)
+    x = rng.integers(-128, 128, size=(2, 32, 32, 3)).astype(np.int8)
+    layers_np = [{k: np.asarray(v) for k, v in p.items()} for p in params]
+    port = params_from_numpy(pcfg, layers_np, scale, bias, "cpu")
+    return jcfg, pcfg, params, port, scale, bias, x
+
+
+@pytest.mark.parametrize("wbits,abits", [(1, 1), (2, 2)])
+def test_mega_stages_match_jax(wbits, abits):
+    jcfg, pcfg, params, port, scale, bias, x = _both(wbits, abits, 3)
+    decoded = jax_net.decode_params(jcfg, params)
+    jax_out = {}
+    act = jax_net.prepare_input(jcfg, jnp.asarray(x))
+    for name, fn in jax_net.mega_stages(jcfg, decoded, jnp.asarray(scale),
+                                        jnp.asarray(bias), interpret=True):
+        act = fn(act)
+        jax_out[name] = np.asarray(act)
+    layers, t_scale, t_bias = port
+    stages = port_net.mega_stages(pcfg, layers, t_scale, t_bias)
+    assert [n for n, _ in stages] == \
+        [n for n in jax_out if n != "im2col0"] == \
+        ["chain0-1", "pool2", "chain3-4", "pool5", "block6", "mlp_tail"]
+    act = port_net.prepare_input(pcfg, torch.from_numpy(x))
+    for name, fn in stages:
+        act = fn(act)
+        want = jax_out[name]
+        assert act.shape == want.shape, name
+        if name == "mlp_tail":
+            np.testing.assert_allclose(act.numpy(), want, **TOL)
+        else:
+            np.testing.assert_array_equal(act.numpy(), want, err_msg=name)
+
+
+@pytest.mark.parametrize("wbits,abits", [(1, 1), (2, 2)])
+def test_forward_ref_matches_forward_xla_patches(wbits, abits):
+    jcfg, pcfg, params, port, _, _, x = _both(wbits, abits, 4)
+    want = jax_net.forward_xla(jcfg, jax_net.decode_params(jcfg, params),
+                               jnp.asarray(x), conv_mode="patches")
+    got = port_net.forward_ref(pcfg, port[0], torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_forward_ref_matches_forward_xla_mlp():
+    jcfg, pcfg = jc.get_config("sfc-w1a2"), pc.get_config("sfc-w1a2")
+    params = jax_net.init_random_params(jcfg, seed=6)
+    x = np.random.default_rng(6).choice([-1, 1], size=(3, 784)) \
+        .astype(np.int8)
+    want = jax_net.forward_xla(jcfg, jax_net.decode_params(jcfg, params),
+                               jnp.asarray(x))
+    layers = params_from_numpy(
+        pcfg, [{k: np.asarray(v) for k, v in p.items()} for p in params],
+        np.ones(10), np.zeros(10), "cpu")[0]
+    got = port_net.forward_ref(pcfg, layers, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("runtime", ["kernels", "ref"])
+@pytest.mark.parametrize("tag", ["mlp_w1a1", "cnv_w2a2"])
+def test_golden_fixtures(tag, runtime):
+    engine = InferenceEngine.from_artifact(
+        str(FIXTURES / f"golden_{tag}.npz"), device="cpu", runtime=runtime)
+    io = np.load(FIXTURES / f"golden_{tag}_io.npz")
+    np.testing.assert_allclose(engine.logits(io["x"]), io["logits"], **TOL)
+
+
+@pytest.mark.parametrize("name", PRETRAINED)
+def test_pretrained_matches_jax_ref(name):
+    path = str(REPO / "pretrained" / f"{name}.npz")
+    cfg = load_artifact(path).config
+    shape = (2,) + (cfg.input_shape if cfg.input_kind == "int8"
+                    else (28, 28))
+    x = np.random.default_rng(len(name)).integers(0, 256, size=shape,
+                                                  dtype=np.uint8)
+    want = JaxEngine.from_artifact(path, runtime="ref",
+                                   batch_buckets=(2,)).logits(x)
+    for runtime in ("kernels", "ref"):
+        got = InferenceEngine.from_artifact(
+            path, device="cpu", runtime=runtime,
+            batch_buckets=(2,)).logits(x)
+        np.testing.assert_allclose(got, want, **TOL)
+        assert (got.argmax(1) == want.argmax(1)).all()
+
+
+@pytest.mark.parametrize("pipeline_depth", [1, 2])
+def test_batching_server_matches_engine(pipeline_depth):
+    engine = InferenceEngine.from_artifact(
+        str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu")
+    rng = np.random.default_rng(pipeline_depth)
+    x = engine.prepare(rng.integers(0, 256, size=(40, 28, 28),
+                                    dtype=np.uint8))
+    want = engine.classify(x, prepared=True)
+    server = BatchingServer(engine, max_batch=16, max_wait_ms=1.0,
+                            pipeline_depth=pipeline_depth)
+    try:
+        singles = [server.submit(x[i]) for i in range(10)]
+        small = server.submit_many(x[10:15])
+        split = server.submit_many(x[15:40])        # > max_batch: chunked
+        done, pending = wait(singles + [small, split], timeout=60)
+        assert not pending
+    finally:
+        server.stop()
+    assert [f.result() for f in singles] == list(want[:10])
+    np.testing.assert_array_equal(small.result(), want[10:15])
+    np.testing.assert_array_equal(split.result(), want[15:40])
+    assert server.stats.requests == 13 and server.stats.images == 40
+    assert server._busy == 0
+    with pytest.raises(RuntimeError, match="stopped"):
+        server.submit(x[0]).result(timeout=1)
+
+
+def test_busy_counter_survives_thread_contention():
+    """The dispatcher and collector threads both update the busy count; a
+    lost read-modify-write would leave it non-zero. (CPython 3.12 has no
+    thread switch point inside `x += d` on an attribute, so there an
+    unlocked update happens not to lose counts; the lock keeps the
+    contract on interpreters that do switch there.)"""
+    engine = InferenceEngine.from_artifact(
+        str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu")
+    server = BatchingServer(engine, pipeline_depth=1)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(2000):
+                server._add_busy(1)
+                server._add_busy(-1)
+        threads = [threading.Thread(target=work)
+                   for _ in range(4 * (os.cpu_count() or 4))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+        server.stop()
+    assert server._busy == 0
+
+
+def test_engine_surface_and_hot_swap():
+    a = load_artifact(str(REPO / "pretrained" / "sfc-w1a1.npz"))
+    b = load_artifact(str(REPO / "pretrained" / "sfc-w1a2.npz"))
+    engine = InferenceEngine(a, device="cpu", batch_buckets=(4, 16))
+    assert engine._bucket(3) == 4 and engine._bucket(17) == 32
+    padded, n = engine._pad_to_bucket(np.ones((5, 784), np.int8))
+    assert padded.shape == (16, 784) and n == 5 and not padded[5:].any()
+    x = np.random.default_rng(0).integers(0, 256, size=(6, 28, 28),
+                                          dtype=np.uint8)
+    logits = engine.warmup(2).logits(x)
+    assert logits.shape == (6, 10) and engine.usecPerImage > 0
+    np.testing.assert_array_equal(engine.classify(x), logits.argmax(1))
+    assert engine.classify_one(x[2]) == logits[2].argmax()
+    dev_out, n = engine.logits_device(x, argmax=True)
+    np.testing.assert_array_equal(engine.fetch(dev_out)[:n], logits.argmax(1))
+    with pytest.raises(ValueError, match="topology"):
+        engine.load_parameters(b)              # W1A2 into a W1A1 engine
+    other = InferenceEngine.from_artifact(
+        str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu")
+    swapped = load_artifact(str(REPO / "pretrained" / "sfc-w1a1.npz"))
+    swapped.out_bias = swapped.out_bias + 1.0
+    other.load_parameters(swapped)
+    np.testing.assert_allclose(other.logits(x), logits + 1.0, **TOL)
+
+
+def test_cuda_engine_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine.from_artifact(
+            str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cuda")
+    with pytest.raises(ValueError, match="runtime"):
+        InferenceEngine.from_artifact(
+            str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu",
+            runtime="tpu")
+
+
+def test_port_never_imports_jax():
+    code = ("import sys\n"
+            "import bnn_pynq_tpu_torch.runtime.engine\n"
+            "import bnn_pynq_tpu_torch.runtime.serving\n"
+            "import bnn_pynq_tpu_torch.ops.conv_stack\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'bnn_pynq_tpu.')) or m == 'bnn_pynq_tpu']\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+    # no import of either, lazy ones included, anywhere in the port
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|bnn_pynq_tpu)\b(?!_torch)",
+                         re.M)
+    files = list((REPO / "bnn_pynq_tpu_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+    assert not [str(f) for f in files if pattern.search(f.read_text())]
