@@ -1,18 +1,25 @@
 """Inference graph: config + decoded params → forward pass on tensors.
 
-Port of `bnn_pynq_tpu/models/network.py`, two forwards:
+Port of `bnn_pynq_tpu/models/network.py`, three forwards:
 - `forward_mega` / `mega_stages` (← the JAX `mega` route): the network as
   a list of kernel stages and plain glue, with the same stage names as the
   JAX route wherever the stage exists. For CNV: chain0-1 → pool2 →
   chain3-4 → pool5 → block6 → mlp_tail, i.e. `conv_chain` (twice),
   `dense_block` and `fused_mlp_forward`. The JAX route's `im2col0` stage
   is gone: the conv kernel reads the raw image itself.
+- `forward` (← `forward(impl="pallas")`, the packed routes `vpu`, `mxu`,
+  `mxu_rm`): every binary or 2-bit conv and dense layer packs its input
+  codes into words and runs `packed_matmul` (the CUDA kernel
+  `csrc/packed_matmul.cu`); CNV's first, 8-bit conv is a plain exact
+  matmul, as in JAX; pools run on codes. W1A1 bipolar nets also take
+  host-packed words (the `binarizeAndPack` contract).
 - `forward_ref` (← `forward_xla(conv_mode="patches")`): per layer a
   sliding window, an exact int matmul and a MultiThreshold. The port's
   independent reference.
 
 `layers` is the first element of `params_from_numpy`'s result: per config
-layer `{}` (pool) or `{"w": WeightMatrix, "thr": int32 [nthr, N]}`.
+layer `{}` (pool) or `{"w": WeightMatrix, "w_packed": int32 words [Kw, N]
+(packed layers only), "thr": int32 [nthr, N]}`.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ import torch
 
 from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
                                               NetworkConfig, PoolSpec)
-from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
+from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, maxpool2d,
+                                         pack_along_last, sliding_window)
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
@@ -221,6 +230,57 @@ def forward_mega(config: NetworkConfig, layers, x: torch.Tensor,
     for _, fn in mega_stages(config, layers, out_scale, out_bias):
         act = fn(act)
     return act
+
+
+def forward(config: NetworkConfig, layers, x: torch.Tensor, *,
+            route: str = "mxu") -> torch.Tensor:
+    """Packed-route forward: int32 logits [B, num_classes] (scale/bias not
+    applied, as in JAX `forward`).
+
+    x: bipolar nets: int8 values [B, ...] (binarized at > 0), or, for
+       W1A1 only, int32 host-packed words [B, packed_len] (bit = pixel on);
+       int8 nets: int8 levels [B, H, W, C].
+    route: 'vpu' (W1A1 only), 'mxu' or 'mxu_rm' (see ops/matmul.py).
+    """
+    plan = make_plan(config)
+    bits = config.bits
+    packed_input = config.input_kind == "bipolar" and x.dtype == torch.int32
+    if packed_input:
+        if bits != 1:
+            raise ValueError("packed input requires a packed route and a "
+                             "W1A1 network")
+        act = x.reshape(x.shape[0], -1)
+    else:
+        act = prepare_input(config, x)
+
+    for lp, p in zip(plan, layers):
+        thr = None if lp.last else p.get("thr")
+        if lp.kind == "pool":
+            act = maxpool2d(act, lp.window)
+        elif lp.kind == "conv_int8":
+            patches = sliding_window(act, lp.kernel, lp.kernel, lp.stride)
+            b, oh, ow, k = patches.shape
+            acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
+                                 p["w"].kn).reshape(b, oh, ow, lp.n)
+            act = acc if lp.last else multithreshold(acc, thr)
+        elif lp.kind == "conv":
+            act = conv2d_packed(act, p["w_packed"], thr, kernel=lp.kernel,
+                                stride=lp.stride, bits=bits, route=route)
+        else:
+            if act.ndim > 2:
+                act = act.reshape(act.shape[0], -1)
+            if packed_input:
+                a_words, packed_input = act, False
+            else:
+                a_words = pack_along_last(act, bits)
+            act = packed_matmul_padded(a_words, p["w_packed"], thr, k=lp.k,
+                                       bits=bits, route=route)
+    return act
+
+
+def make_forward_fn(config: NetworkConfig, *, route: str = "mxu"):
+    """Return `fn(layers, x) -> int32 logits`, the packed forward."""
+    return partial(forward, config, route=route)
 
 
 def forward_ref(config: NetworkConfig, layers,

@@ -2,12 +2,12 @@
 
 `params_from_numpy` takes the per-layer numpy dicts of a `CompiledNetwork`
 (`w_packed` uint32 words, `w_int8` levels, `thr` int32) and returns the
-port's decoded parameters on a device. Packed words are decoded in numpy,
-following `bnn_pynq_tpu/ops/packing.py`: bit j of word w is element 32w+j
-(1-bit value 2b−1); 2-bit code j sits at bits [2j, 2j+2) (level 2c−3);
-the K padding of the last word is dropped, as
-`bnn_pynq_tpu/models/network.py::decode_params` does. (The decode stays in
-numpy because torch's uint32 tensors have no right shift on the CPU.)
+port's parameters on a device: decoded int8 levels for the `mega` route
+and the reference, and the packed words themselves for the packed routes.
+Words are decoded with ops/packing.py (bit j of word w is element 32w+j,
+1-bit value 2b−1; 2-bit code j sits at bits [2j, 2j+2), level 2c−3); the
+K padding of the last word is dropped, as
+`bnn_pynq_tpu/models/network.py::decode_params` does.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import torch
 
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
 from bnn_pynq_tpu_torch.models.network import make_plan
+from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
+from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 
 # The kernels read K in 16-byte vectors (csrc/dense_tile.cuh, kVec), so
 # their weight copy pads K with zero levels to a multiple of 16. A zero
@@ -54,18 +56,9 @@ def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
 
 def unpack_levels(w_packed: np.ndarray, k: int, bits: int) -> np.ndarray:
     """uint32 words [Kw, N] packed along K → int8 levels [k, N]."""
-    w = np.asarray(w_packed, dtype=np.uint32)
-    if bits == 1:
-        shifts = np.arange(32, dtype=np.uint32)
-        bit = (w[:, None, :] >> shifts[None, :, None]) & np.uint32(1)
-        flat = bit.reshape(-1, w.shape[1])[:k].astype(np.int8)
-        return (2 * flat - 1).astype(np.int8)
-    if bits == 2:
-        shifts = 2 * np.arange(16, dtype=np.uint32)
-        code = (w[:, None, :] >> shifts[None, :, None]) & np.uint32(3)
-        flat = code.reshape(-1, w.shape[1])[:k].astype(np.int8)
-        return (2 * flat - 3).astype(np.int8)
-    raise ValueError(f"unsupported packing width bits={bits}")
+    if bits not in (1, 2):
+        raise ValueError(f"unsupported packing width bits={bits}")
+    return unpack_words(words_to_tensor(w_packed), k, bits, axis=0).numpy()
 
 
 Params = Tuple[List[Dict[str, object]], torch.Tensor, torch.Tensor]
@@ -78,7 +71,9 @@ def params_from_numpy(config: NetworkConfig,
 
     Returns `(layers, out_scale, out_bias)`: per config layer `{}` for a
     pool, else `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr"
-    where the artifact has none, i.e. on the last layer); out_scale and
+    where the artifact has none, i.e. on the last layer), plus
+    `"w_packed"`, the artifact's uint32 words [Kw, N] as an int32 tensor,
+    on every packed layer (all but an 8-bit first conv); out_scale and
     out_bias float32 [num_classes]. The engine publishes this tuple as one
     unit.
     """
@@ -101,6 +96,9 @@ def params_from_numpy(config: NetworkConfig,
             raise ValueError(f"layer weights {w_lev.shape} != "
                              f"{(lp.k, lp.n)}")
         q = {"w": weight_matrix(torch.from_numpy(w_lev).to(device))}
+        if "w_packed" in p:
+            q["w_packed"] = words_to_tensor(
+                np.array(p["w_packed"], dtype=np.uint32)).to(device)
         if "thr" in p:
             q["thr"] = torch.from_numpy(
                 np.array(p["thr"], dtype=np.int32)).to(device)

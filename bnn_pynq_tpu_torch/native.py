@@ -1,0 +1,80 @@
+"""Host packers: the host half of the reference's `binarizeAndPack`.
+
+Port of `bnn_pynq_tpu/native.py::binarize_pack` and `::pack_bits`. Where
+the repo's framework-neutral C++ library `native/libbnn_host.so` has been
+built (`make -C native`), it is bound with ctypes; otherwise the numpy
+bodies run. The two are bit-identical (the JAX package's
+`tests/test_native.py` holds the library to numpy). Both return uint32
+words; `ops.packing.words_to_tensor` views them as int32 for torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+
+from bnn_pynq_tpu_torch.ops.packing import np_pack_bits, packed_len
+
+_LIB_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
+    "libbnn_host.so")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _try_load() -> Optional[ctypes.CDLL]:
+    global _lib
+    with _lock:
+        if _lib is None and os.path.exists(_LIB_PATH):
+            lib = ctypes.CDLL(_LIB_PATH)
+            c_i64 = ctypes.c_int64
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+            u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+            lib.bnn_binarize_pack_u8.argtypes = [u8p, u32p, c_i64, c_i64,
+                                                 ctypes.c_uint8]
+            lib.bnn_pack_bits_i8.argtypes = [i8p, u32p, c_i64, c_i64]
+            _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    """Whether the C++ library is bound (else the numpy bodies run)."""
+    return _try_load() is not None
+
+
+def binarize_pack(imgs: np.ndarray, thresh: int = 128) -> np.ndarray:
+    """uint8 [N, ...] → packed bipolar uint32 [N, ceil(len/32)]; the bit is
+    pixel >= thresh."""
+    imgs = np.ascontiguousarray(imgs.reshape(imgs.shape[0], -1),
+                                dtype=np.uint8)
+    n, length = imgs.shape
+    words = packed_len(length, 1)
+    lib = _try_load()
+    if lib is None:
+        bits = (imgs >= thresh)
+        pad = words * 32 - length
+        if pad:
+            bits = np.pad(bits, ((0, 0), (0, pad)))
+        return (bits.reshape(n, words, 32).astype(np.uint32)
+                << np.arange(32, dtype=np.uint32)).sum(-1).astype(np.uint32)
+    out = np.empty((n, words), dtype=np.uint32)
+    lib.bnn_binarize_pack_u8(imgs, out, n, length, thresh)
+    return out
+
+
+def pack_bits(vals: np.ndarray) -> np.ndarray:
+    """±1 int8 [R, K] → uint32 [R, ceil(K/32)] (bit = v > 0)."""
+    vals = np.ascontiguousarray(vals, dtype=np.int8)
+    r, k = vals.shape
+    lib = _try_load()
+    if lib is None:
+        return np_pack_bits(vals, axis=-1)
+    out = np.empty((r, packed_len(k, 1)), dtype=np.uint32)
+    lib.bnn_pack_bits_i8(vals, out, r, k)
+    return out

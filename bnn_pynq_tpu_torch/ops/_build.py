@@ -1,10 +1,13 @@
 """Build the CUDA kernels in `csrc/` with nvcc and bind them with ctypes.
 
 The sources compile, on their first use in a process, into one shared
-library with a plain C interface:
+library with a plain C interface: one nvcc per source, all started
+together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libbnn_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu       # each, at once
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libbnn_kernels_<hash>.so *.o
 
 The library lands in `bnn_pynq_tpu_torch/_build/` (git-ignored), named by
 a hash of the sources and flags, so an edited source builds anew and an
@@ -28,8 +31,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: c_void_p for pointers (device and
@@ -47,6 +51,8 @@ _SIGNATURES = {
     # out, stream
     "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
                        _P, _P),
+    # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
+    "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
 }
 
 
@@ -113,8 +119,21 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source on first use")
 
 
+def _run(cmds) -> str:
+    """Run nvcc commands in parallel; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _load() -> KernelLibrary:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -123,16 +142,22 @@ def _load() -> KernelLibrary:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+        nvcc = _nvcc()
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            log = _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
+            log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                          *[str(o) for o in objs]]])
+        except RuntimeError:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+            raise
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
         os.replace(tmp, path)     # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -1,6 +1,7 @@
 """Exact integer matmul — the reference the kernels are held against.
 
-Port of `bnn_pynq_tpu/ops/ref.py::int_matmul_ref`. Operands are small
+Port of `bnn_pynq_tpu/ops/ref.py::int_matmul_ref` (and its
+`binary_matmul_ref`, the same dot on ±1 operands). Operands are small
 integers: |a| ≤ 128 (raw image) or ≤ 3 (levels), |w| ≤ 3, so
 |acc| ≤ 27·128·3 for CNV's first conv and ≤ 2304·9 elsewhere.
 
@@ -23,3 +24,9 @@ def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.to(torch.float64),
                             w.to(torch.float64)).round_().to(torch.int32)
     return torch.matmul(a.to(torch.int32), w.to(torch.int32))
+
+
+def binary_matmul_ref(a_pm1: torch.Tensor,
+                      w_pm1: torch.Tensor) -> torch.Tensor:
+    """Binary (±1) matmul reference: int32 exact dot of ±1 operands."""
+    return int_matmul_ref(a_pm1, w_pm1)

@@ -5,9 +5,25 @@ CompiledNetwork's integer parameters onto one device once and serves
 classifications, padding batches to fixed buckets.
 
 Runtimes:
-- 'kernels': the kernel route (models/network.py::forward_mega) — the CUDA
-  kernels on a CUDA device, their plain versions on the CPU.
-- 'ref':     the reference forward (models/network.py::forward_ref).
+- 'kernels': the route's kernels — on a CUDA device the CUDA kernels, on
+  the CPU their plain versions. Routes (models/network.py):
+  - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
+    fused_mlp stage list;
+  - 'vpu' (W1A1 only), 'mxu', 'mxu_rm': the packed `forward`, every
+    binary or 2-bit layer through `packed_matmul` on bit-packed words.
+- 'ref':     the reference forward (models/network.py::forward_ref),
+  whatever the route.
+
+Packed input, the reference's `binarizeAndPack` contract: the host packs
+sign bits into uint32 words (`native.py`), 32× fewer bytes to the device
+than int8 codes.
+- `logits_packed`: W1A1 bipolar nets on the 'mxu'/'vpu' routes; the
+  words go straight into the first packed matmul.
+- `logits_words` / `words_device`: any route of a bipolar net; the words
+  are unpacked to ±1 on the device in front of the route.
+  `BatchingServer` feeds bipolar engines through `words_device`.
+`upload` + `launch_prepared` split a launch into the host→device copy and
+the run on the device-resident batch.
 
 A CUDA engine never runs on the CPU: `device="cuda"` without CUDA raises.
 """
@@ -20,15 +36,19 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
-from bnn_pynq_tpu_torch.models.network import (forward_mega, forward_ref,
-                                               input_shape)
+from bnn_pynq_tpu_torch.models.network import (forward, forward_mega,
+                                               forward_ref, input_shape)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
+from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
+                                            words_to_tensor)
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 RUNTIMES = ("kernels", "ref")
+ROUTES = ("mega", "mxu", "mxu_rm", "vpu")
 
 
 def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
@@ -50,11 +70,17 @@ class InferenceEngine:
     """Loads a CompiledNetwork onto a device and serves classifications."""
 
     def __init__(self, compiled: CompiledNetwork, *, device="cuda",
-                 runtime: str = "kernels",
+                 runtime: str = "kernels", route: str = "mega",
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS):
         if runtime not in RUNTIMES:
             raise ValueError(f"unknown runtime {runtime!r}; one of "
                              f"{RUNTIMES}")
+        if route not in ROUTES:
+            raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
+        if route == "vpu" and runtime == "kernels" and \
+                compiled.config.bits != 1:
+            raise ValueError("route='vpu' (XNOR popcount) requires a W1A1 "
+                             "network")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available; "
@@ -65,6 +91,7 @@ class InferenceEngine:
         self.compiled = compiled
         self.device = device
         self.runtime = runtime
+        self.route = route
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.usecPerImage: Optional[float] = None
         # (layers, out_scale, out_bias), published and read as one unit
@@ -109,17 +136,33 @@ class InferenceEngine:
         return x, b
 
     # -- inference --------------------------------------------------------
-    def _launch(self, x: np.ndarray, argmax: bool) -> torch.Tensor:
-        """Run one padded, prepared batch; returns the device output
-        without waiting for it."""
-        xt = torch.from_numpy(np.require(x, requirements=("C", "W")))
-        xt = xt.to(self.device)
-        layers, out_scale, out_bias = self._state
-        if self.runtime == "kernels":
-            out = forward_mega(self.config, layers, xt, out_scale, out_bias)
+    def upload(self, x_padded: np.ndarray) -> torch.Tensor:
+        """Host→device copy of an already padded batch: prepared int8
+        input, or uint32 words (as their int32 bit pattern)."""
+        x = np.asarray(x_padded)
+        if x.dtype == np.uint32:
+            t = words_to_tensor(x)
         else:
-            out = forward_ref(self.config, layers, xt).to(torch.float32) \
-                * out_scale + out_bias
+            t = torch.from_numpy(np.require(x, requirements=("C", "W")))
+        return t.to(self.device)
+
+    def launch_prepared(self, xd: torch.Tensor, *, argmax: bool = False,
+                        words: bool = False) -> torch.Tensor:
+        """Run on a device-resident, padded batch; returns the device
+        output without waiting for it. words=True: xd holds host-packed
+        sign words, unpacked to ±1 on the device first (any route)."""
+        if words:
+            xd = unpack_bits(xd, int(np.prod(self.config.input_shape)))
+        layers, out_scale, out_bias = self._state
+        if self.runtime == "kernels" and self.route == "mega":
+            out = forward_mega(self.config, layers, xd, out_scale, out_bias)
+        else:
+            if self.runtime == "ref":
+                acc = forward_ref(self.config, layers, xd)
+            else:
+                acc = forward(self.config, layers, xd, route=self.route)
+            # two ops, as JAX computes them: no fused multiply-add
+            out = acc.to(torch.float32) * out_scale + out_bias
         if argmax:
             out = out.argmax(dim=-1).to(torch.int32)
         return out
@@ -135,34 +178,81 @@ class InferenceEngine:
         if not prepared:
             x = self.prepare(x)
         x, b = self._pad_to_bucket(x)
-        return self._launch(x, argmax), b
+        return self.launch_prepared(self.upload(x), argmax=argmax), b
 
-    def _run(self, x: np.ndarray, prepared: bool, argmax: bool):
-        if not prepared:
-            x = self.prepare(x)
+    def _run(self, x: np.ndarray, *, argmax: bool, words: bool = False):
         x, b = self._pad_to_bucket(x)
         t0 = time.perf_counter()
-        out = self.fetch(self._launch(x, argmax))
+        out = self.fetch(self.launch_prepared(self.upload(x), argmax=argmax,
+                                              words=words))
         self.usecPerImage = (time.perf_counter() - t0) * 1e6 / b
         return out[:b]
 
     def logits(self, x: np.ndarray, *, prepared: bool = False) -> np.ndarray:
         """Float logits [B, num_classes]."""
-        return self._run(x, prepared, argmax=False)
+        return self._run(x if prepared else self.prepare(x), argmax=False)
 
     def classify(self, x: np.ndarray, *, prepared: bool = False) -> np.ndarray:
         """Class indices [B] (int32); the argmax runs on the device."""
-        return self._run(x, prepared, argmax=True)
+        return self._run(x if prepared else self.prepare(x), argmax=True)
 
     def classify_one(self, image: np.ndarray) -> int:
         return int(self.classify(image[None])[0])
 
-    def warmup(self, batch: int = 1):
-        """Run both programs once at `batch`'s bucket: builds the kernels
-        (first use in the process) before live traffic."""
+    # -- packed input -----------------------------------------------------
+    def _check_bipolar(self) -> None:
+        if self.config.input_kind != "bipolar":
+            raise ValueError("packed word input is for bipolar-input "
+                             "networks (MLPs); conv nets take int8 images")
+
+    def logits_packed(self, x_uint8: np.ndarray) -> np.ndarray:
+        """Float logits from images binarized and bit-packed on the host;
+        the device consumes the uint32 words directly in the first packed
+        matmul. W1A1 bipolar nets on the 'mxu'/'vpu' routes only."""
+        if self.config.input_kind != "bipolar" or self.config.bits != 1:
+            raise ValueError("packed input is for W1A1 bipolar networks")
+        if self.runtime == "ref" or self.route not in ("mxu", "vpu"):
+            raise ValueError(
+                "packed input requires a packed route ('mxu'/'vpu') on the "
+                f"kernels runtime; route={self.route!r}, runtime="
+                f"{self.runtime!r} consumes int8 codes — use logits_words() "
+                "for the on-device-unpack path")
+        return self._run(native.binarize_pack(x_uint8), argmax=False)
+
+    def logits_words(self, x_uint8: np.ndarray) -> np.ndarray:
+        """Float logits from host-packed sign words, unpacked to ±1 on the
+        device in front of the engine's route (any route, bipolar nets);
+        equal to prepare() + logits()."""
+        self._check_bipolar()
+        return self._run(native.binarize_pack(x_uint8), argmax=False,
+                         words=True)
+
+    def words_device(self, words: np.ndarray, *,
+                     argmax: bool = False) -> Tuple[torch.Tensor, int]:
+        """Launch from host-packed uint32 words [B, Kw] without fetching:
+        the packed-transport twin of logits_device, used by the serving
+        dispatcher for bipolar nets. Returns (device_out, true_batch)."""
+        self._check_bipolar()
+        words, b = self._pad_to_bucket(np.asarray(words, dtype=np.uint32))
+        return self.launch_prepared(self.upload(words), argmax=argmax,
+                                    words=True), b
+
+    def warmup(self, batch: int = 1, *, serving: bool = True):
+        """Run the engine's programs once at `batch`'s bucket: builds the
+        kernels (first use in the process) before live traffic. serving
+        also runs what the server dispatches: the device-argmax launch
+        and, for bipolar nets, the packed-words launches."""
         dummy = np.zeros(input_shape(self.config, batch), dtype=np.int8)
         self.logits(dummy, prepared=True)
-        self.classify(dummy, prepared=True)
+        if serving:
+            outs = [self.logits_device(dummy, prepared=True, argmax=True)[0]]
+            if self.config.input_kind == "bipolar":
+                words = np.zeros((batch, packed_len(
+                    int(np.prod(self.config.input_shape)))), dtype=np.uint32)
+                outs += [self.words_device(words, argmax=am)[0]
+                         for am in (True, False)]
+            for out in outs:
+                self.fetch(out)
         return self
 
     @classmethod

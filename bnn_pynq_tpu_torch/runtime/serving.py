@@ -7,10 +7,17 @@ runs the engine once per batch and resolves per-request futures. With
 `pipeline_depth` >= 2 a collector thread fetches batch t while the
 dispatcher launches batch t+1.
 
+Packed transport: when the engine has `words_device` and its network
+takes bipolar input (the MLPs), the dispatcher packs each batch's sign
+bits into uint32 words on the host (`native.pack_bits`) and launches
+through `engine.words_device`, which unpacks them on the device: 32×
+fewer bytes host→device than int8 values. It needs the pipelined mode.
+
 Changes from the JAX version: results are fetched through
-`engine.fetch(dev_out)` (a CUDA tensor does not go through `np.asarray`),
-the busy counter is guarded by a lock, and the packed-word transport and
-upload stage are not ported (the engine has no packed input path).
+`engine.fetch(dev_out)` (a CUDA tensor does not go through `np.asarray`)
+and the busy counter is guarded by a lock. The JAX version's upload
+pipeline stage (a separate uploader thread) is not ported: it hides a
+slow remote host→device link, and no measurement on the card asks for it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
 import numpy as np
+
+from bnn_pynq_tpu_torch import native
 
 # Latency samples kept for percentile estimation: bounded, so a long-lived
 # server does not grow its stats without limit.
@@ -90,6 +99,12 @@ class BatchingServer:
         self.pipeline_depth = (
             pipeline_depth if hasattr(engine, "logits_device")
             and hasattr(engine, "fetch") else 1)
+        # bipolar (MLP) engines: host-packed words, unpacked on the device
+        self.packed_transport = bool(
+            self.pipeline_depth > 1
+            and getattr(getattr(engine, "config", None), "input_kind",
+                        None) == "bipolar"
+            and hasattr(engine, "words_device"))
         self.stats = ServerStats()
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         # one-slot carry-over: a request _collect could not fit without
@@ -341,8 +356,13 @@ class BatchingServer:
             self._last_dispatch = time.perf_counter()
             try:
                 if self.pipeline_depth > 1:
-                    dev_out, b = self.engine.logits_device(
-                        xs, prepared=True, argmax=not self.return_logits)
+                    if self.packed_transport:
+                        dev_out, b = self.engine.words_device(
+                            native.pack_bits(xs.reshape(len(xs), -1)),
+                            argmax=not self.return_logits)
+                    else:
+                        dev_out, b = self.engine.logits_device(
+                            xs, prepared=True, argmax=not self.return_logits)
                     if not self._put_bounded(self._inflight,
                                              (batch, dev_out, b)):
                         self._fail(batch, RuntimeError("server stopped"))

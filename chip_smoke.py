@@ -16,7 +16,20 @@ Phases (every check raises, so any failure exits non-zero):
    1024 seeded images, with every kernel's launch count read around it;
    logits against runtime="ref" on the card; images/s of both runtimes;
 5. the same agreement for lfc-w1a1 (whole net in fused_mlp) and cnv-w2a2;
-6. a BatchingServer over the CUDA CNV-W1A1 engine answering 68 requests.
+6. a BatchingServer over the CUDA CNV-W1A1 engine answering 68 requests;
+7. packed_matmul (csrc/packed_matmul.cu) against its plain version, every
+   arm: 'vpu' at all eight packed layers of CNV-W1A1 at batch 1024,
+   'mxu' and 'mxu_rm' at its conv1/conv4/conv7/dense-512 shapes, 'mxu'
+   at CNV-W2A2's (bits=2), and 'vpu'/'mxu' at LFC-W1A1's 784→1024 (K
+   ragged) and 1024→1024 layers; codes and int32 exactly equal;
+8. the packed routes: InferenceEngine(cnv-w1a1, route="vpu").classify of
+   the 1024 images with the packed kernel's launch counts read around it
+   (and no plain packed_matmul call), logits against runtime="ref";
+   the same for cnv-w2a2 route="mxu" and lfc-w1a1 route="vpu";
+9. packed input on lfc-w1a1: logits_packed and logits_words equal logits
+   (route "vpu"), logits_words equals logits on route "mega";
+10. a BatchingServer over the lfc-w1a1 "vpu" engine with the packed
+   transport (words_device) answering 68 requests.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -130,10 +143,66 @@ def _kernel_cases(torch, device):
     return cases
 
 
-def _engine_check(torch, name, images, label):
-    """Kernel engine vs ref engine on the card; returns both img/s."""
+def _packed_cases(torch, device):
+    """(case label, route, wrapper fn, plain fn, main path?) for
+    packed_matmul at the packed routes' shapes, batch 1024: the pretrained
+    words and thresholds, activation words from a seeded generator (pad
+    bits zero, as the packers leave them)."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.network import make_plan
+    from bnn_pynq_tpu_torch.models.params import params_from_numpy
+    from bnn_pynq_tpu_torch.ops import matmul, packing
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = []
+    plan_arms = (("cnv-w1a1", ("vpu",), None, True),
+                 ("cnv-w1a1", ("mxu", "mxu_rm"), (1, 4, 7, 9), False),
+                 ("cnv-w2a2", ("mxu",), (1, 4, 7, 9), False),
+                 ("lfc-w1a1", ("vpu", "mxu"), (0, 1), False))
+    for name, routes, only, main in plan_arms:
+        c = load_artifact(_artifact(name))
+        bits = c.config.bits
+        layers = params_from_numpy(c.config, c.layers, c.out_scale,
+                                   c.out_bias, device)[0]
+        h, w, _ = c.config.input_shape
+        for i, lp in enumerate(make_plan(c.config)):
+            if lp.kind == "pool":
+                h, w = h // lp.window, w // lp.window
+                continue
+            m = BATCH
+            if lp.kind != "dense":
+                h = (h - lp.kernel) // lp.stride + 1
+                w = (w - lp.kernel) // lp.stride + 1
+                m = BATCH * h * w
+            if lp.kind == "conv_int8" or (only and i not in only):
+                continue
+            kw = packing.packed_len(lp.k, bits)
+            a = torch.randint(-2 ** 31, 2 ** 31, (m, kw), generator=gen,
+                              device=device, dtype=torch.int32)
+            valid = 32 - packing.pad_amount(lp.k, bits) * bits
+            if valid < 32:
+                a[:, -1] &= (1 << valid) - 1
+            kw_args = dict(thr=layers[i].get("thr") if not lp.last else None,
+                           k=lp.k, bits=bits)
+            for route in routes:
+                label = (f"{name} layer{i} {route} M={m} K={lp.k} N={lp.n}"
+                         f"{' int32' if lp.last else ''}")
+                cases.append((
+                    label, route,
+                    lambda a=a, wp=layers[i]["w_packed"], kw=kw_args, r=route:
+                        matmul.packed_matmul(a, wp, route=r, **kw),
+                    lambda a=a, wp=layers[i]["w_packed"], kw=kw_args, r=route:
+                        matmul.packed_matmul_plain(a, wp, route=r, **kw),
+                    main))
+    return cases
+
+
+def _engine_check(torch, name, images, label, route="mega"):
+    """Kernel engine vs ref engine on the card; returns the kernel engine
+    (and prints both img/s)."""
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
-    eng = InferenceEngine.from_artifact(_artifact(name), device="cuda")
+    eng = InferenceEngine.from_artifact(_artifact(name), device="cuda",
+                                        route=route)
     ref = InferenceEngine.from_artifact(_artifact(name), device="cuda",
                                         runtime="ref")
     got = eng.logits(images)
@@ -143,7 +212,7 @@ def _engine_check(torch, name, images, label):
     np.testing.assert_allclose(got, want, **TOL)
     assert (got.argmax(1) == want.argmax(1)).all(), f"{name}: argmax"
     rates = {}
-    for rt, e in (("kernels", eng), ("ref", ref)):
+    for rt, e in ((route, eng), ("ref", ref)):
         e.classify(images)
         walls = []
         for _ in range(5):
@@ -153,9 +222,30 @@ def _engine_check(torch, name, images, label):
         rates[rt] = len(images) / float(np.median(walls))
     print(f"engine {label}: logits == ref (max |diff| "
           f"{float(np.abs(got - want).max()):.3g}), argmax equal; "
-          f"images/s kernels {rates['kernels']:.1f}, ref {rates['ref']:.1f} "
+          f"images/s {route} {rates[route]:.1f}, ref {rates['ref']:.1f} "
           f"(batch {len(images)}, host clock, median of 5)")
     return eng
+
+
+def _serve_68(BatchingServer, eng, prepared, label):
+    """68 requests (64 single, 4 of 16) through a BatchingServer; each
+    answer must be engine.classify's. Returns the server (stopped)."""
+    want = eng.classify(prepared, prepared=True)
+    server = BatchingServer(eng, max_batch=256, max_wait_ms=2.0)
+    try:
+        singles = [server.submit(prepared[i]) for i in range(64)]
+        groups = [server.submit_many(prepared[64 + 16 * j:80 + 16 * j])
+                  for j in range(4)]
+        got_single = np.array([f.result(timeout=120) for f in singles])
+        got_many = np.concatenate([f.result(timeout=120) for f in groups])
+    finally:
+        server.stop()
+    assert (got_single == want[:64]).all(), f"{label}: submit answers differ"
+    assert (got_many == want[64:]).all(), \
+        f"{label}: submit_many answers differ"
+    print(f"serving {label}: 68 requests answered as engine.classify; "
+          f"stats {json.dumps(server.stats.summary())}")
+    return server
 
 
 def main() -> int:
@@ -164,7 +254,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    from bnn_pynq_tpu_torch.ops import _build, conv_stack, fused_mlp
+    from bnn_pynq_tpu_torch.ops import _build, conv_stack, fused_mlp, matmul
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
     from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
 
@@ -232,32 +322,98 @@ def main() -> int:
     _engine_check(torch, "lfc-w1a1", mnist, "lfc-w1a1")
     _engine_check(torch, "cnv-w2a2", images, "cnv-w2a2")
 
-    # -- 6. serving ---------------------------------------------------------------
-    prepared = eng.prepare(images[:128])
-    want = eng.classify(prepared, prepared=True)
-    server = BatchingServer(eng, max_batch=256, max_wait_ms=2.0)
+    # -- 6. serving -----------------------------------------------------------
+    _serve_68(BatchingServer, eng, eng.prepare(images[:128]), "cnv-w1a1")
+
+    # -- 7. packed_matmul against its plain version ---------------------------
+    packed = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for label, route, kern, plain, main in _packed_cases(torch, device):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        err = float((got.double() - want.double()).abs().max())
+        assert torch.equal(got, want), f"{label}: kernel != plain"
+        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        packed["max_abs_err"] = max(packed["max_abs_err"], err)
+        if main:                  # cnv-w1a1 'vpu': time per forward
+            packed["ms"] += ms
+            packed["plain_ms"] += plain_ms
+
+    # -- 8. the packed routes -------------------------------------------------
+    arms = matmul.packed_matmul.launches
+    plain_calls = []
+    plain_fn = matmul.packed_matmul_plain
+    matmul.packed_matmul_plain = \
+        lambda *a, **kw: plain_calls.append(1) or plain_fn(*a, **kw)
     try:
-        singles = [server.submit(prepared[i]) for i in range(64)]
-        groups = [server.submit_many(prepared[64 + 16 * j:80 + 16 * j])
-                  for j in range(4)]
-        got_single = np.array([f.result(timeout=120) for f in singles])
-        got_many = np.concatenate([f.result(timeout=120) for f in groups])
+        veng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"),
+                                             device="cuda", route="vpu")
+        for c in arms.values():
+            c.reset()
+        vpred = veng.classify(images)
+        torch.cuda.synchronize()
+        arm_launches = {r: c.value for r, c in arms.items()}
+        launches["packed_matmul"] = sum(arm_launches.values())
+        print(f"packed path: cnv-w1a1 route=vpu classify batch {BATCH}, "
+              f"packed_matmul launches {arm_launches}, plain calls "
+              f"{len(plain_calls)}")
+        assert arm_launches["vpu"] > 0, "packed path never launched vpu"
+        assert not plain_calls, "a CUDA route ran the plain version"
+        assert vpred.shape == (BATCH,) and vpred.min() >= 0 \
+            and vpred.max() < 10
+        veng = _engine_check(torch, "cnv-w1a1", images, "cnv-w1a1 vpu",
+                             route="vpu")
+        assert (veng.classify(images) == vpred).all()
+        for c in arms.values():
+            c.reset()
+        _engine_check(torch, "cnv-w2a2", images, "cnv-w2a2 mxu",
+                      route="mxu")
+        assert arms["mxu"].value > 0, "mxu arm never launched"
+        lfc = _engine_check(torch, "lfc-w1a1", mnist, "lfc-w1a1 vpu",
+                            route="vpu")
+
+        # -- 9. packed input --------------------------------------------------
+        std = lfc.logits(mnist)
+        assert np.array_equal(lfc.logits_packed(mnist), std), \
+            "logits_packed != logits"
+        assert np.array_equal(lfc.logits_words(mnist), std), \
+            "logits_words != logits (vpu)"
+        mega = InferenceEngine.from_artifact(_artifact("lfc-w1a1"),
+                                             device="cuda")
+        assert np.array_equal(mega.logits_words(mnist), mega.logits(mnist)), \
+            "logits_words != logits (mega)"
+        print("packed input: lfc-w1a1 logits_packed == logits_words == "
+              "logits (vpu); logits_words == logits (mega)")
+
+        # -- 10. serving through the packed transport -------------------------
+        words_calls = []
+        words_device = lfc.words_device
+        lfc.words_device = lambda w, **kw: \
+            words_calls.append(w.shape) or words_device(w, **kw)
+        server = _serve_68(BatchingServer, lfc, lfc.prepare(mnist[:128]),
+                           "lfc-w1a1 vpu packed transport")
+        assert server.packed_transport and words_calls, \
+            "the server did not use words_device"
+        print(f"packed transport: {len(words_calls)} words_device batches, "
+              f"word shapes {sorted(set(words_calls))}")
+        assert not plain_calls, "a CUDA route ran the plain version"
     finally:
-        server.stop()
-    assert (got_single == want[:64]).all(), "submit answers differ"
-    assert (got_many == want[64:]).all(), "submit_many answers differ"
-    print(f"serving: 68 requests answered as engine.classify; "
-          f"stats {json.dumps(server.stats.summary())}")
+        matmul.packed_matmul_plain = plain_fn
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                            "bnn_pynq_tpu/ops/conv_stack.py:282"),
            "conv_chain": ("bnn_pynq_tpu_torch/csrc/conv_chain.cu",
-                          "bnn_pynq_tpu/ops/conv_stack.py:65")}
+                          "bnn_pynq_tpu/ops/conv_stack.py:65"),
+           "packed_matmul": ("bnn_pynq_tpu_torch/csrc/packed_matmul.cu",
+                             "bnn_pynq_tpu/ops/matmul.py:160")}
+    results["packed_matmul"] = packed
     kernels = [{"name": k, "route": "cuda", "source": src[k][0],
                 "replaces": src[k][1], "launches": launches[k],
-                **results[k]} for k in counters]
+                **results[k]} for k in src]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -234,6 +234,8 @@ def test_port_never_imports_jax():
             "import bnn_pynq_tpu_torch.runtime.engine\n"
             "import bnn_pynq_tpu_torch.runtime.serving\n"
             "import bnn_pynq_tpu_torch.ops.conv_stack\n"
+            "import bnn_pynq_tpu_torch.ops.matmul\n"
+            "import bnn_pynq_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'bnn_pynq_tpu.')) or m == 'bnn_pynq_tpu']\n"
             "assert not bad, bad\n")
