@@ -47,11 +47,6 @@ struct ConvArgs {
   int pixels;          // b * oh * ow
 };
 
-// Four code bytes {0..3} → levels 2c - off, byte-wise (2c <= 6: no carry).
-__device__ __forceinline__ unsigned codes_to_levels4(unsigned u, int off) {
-  return __vsub4(u + u, 0x01010101u * static_cast<unsigned>(off));
-}
-
 __global__ void __launch_bounds__(kThreads) conv_kernel(const ConvArgs a) {
   extern __shared__ __align__(16) int8_t patches[];  // [kConvRows, kp]
   __shared__ size_t row_base[kConvRows];             // x offset of (oy, ox)

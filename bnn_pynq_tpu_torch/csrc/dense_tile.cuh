@@ -28,6 +28,11 @@ constexpr int kMaxSmem = 227 * 1024;        // H100: 232,448 bytes a block
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+// Four code bytes {0..3} → levels 2c - off, byte-wise (2c <= 6: no carry).
+__device__ __forceinline__ unsigned codes_to_levels4(unsigned u, int off) {
+  return __vsub4(u + u, 0x01010101u * static_cast<unsigned>(off));
+}
+
 enum Epilogue : int {
   kLevelsToShared = 0,   // threshold → next layer's levels, in shared memory
   kCodesToGlobal = 1,    // threshold → int8 codes, in device memory

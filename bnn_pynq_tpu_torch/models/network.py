@@ -1,6 +1,6 @@
 """Inference graph: config + decoded params → forward pass on tensors.
 
-Port of `bnn_pynq_tpu/models/network.py`, three forwards:
+Port of `bnn_pynq_tpu/models/network.py`, four forwards:
 - `forward_mega` / `mega_stages` (← the JAX `mega` route): the network as
   a list of kernel stages and plain glue, with the same stage names as the
   JAX route wherever the stage exists. For CNV: chain0-1 → pool2 →
@@ -13,6 +13,10 @@ Port of `bnn_pynq_tpu/models/network.py`, three forwards:
   `csrc/packed_matmul.cu`); CNV's first, 8-bit conv is a plain exact
   matmul, as in JAX; pools run on codes. W1A1 bipolar nets also take
   host-packed words (the `binarizeAndPack` contract).
+- `forward_direct` (← `forward_direct`, the `direct` route): every binary
+  or 2-bit conv runs `conv2d_direct` (the CUDA kernel
+  `csrc/conv_direct.cu`), on codes, with no im2col; CNV's first, 8-bit
+  conv and the dense layers are plain exact matmuls, as in JAX.
 - `forward_ref` (← `forward_xla(conv_mode="patches")`): per layer a
   sliding window, an exact int matmul and a MultiThreshold. The port's
   independent reference.
@@ -35,6 +39,7 @@ from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
                                               NetworkConfig, PoolSpec)
 from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, maxpool2d,
                                          pack_along_last, sliding_window)
+from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
@@ -287,26 +292,48 @@ def forward_ref(config: NetworkConfig, layers,
                 x: torch.Tensor) -> torch.Tensor:
     """Reference forward: int32 logits [B, num_classes] (scale/bias not
     applied, as in `forward_xla`)."""
-    plan = make_plan(config)
     act = prepare_input(config, x)
-    for lp, p in zip(plan, layers):
-        if lp.kind == "pool":
-            act = maxpool2d(act, lp.window)
-            continue
-        if lp.kind == "conv_int8":
-            vals = act        # raw int8 image, already levels
+    for lp, p in zip(make_plan(config), layers):
+        act = _ref_layer(config, lp, p, act)
+    return act
+
+
+def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
+               act: torch.Tensor) -> torch.Tensor:
+    """One layer of `forward_ref`: pool, or sliding window + exact int
+    matmul + MultiThreshold (int32 accumulators on the last layer)."""
+    if lp.kind == "pool":
+        return maxpool2d(act, lp.window)
+    if lp.kind == "conv_int8":
+        vals = act        # raw int8 image, already levels
+    else:
+        if act.ndim > 2 and lp.kind == "dense":
+            act = act.reshape(act.shape[0], -1)
+        vals = codes_to_values(act, config.abits)
+    if lp.kind in ("conv", "conv_int8"):
+        patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
+        b, oh, ow, k = patches.shape
+        acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
+                             p["w"].kn).reshape(b, oh, ow, lp.n)
+    else:
+        acc = int_matmul_ref(vals, p["w"].kn)
+    return acc if lp.last else multithreshold(acc, p["thr"])
+
+
+def forward_direct(config: NetworkConfig, layers,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Direct-route forward: int32 logits [B, num_classes] (scale/bias not
+    applied, as in JAX `forward_direct`). Every 'conv' layer runs
+    `conv2d_direct` on codes (int32 out on a last layer); pools, the 8-bit
+    first conv and dense layers are `forward_ref`'s."""
+    act = prepare_input(config, x)
+    for lp, p in zip(make_plan(config), layers):
+        if lp.kind == "conv":
+            act = conv2d_direct(act, p["w"], None if lp.last else p["thr"],
+                                kernel=lp.kernel, abits=config.abits,
+                                stride=lp.stride)
         else:
-            if act.ndim > 2 and lp.kind == "dense":
-                act = act.reshape(act.shape[0], -1)
-            vals = codes_to_values(act, config.abits)
-        if lp.kind in ("conv", "conv_int8"):
-            patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
-            b, oh, ow, k = patches.shape
-            acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
-                                 p["w"].kn).reshape(b, oh, ow, lp.n)
-        else:
-            acc = int_matmul_ref(vals, p["w"].kn)
-        act = acc if lp.last else multithreshold(acc, p["thr"])
+            act = _ref_layer(config, lp, p, act)
     return act
 
 

@@ -53,6 +53,14 @@ _SIGNATURES = {
                        _P, _P),
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
     "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
+    # x, b, h, w, c, ksize, wt, wstride, n_out, thr, nthr, abits, out,
+    # stream
+    "bnn_conv_direct": (_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P,
+                        _P),
+    # x, b, h, w, c, ksize, input_levels, w_ptrs, wstrides, n_outs,
+    # thr_ptrs, n_layers, nthr, abits, out, stream
+    "bnn_conv_chain_direct": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _I, _I, _I, _P, _P),
 }
 
 

@@ -10,7 +10,9 @@ Runtimes:
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
     fused_mlp stage list;
   - 'vpu' (W1A1 only), 'mxu', 'mxu_rm': the packed `forward`, every
-    binary or 2-bit layer through `packed_matmul` on bit-packed words.
+    binary or 2-bit layer through `packed_matmul` on bit-packed words;
+  - 'direct': `forward_direct`, every binary or 2-bit conv through
+    `conv2d_direct` (no im2col); an MLP runs no conv kernel there.
 - 'ref':     the reference forward (models/network.py::forward_ref),
   whatever the route.
 
@@ -40,15 +42,16 @@ from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
-from bnn_pynq_tpu_torch.models.network import (forward, forward_mega,
-                                               forward_ref, input_shape)
+from bnn_pynq_tpu_torch.models.network import (forward, forward_direct,
+                                               forward_mega, forward_ref,
+                                               input_shape)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 RUNTIMES = ("kernels", "ref")
-ROUTES = ("mega", "mxu", "mxu_rm", "vpu")
+ROUTES = ("mega", "mxu", "mxu_rm", "vpu", "direct")
 
 
 def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
@@ -159,6 +162,8 @@ class InferenceEngine:
         else:
             if self.runtime == "ref":
                 acc = forward_ref(self.config, layers, xd)
+            elif self.route == "direct":
+                acc = forward_direct(self.config, layers, xd)
             else:
                 acc = forward(self.config, layers, xd, route=self.route)
             # two ops, as JAX computes them: no fused multiply-add

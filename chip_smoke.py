@@ -29,7 +29,18 @@ Phases (every check raises, so any failure exits non-zero):
 9. packed input on lfc-w1a1: logits_packed and logits_words equal logits
    (route "vpu"), logits_words equals logits on route "mega";
 10. a BatchingServer over the lfc-w1a1 "vpu" engine with the packed
-   transport (words_device) answering 68 requests.
+   transport (words_device) answering 68 requests;
+11. conv2d_direct and conv_chain_direct (csrc/conv_direct.cu) against
+   their plain versions, exactly: CNV-W1A1's five direct-path layers,
+   CNV-W2A2's layer 1, an int32 (no thresholds), a 5×5 and a stride-2
+   case; both chains of both nets, printed beside conv_chain's time at
+   the same shapes (phase 3);
+12. the direct route: InferenceEngine(cnv-w1a1, route="direct").classify
+   of the 1024 images with conv2d_direct's launch count read around it
+   (5) and no plain call, logits against runtime="ref"; the same for
+   cnv-w2a2;
+13. a BatchingServer over the cnv-w1a1 "direct" engine answering 68
+   requests.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -197,6 +208,72 @@ def _packed_cases(torch, device):
     return cases
 
 
+def _direct_cases(torch, device):
+    """(kernel name, case label, wrapper fn, plain fn, main path?) for the
+    direct kernels at batch 1024, from the pretrained weights and seeded
+    inputs. The chain labels are phase 3's conv_chain labels."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
+                                                  weight_matrix)
+    from bnn_pynq_tpu_torch.ops import conv_direct as cd
+
+    rng = np.random.default_rng(3)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    def codes(shape, abits):
+        return dev(rng.integers(0, 2 ** abits, size=shape).astype(np.int8))
+
+    def conv(name, label, x, main=False, **kw):
+        return ("conv2d_direct", f"{name} {label} {tuple(x.shape)}",
+                lambda: cd.conv2d_direct(x, **kw),
+                lambda: cd.conv2d_direct_plain(x, **kw), main)
+
+    cases = []
+    for name in ("cnv-w1a1", "cnv-w2a2"):
+        c = load_artifact(_artifact(name))
+        ab = c.config.abits
+        layers = params_from_numpy(c.config, c.layers, c.out_scale,
+                                   c.out_bias, device)[0]
+        w1a1 = name == "cnv-w1a1"
+        # the direct path's conv layers: (plan index, input H = W, C)
+        for i, hw, ch in ((1, 30, 64), (3, 14, 64), (4, 12, 128),
+                          (6, 5, 128), (7, 3, 256))[:5 if w1a1 else 1]:
+            cases.append(conv(name, f"layer{i}", codes((BATCH, hw, hw, ch),
+                                                       ab), main=w1a1,
+                              w=layers[i]["w"], thr=layers[i]["thr"],
+                              kernel=3, abits=ab))
+        image = dev(rng.integers(-128, 128, size=(BATCH, 32, 32, 3))
+                    .astype(np.int8))
+        x34 = codes((BATCH, 14, 14, 64), ab)
+        for label, x, js, levels in (("chain0-1", image, (0, 1), True),
+                                     ("chain3-4", x34, (3, 4), False)):
+            kw = dict(weights=[layers[j]["w"] for j in js],
+                      thresholds=[layers[j]["thr"] for j in js],
+                      kernel=3, abits=ab, input_levels=levels)
+            cases.append(
+                ("conv_chain_direct", f"{name} {label} {tuple(x.shape)}",
+                 lambda x=x, kw=kw: cd.conv_chain_direct(x, **kw),
+                 lambda x=x, kw=kw: cd.conv_chain_direct_plain(x, **kw),
+                 w1a1))
+        if w1a1:
+            x1 = codes((BATCH, 30, 30, 64), 1)
+            w5 = weight_matrix(dev(rng.choice([-1, 1], size=(25 * 64, 64))
+                                   .astype(np.int8)))
+            t5 = dev(np.sort(rng.integers(-200, 200, size=(1, 64)), axis=0)
+                     .astype(np.int32))
+            cases += [
+                conv(name, "layer1 int32", x1, w=layers[1]["w"], kernel=3,
+                     abits=1),
+                conv(name, "layer1 stride 2", x1, w=layers[1]["w"],
+                     thr=layers[1]["thr"], kernel=3, abits=1, stride=2),
+                conv(name, "5x5 random weights", codes((BATCH, 14, 14, 64),
+                                                       1),
+                     w=w5, thr=t5, kernel=5, abits=1)]
+    return cases
+
+
 def _engine_check(torch, name, images, label, route="mega"):
     """Kernel engine vs ref engine on the card; returns the kernel engine
     (and prints both img/s)."""
@@ -254,7 +331,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    from bnn_pynq_tpu_torch.ops import _build, conv_stack, fused_mlp, matmul
+    from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
+                                        fused_mlp, matmul)
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
     from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
 
@@ -283,6 +361,7 @@ def main() -> int:
                 "conv_chain": conv_stack.conv_chain.launches}
     results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
                for k in counters}
+    chain_ms = {}                 # conv_chain's time per case label
     for kname, label, kern, plain, kind_out in _kernel_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -295,6 +374,8 @@ def main() -> int:
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
         print(f"{kname:11s} {label}: max |kernel - plain| {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if kname == "conv_chain":
+            chain_ms[label] = ms
         r = results[kname]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if label.startswith("cnv-w1a1"):    # main-path time per forward
@@ -402,6 +483,67 @@ def main() -> int:
     finally:
         matmul.packed_matmul_plain = plain_fn
 
+    # -- 11. the direct kernels against their plain versions -----------------
+    direct_counters = {"conv2d_direct": conv_direct.conv2d_direct.launches,
+                       "conv_chain_direct":
+                           conv_direct.conv_chain_direct.launches}
+    for k in direct_counters:
+        results[k] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for kname, label, kern, plain, main in _direct_cases(torch, device):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        err = float((got.double() - want.double()).abs().max())
+        assert torch.equal(got, want), f"{label}: kernel != plain"
+        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        beside = (f"; conv_chain {chain_ms[label]:.4f} ms"
+                  if label in chain_ms else "")
+        print(f"{kname} {label}: max |kernel - plain| {err:.3g}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
+        r = results[kname]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:       # cnv-w1a1: the five direct layers, the two chains
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+
+    # -- 12. the direct route -------------------------------------------------
+    direct_plain = []
+    plain_fns = (conv_direct.conv2d_direct_plain,
+                 conv_direct.conv_chain_direct_plain)
+    conv_direct.conv2d_direct_plain = \
+        lambda *a, **kw: direct_plain.append(1) or plain_fns[0](*a, **kw)
+    conv_direct.conv_chain_direct_plain = \
+        lambda *a, **kw: direct_plain.append(1) or plain_fns[1](*a, **kw)
+    try:
+        deng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"),
+                                             device="cuda", route="direct")
+        for c in direct_counters.values():
+            c.reset()
+        dpred = deng.classify(images)
+        torch.cuda.synchronize()
+        launches.update({k: c.value for k, c in direct_counters.items()})
+        print(f"direct path: cnv-w1a1 route=direct classify batch {BATCH}, "
+              f"launches conv2d_direct {launches['conv2d_direct']}, "
+              f"conv_chain_direct {launches['conv_chain_direct']} (no "
+              f"route calls it, as in JAX), plain calls {len(direct_plain)}")
+        assert launches["conv2d_direct"] == 5, "direct path: 5 conv layers"
+        assert not direct_plain, "a CUDA route ran the plain version"
+        assert dpred.shape == (BATCH,) and dpred.min() >= 0 \
+            and dpred.max() < 10
+        deng = _engine_check(torch, "cnv-w1a1", images, "cnv-w1a1 direct",
+                             route="direct")
+        assert (deng.classify(images) == dpred).all()
+        _engine_check(torch, "cnv-w2a2", images, "cnv-w2a2 direct",
+                      route="direct")
+
+        # -- 13. serving on the direct route ----------------------------------
+        _serve_68(BatchingServer, deng, deng.prepare(images[:128]),
+                  "cnv-w1a1 direct")
+        assert not direct_plain, "a CUDA route ran the plain version"
+    finally:
+        (conv_direct.conv2d_direct_plain,
+         conv_direct.conv_chain_direct_plain) = plain_fns
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
@@ -409,7 +551,11 @@ def main() -> int:
            "conv_chain": ("bnn_pynq_tpu_torch/csrc/conv_chain.cu",
                           "bnn_pynq_tpu/ops/conv_stack.py:65"),
            "packed_matmul": ("bnn_pynq_tpu_torch/csrc/packed_matmul.cu",
-                             "bnn_pynq_tpu/ops/matmul.py:160")}
+                             "bnn_pynq_tpu/ops/matmul.py:160"),
+           "conv2d_direct": ("bnn_pynq_tpu_torch/csrc/conv_direct.cu",
+                             "bnn_pynq_tpu/ops/conv_direct.py:54"),
+           "conv_chain_direct": ("bnn_pynq_tpu_torch/csrc/conv_direct.cu",
+                                 "bnn_pynq_tpu/ops/conv_direct.py:170")}
     results["packed_matmul"] = packed
     kernels = [{"name": k, "route": "cuda", "source": src[k][0],
                 "replaces": src[k][1], "launches": launches[k],

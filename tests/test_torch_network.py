@@ -234,6 +234,7 @@ def test_port_never_imports_jax():
             "import bnn_pynq_tpu_torch.runtime.engine\n"
             "import bnn_pynq_tpu_torch.runtime.serving\n"
             "import bnn_pynq_tpu_torch.ops.conv_stack\n"
+            "import bnn_pynq_tpu_torch.ops.conv_direct\n"
             "import bnn_pynq_tpu_torch.ops.matmul\n"
             "import bnn_pynq_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
