@@ -61,6 +61,20 @@ _SIGNATURES = {
     # thr_ptrs, n_layers, nthr, abits, out, stream
     "bnn_conv_chain_direct": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                               _I, _I, _I, _P, _P),
+    # the Mosaic probes (csrc/mosaic_probes.cu)
+    # x, m, c, w, taps, n, out, stream
+    "bnn_probe_lane_concat": (_P, _I, _I, _P, _I, _I, _P, _P),
+    "bnn_probe_scratch_lane_store": (_P, _I, _I, _P, _I, _I, _P, _P),
+    # x, rows, c, out, stream
+    "bnn_probe_mid_dim_index": (_P, _I, _I, _P, _P),
+    # x, bb, h, w, c, out, stream
+    "bnn_probe_pool_reshape_max": (_P, _I, _I, _I, _I, _P, _P),
+    # x, rows_in, c, stride, out, stream
+    "bnn_probe_strided_row_slice": (_P, _I, _I, _I, _P, _P),
+    # x, m, n, lo, width, out, stream
+    "bnn_probe_lane_slice_64": (_P, _I, _I, _I, _I, _P, _P),
+    # x, rows, group, c, out, stream
+    "bnn_probe_int32_acc_reshape": (_P, _I, _I, _I, _P, _P),
 }
 
 

@@ -8,7 +8,11 @@ Runtimes:
 - 'kernels': the route's kernels — on a CUDA device the CUDA kernels, on
   the CPU their plain versions. Routes (models/network.py):
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
-    fused_mlp stage list;
+    fused_mlp stage list. The JAX package's decoded-integer routes 's2d'
+    (its default), 'xla' and 'xlaconv' compute the same function in
+    other TPU layouts, so they run this stage list too;
+  - 'fused' (all-dense nets only, as in JAX): the whole net in one
+    fused_mlp launch, which is what `forward_mega` runs on an MLP;
   - 'vpu' (W1A1 only), 'mxu', 'mxu_rm': the packed `forward`, every
     binary or 2-bit layer through `packed_matmul` on bit-packed words;
   - 'direct': `forward_direct`, every binary or 2-bit conv through
@@ -41,7 +45,7 @@ import torch
 from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
-from bnn_pynq_tpu_torch.models.config import NetworkConfig
+from bnn_pynq_tpu_torch.models.config import DenseSpec, NetworkConfig
 from bnn_pynq_tpu_torch.models.network import (forward, forward_direct,
                                                forward_mega, forward_ref,
                                                input_shape)
@@ -51,7 +55,10 @@ from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 RUNTIMES = ("kernels", "ref")
-ROUTES = ("mega", "mxu", "mxu_rm", "vpu", "direct")
+# routes that run forward_mega (the JAX package's names for the same
+# decoded-integer forward, and 'fused', its all-dense special case)
+MEGA_ROUTES = ("mega", "s2d", "xla", "xlaconv", "fused")
+ROUTES = MEGA_ROUTES + ("mxu", "mxu_rm", "vpu", "direct")
 
 
 def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
@@ -84,6 +91,10 @@ class InferenceEngine:
                 compiled.config.bits != 1:
             raise ValueError("route='vpu' (XNOR popcount) requires a W1A1 "
                              "network")
+        if route == "fused" and runtime == "kernels" and not all(
+                isinstance(s, DenseSpec) for s in compiled.config.layers):
+            raise ValueError("route='fused' (the whole net in one fused_mlp "
+                             "launch) supports all-dense MLPs only")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available; "
@@ -157,7 +168,7 @@ class InferenceEngine:
         if words:
             xd = unpack_bits(xd, int(np.prod(self.config.input_shape)))
         layers, out_scale, out_bias = self._state
-        if self.runtime == "kernels" and self.route == "mega":
+        if self.runtime == "kernels" and self.route in MEGA_ROUTES:
             out = forward_mega(self.config, layers, xd, out_scale, out_bias)
         else:
             if self.runtime == "ref":

@@ -13,11 +13,15 @@ bits into uint32 words on the host (`native.pack_bits`) and launches
 through `engine.words_device`, which unpacks them on the device: 32×
 fewer bytes host→device than int8 values. It needs the pipelined mode.
 
+Upload stage (`upload_pipeline=True`, off by default as in JAX): the
+dispatcher only packs and pads each batch; an uploader thread, two
+batches ahead at most, copies it to the device (`engine.upload`) and
+launches it (`engine.launch_prepared`); the collector fetches. It needs
+the engine's upload/launch split and turns itself off without it.
+
 Changes from the JAX version: results are fetched through
 `engine.fetch(dev_out)` (a CUDA tensor does not go through `np.asarray`)
-and the busy counter is guarded by a lock. The JAX version's upload
-pipeline stage (a separate uploader thread) is not ported: it hides a
-slow remote host→device link, and no measurement on the card asks for it.
+and the busy counter is guarded by a lock.
 """
 
 from __future__ import annotations
@@ -84,8 +88,13 @@ class BatchingServer:
 
     def __init__(self, engine, max_batch: int = 256,
                  max_wait_ms: float = 2.0, return_logits: bool = False,
-                 pipeline_depth: int = 2, adaptive_wait: bool = True):
+                 pipeline_depth: int = 2, adaptive_wait: bool = True,
+                 upload_pipeline: bool = False):
         """pipeline_depth: batches in flight at once (1 = synchronous).
+
+        upload_pipeline: {upload ∥ launch ∥ fetch} in three threads; needs
+        the pipelined mode and the engine's `upload`, `launch_prepared`
+        and `_pad_to_bucket`, else it is off.
 
         adaptive_wait: when no batch is in flight, the queue is empty and
         nothing was dispatched within the last max_wait, a lone request is
@@ -116,12 +125,23 @@ class BatchingServer:
         self._busy_lock = threading.Lock()
         self._last_dispatch = 0.0
         self._stop = threading.Event()
+        self.upload_pipeline = bool(
+            upload_pipeline and self.pipeline_depth > 1
+            and hasattr(engine, "upload")
+            and hasattr(engine, "launch_prepared")
+            and hasattr(engine, "_pad_to_bucket"))
         if self.pipeline_depth > 1:
             self._inflight: "queue.Queue" = queue.Queue(
                 maxsize=self.pipeline_depth - 1)
             self._collector = threading.Thread(target=self._collect_loop,
                                                daemon=True)
             self._collector.start()
+        if self.upload_pipeline:
+            # at most two padded batches queued ahead of the uploader
+            self._upload_q: "queue.Queue" = queue.Queue(maxsize=2)
+            self._uploader = threading.Thread(target=self._upload_loop,
+                                              daemon=True)
+            self._uploader.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -191,6 +211,28 @@ class BatchingServer:
         self._stop.set()
         self._q.put(None)
         self._thread.join(timeout=10)
+        if self.upload_pipeline:
+            try:
+                self._upload_q.put(None, timeout=5)
+            except queue.Full:
+                pass
+            self._uploader.join(timeout=30)
+            # run the accepted batches that were never uploaded, so that
+            # their requests get answers, not "server stopped"
+            try:
+                while True:
+                    item = self._upload_q.get_nowait()
+                    if item is None:
+                        continue
+                    batch, padded, b = item
+                    try:
+                        outs = self.engine.fetch(self._launch(padded))[:b]
+                    except Exception as e:
+                        self._fail(batch, e)
+                        continue
+                    self._resolve(batch, outs)
+            except queue.Empty:
+                pass
         if self.pipeline_depth > 1:
             # drop the sentinel rather than deadlock if the collector is
             # wedged inside a device fetch (it is a daemon thread)
@@ -245,6 +287,8 @@ class BatchingServer:
         return n_imgs + r.n_images
 
     def _downstream_full(self) -> bool:
+        if self.upload_pipeline and self._upload_q.full():
+            return True
         return self.pipeline_depth > 1 and self._inflight.full()
 
     def _collect(self) -> List[_Request]:
@@ -330,6 +374,28 @@ class BatchingServer:
         except queue.Full:
             return False
 
+    def _launch(self, padded: np.ndarray):
+        """Upload a padded batch and launch it; the device output."""
+        return self.engine.launch_prepared(
+            self.engine.upload(padded), argmax=not self.return_logits,
+            words=self.packed_transport)
+
+    def _upload_loop(self):
+        """Upload stage: copy the next padded batch to the device and
+        launch it while the collector waits on earlier fetches."""
+        while True:
+            item = self._upload_q.get()
+            if item is None:
+                return
+            batch, padded, b = item
+            try:
+                dev_out = self._launch(padded)
+            except Exception as e:
+                self._fail(batch, e)
+                continue
+            if not self._put_bounded(self._inflight, (batch, dev_out, b)):
+                self._fail(batch, RuntimeError("server stopped"))
+
     def _collect_loop(self):
         """Pipelined fetch stage: waits on batch t's device→host fetch
         while the dispatcher launches t+1."""
@@ -355,6 +421,17 @@ class BatchingServer:
             self._add_busy(1)
             self._last_dispatch = time.perf_counter()
             try:
+                if self.upload_pipeline:
+                    # host side only: pack and pad, then hand the batch to
+                    # the uploader (copy + launch) → collector (fetch)
+                    arr = xs
+                    if self.packed_transport:
+                        arr = native.pack_bits(xs.reshape(len(xs), -1))
+                    padded, b = self.engine._pad_to_bucket(arr)
+                    if not self._put_bounded(self._upload_q,
+                                             (batch, padded, b)):
+                        self._fail(batch, RuntimeError("server stopped"))
+                    continue
                 if self.pipeline_depth > 1:
                     if self.packed_transport:
                         dev_out, b = self.engine.words_device(

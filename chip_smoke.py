@@ -40,12 +40,28 @@ Phases (every check raises, so any failure exits non-zero):
    (5) and no plain call, logits against runtime="ref"; the same for
    cnv-w2a2;
 13. a BatchingServer over the cnv-w1a1 "direct" engine answering 68
+   requests;
+14. the seven Mosaic probes (csrc/mosaic_probes.cu) against their plain
+   versions, exactly, at JAX's inputs, at seeded random ones (int8 over
+   its full range, int32 over ±2^30) and at ragged random shapes (the
+   kernels' scalar paths); then their entry point,
+   `bnn_pynq_tpu_torch.tools.mosaic_probes --device cuda`: 7 PASS lines,
+   every probe kernel launched, no plain call;
+15. the serving entry points on cnv-w1a1: `http_server.serve` on the card
+   (POST /classify of 128 images == engine.classify, /healthz, /stats,
+   /reload 200 with the same artifact and 409 with lfc-w1a1, the HTTP
+   round trip's p50/p99 over 50 POSTs), a Frontend over a "mega" and a
+   "direct" HTTP backend answering 64 requests, `cli bench --classify` at
+   batch 1024, and a BatchingServer with the upload stage answering 68
    requests.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import functools
+import io
 import json
 import os
 import subprocess
@@ -304,11 +320,12 @@ def _engine_check(torch, name, images, label, route="mega"):
     return eng
 
 
-def _serve_68(BatchingServer, eng, prepared, label):
+def _serve_68(BatchingServer, eng, prepared, label, **server_kw):
     """68 requests (64 single, 4 of 16) through a BatchingServer; each
     answer must be engine.classify's. Returns the server (stopped)."""
     want = eng.classify(prepared, prepared=True)
-    server = BatchingServer(eng, max_batch=256, max_wait_ms=2.0)
+    server = BatchingServer(eng, max_batch=256, max_wait_ms=2.0,
+                            **server_kw)
     try:
         singles = [server.submit(prepared[i]) for i in range(64)]
         groups = [server.submit_many(prepared[64 + 16 * j:80 + 16 * j])
@@ -323,6 +340,236 @@ def _serve_68(BatchingServer, eng, prepared, label):
     print(f"serving {label}: 68 requests answered as engine.classify; "
           f"stats {json.dumps(server.stats.summary())}")
     return server
+
+
+# the TPU probe each port probe replaces (tools/mosaic_probes.py)
+PROBE_LINES = {"probe_lane_concat": 37, "probe_scratch_lane_store": 57,
+               "probe_mid_dim_index": 79, "probe_pool_reshape_max": 94,
+               "probe_strided_row_slice": 115, "probe_lane_slice_64": 129,
+               "probe_int32_acc_reshape": 143}
+
+
+def _probe_cases(torch, device):
+    """(probe name, label, inputs) for each probe: JAX's inputs (ones, and
+    the wrapped arange for the pool), then seeded random ones of the same
+    shapes and dtypes (int8 over its full range, int32 over ±2^30), then
+    random ones at ragged shapes."""
+    from bnn_pynq_tpu_torch.ops import probes
+
+    rng = np.random.default_rng(4)
+    m, c = probes.M, probes.C
+    dot = {"x": (m + 128, c), "w": (probes.K * c, probes.O)}
+    shapes = {"probe_lane_concat": dot, "probe_scratch_lane_store": dot,
+              "probe_lane_slice_64": {"x": (m, 256)}}
+    # widths that are not multiples of 16 bytes take each kernel's scalar
+    # path: (input shapes, options)
+    rdot = ({"x": (40, 20), "w": (60, 13)}, {"m": 37})
+    ragged = {"probe_lane_concat": rdot, "probe_scratch_lane_store": rdot,
+              "probe_mid_dim_index": ({"x": (38, 20)}, {}),
+              "probe_pool_reshape_max": ({"x": (120, 20)},
+                                         {"bb": 2, "h": 6, "w": 10}),
+              "probe_strided_row_slice": ({"x": (37, 20)}, {"stride": 3}),
+              "probe_lane_slice_64": ({"x": (37, 136)}, {}),
+              "probe_int32_acc_reshape": ({"x": (36, 6)}, {})}
+
+    def ones(shape, dtype):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def draw(shape, dtype):
+        lo, hi = (-128, 128) if dtype == torch.int8 else (-2 ** 30, 2 ** 30)
+        return torch.from_numpy(rng.integers(lo, hi, size=shape)).to(
+            dtype).to(device)
+
+    cases = []
+    for fn in probes.PROBES:
+        name = fn.__name__
+        dtype = torch.int32 if name == "probe_int32_acc_reshape" \
+            else torch.int8
+        arg_shapes = shapes.get(name, {"x": (m, c)})
+        jax_in = {k: ones(s, dtype) for k, s in arg_shapes.items()}
+        if name == "probe_pool_reshape_max":
+            jax_in = {"x": probes.pool_input(device=device)}
+        cases.append((name, "JAX inputs", jax_in))
+        cases.append((name, "random inputs",
+                      {k: draw(s, dtype) for k, s in arg_shapes.items()}))
+        r_shapes, opts = ragged[name]
+        cases.append((name, "ragged inputs",
+                      {**{k: draw(s, dtype) for k, s in r_shapes.items()},
+                       **opts}))
+    return cases
+
+
+def _http(url, body=None):
+    """(status, body bytes) of one request; non-200 answers too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                    timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _npz(x):
+    buf = io.BytesIO()
+    np.savez(buf, x=x)
+    return buf.getvalue()
+
+
+def _probe_phase(torch, device, kind, results, launches):
+    """Phase 14: each probe kernel against its plain version, then the
+    probes' entry point on the card with every plain version counted."""
+    from bnn_pynq_tpu_torch.ops import probes
+    from bnn_pynq_tpu_torch.tools import mosaic_probes as probe_tool
+    for fn in probes.PROBES:
+        results[fn.__name__] = {"max_abs_err": 0.0, "ms": 0.0,
+                                "plain_ms": 0.0}
+    for name, label, inputs in _probe_cases(torch, device):
+        kern = functools.partial(getattr(probes, name), **inputs)
+        plain = functools.partial(getattr(probes, name + "_plain"), **inputs)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        err = float((got.double() - want.double()).abs().max())
+        assert torch.equal(got, want), f"{name} {label}: kernel != plain"
+        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        print(f"{name} {label} {tuple(got.shape)}: max |kernel - plain| "
+              f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if label == "JAX inputs":        # the entry point's inputs
+            r["ms"], r["plain_ms"] = ms, plain_ms
+
+    # the probes' path: their entry point on the card, no plain call
+    probe_plain = []
+    plain_fns = {fn.__name__: getattr(probes, fn.__name__ + "_plain")
+                 for fn in probes.PROBES}
+    for name, f in plain_fns.items():
+        setattr(probes, name + "_plain",
+                lambda *a, _f=f, **kw: probe_plain.append(1) or _f(*a, **kw))
+    try:
+        for fn in probes.PROBES:
+            fn.launches.reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = probe_tool.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        launches.update({fn.__name__: fn.launches.value
+                         for fn in probes.PROBES})
+    finally:
+        for name, f in plain_fns.items():
+            setattr(probes, name + "_plain", f)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  mosaic_probes: {line}")
+    assert rc == 0 and lines[0] == f"backend: {kind}", lines[:1]
+    assert [l.split()[0] for l in lines[1:]] == ["PASS"] * 7, lines
+    assert not probe_plain, "the probe tool ran a plain version"
+    for fn in probes.PROBES:
+        assert launches[fn.__name__] == 1, f"{fn.__name__} never launched"
+    print(f"probe path: 7 PASS, launches "
+          f"{ {fn.__name__: launches[fn.__name__] for fn in probes.PROBES} }"
+          f", plain calls {len(probe_plain)}")
+
+
+def _serving_entry_points(torch, images, counters):
+    """Phase 15: the HTTP server, /reload, a Frontend over a 'mega' and a
+    'direct' backend, `cli bench` and the upload stage, all on the card."""
+    from bnn_pynq_tpu_torch import cli
+    from bnn_pynq_tpu_torch.ops import conv_direct
+    from bnn_pynq_tpu_torch.runtime import http_server
+    from bnn_pynq_tpu_torch.runtime.frontend import (BackendHandle,
+                                                     Frontend, HttpBackend)
+    from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
+
+    servers = []
+    backends = []
+    fe = None
+    try:
+        for route in ("mega", "direct"):
+            servers.append(http_server.serve(
+                _artifact("cnv-w1a1"), device="cuda", route=route, port=0,
+                block=False))
+        (httpd, batcher), (httpd_d, _) = servers
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        eng = batcher.engine
+        x = images[:128]
+        want = eng.classify(x)
+        for c in counters.values():
+            c.reset()
+        code, body = _http(url + "/classify", _npz(x))
+        torch.cuda.synchronize()
+        assert code == 200, (code, body[:200])
+        got = json.loads(body)["classes"]
+        assert got == want.tolist(), "HTTP /classify != engine.classify"
+        http_launches = {k: c.value for k, c in counters.items()}
+        assert all(n > 0 for n in http_launches.values()), http_launches
+        assert _http(url + "/healthz") == (200, b"ok")
+        code, body = _http(url + "/stats")
+        stats = json.loads(body)
+        assert code == 200 and stats["images"] >= 128, stats
+        with open(_artifact("cnv-w1a1"), "rb") as f:
+            code, body = _http(url + "/reload", f.read())
+        assert code == 200 and json.loads(body) == \
+            {"reloaded": "cnv-w1a1"}, (code, body)
+        code, body = _http(url + "/classify", _npz(x))
+        assert code == 200 and json.loads(body)["classes"] == got, \
+            "answers changed after reloading the same artifact"
+        with open(_artifact("lfc-w1a1"), "rb") as f:
+            code, _ = _http(url + "/reload", f.read())
+        assert code == 409, f"/reload lfc-w1a1 gave {code}, not 409"
+        body = _npz(x)
+        walls = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            code, _ = _http(url + "/classify", body)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert code == 200
+        print(f"http: cnv-w1a1 POST /classify of 128 images == "
+              f"engine.classify, launches {http_launches}; /healthz, "
+              f"/stats, /reload 200 (same artifact), 409 (lfc-w1a1); round "
+              f"trip p50 {np.percentile(walls, 50):.2f} ms, p99 "
+              f"{np.percentile(walls, 99):.2f} ms (50 POSTs, host clock)")
+
+        # a Frontend over the two HTTP backends, round robin
+        for h, _ in servers:
+            hb = HttpBackend(f"http://127.0.0.1:{h.server_address[1]}")
+            backends.append(hb)
+        fe = Frontend([BackendHandle(r, hb, probe=hb.probe)
+                       for r, hb in zip(("mega", "direct"), backends)],
+                      heartbeat_s=1.0)
+        direct = conv_direct.conv2d_direct.launches
+        direct.reset()
+        futs = [fe.submit(images[i]) for i in range(64)]
+        got = np.array([f.result(timeout=120) for f in futs])
+        torch.cuda.synchronize()
+        assert (got == want[:64]).all(), "Frontend answers != classify"
+        assert direct.value > 0, "the direct backend ran no conv2d_direct"
+        assert fe.healthy_backends() == ["mega", "direct"]
+        print(f"frontend: 64 requests over a mega and a direct HTTP backend "
+              f"== engine.classify (conv2d_direct launches {direct.value})")
+    finally:
+        if fe is not None:
+            fe.stop()
+        for hb in backends:
+            hb.close()
+        for h, b in servers:
+            h.shutdown()
+            h.server_close()
+            b.stop()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["bench", _artifact("cnv-w1a1"), "--batch", str(BATCH),
+                  "--classify"])
+    bench = json.loads(out.getvalue().splitlines()[-1])
+    assert bench["path"] == "classify" and bench["images_per_sec"] > 0
+    print(f"cli bench: {json.dumps(bench)}")
+
+    server = _serve_68(BatchingServer, eng, eng.prepare(images[:128]),
+                       "cnv-w1a1 upload stage", upload_pipeline=True)
+    assert server.upload_pipeline, "the upload stage was off"
 
 
 def main() -> int:
@@ -544,6 +791,12 @@ def main() -> int:
         (conv_direct.conv2d_direct_plain,
          conv_direct.conv_chain_direct_plain) = plain_fns
 
+    # -- 14. the Mosaic probes --------------------------------------------
+    _probe_phase(torch, device, kind, results, launches)
+
+    # -- 15. the serving entry points on the card -------------------------
+    _serving_entry_points(torch, images, counters)
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
@@ -556,6 +809,9 @@ def main() -> int:
                              "bnn_pynq_tpu/ops/conv_direct.py:54"),
            "conv_chain_direct": ("bnn_pynq_tpu_torch/csrc/conv_direct.cu",
                                  "bnn_pynq_tpu/ops/conv_direct.py:170")}
+    for name, line in PROBE_LINES.items():
+        src[name] = ("bnn_pynq_tpu_torch/csrc/mosaic_probes.cu",
+                     f"tools/mosaic_probes.py:{line}")
     results["packed_matmul"] = packed
     kernels = [{"name": k, "route": "cuda", "source": src[k][0],
                 "replaces": src[k][1], "launches": launches[k],

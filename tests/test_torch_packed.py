@@ -396,7 +396,7 @@ def test_packed_inputs_reject_what_jax_rejects():
         with pytest.raises(ValueError):
             call()
     with pytest.raises(ValueError, match="route"):
-        InferenceEngine(w1a1, device="cpu", route="s2d")
+        InferenceEngine(w1a1, device="cpu", route="bogus")
     with pytest.raises(ValueError, match="W1A1"):
         InferenceEngine(w1a2, device="cpu", route="vpu")
 
