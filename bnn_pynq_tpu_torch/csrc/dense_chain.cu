@@ -1,11 +1,11 @@
-// Chained quantized dense layers in one kernel.
+// A whole quantized MLP in one kernel: chained dense layers, codes in, float
+// logits out.
 //
-// Replaces two TPU kernels that share one body in the JAX package:
-//   bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward (whole MLP, float
-//     logits out: SFC/LFC, and CNV's tail with conv6 folded in)
-//   bnn_pynq_tpu/ops/conv_stack.py::dense_block (all layers thresholded,
-//     int8 codes out: CNV's conv5 on B·9 im2col rows)
-// Entry points: bnn_fused_mlp and bnn_dense_block.
+// Replaces bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward (SFC/LFC, and
+// CNV's tail with conv6 folded in). Entry point: bnn_fused_mlp.
+// (bnn_pynq_tpu/ops/conv_stack.py::dense_block, which shares this body in
+// the JAX package, has its own tensor-core kernel here: dense_block.cu,
+// entry bnn_dense_block.)
 //
 // One block owns a tile of kChainRows rows. The tile's activations stay in
 // shared memory as int8 levels for the whole chain, ping-ponged between two
@@ -20,8 +20,8 @@
 // on chip and reuses each 16-byte weight load across kChainRows rows held
 // in registers; the activation tile is small (2 × 8 rows × the widest K:
 // 36 KB for the CNV tail), which leaves room for several blocks per SM.
-// Moving the dots to int8 mma/wgmma with weight tiles staged by TMA is
-// later work.
+// Moving these dots to the int8 mma of mma_tile.cuh, with weight slices
+// staged in shared memory, is later work.
 #include "dense_tile.cuh"
 
 namespace bnn {
@@ -32,10 +32,9 @@ constexpr int kChainRows = 8;   // rows of a block's tile
 constexpr int kChainRpt = 8;    // rows a thread computes per weight load
 
 struct ChainArgs {
-  const int8_t* x;              // [m, k0] codes (or levels if input_levels)
+  const int8_t* x;              // [m, k0] codes
   int m;
   int k0;
-  int input_levels;
   int n_layers;
   int nthr;
   int level_off;
@@ -44,8 +43,7 @@ struct ChainArgs {
   const int32_t* thr[kMaxLayers];
   int kp[kMaxLayers];
   int n[kMaxLayers];
-  int8_t* out_codes;            // dense_block: [m, n_last]
-  float* out_logits;            // fused_mlp: [m, n_last]
+  float* out_logits;            // [m, n_last]
   const float* scale;
   const float* bias;
 };
@@ -63,8 +61,7 @@ dense_chain_kernel(const ChainArgs a) {
     const int8_t* src = a.x + static_cast<size_t>(row0 + r) * a.k0;
     for (int k = threadIdx.x; k < a.k0; k += blockDim.x) {
       const int8_t v = src[k];
-      buf[0][r * a.stride + k] =
-          a.input_levels ? v : static_cast<int8_t>(2 * v - a.level_off);
+      buf[0][r * a.stride + k] = static_cast<int8_t>(2 * v - a.level_off);
     }
   }
   __syncthreads();
@@ -73,16 +70,10 @@ dense_chain_kernel(const ChainArgs a) {
   for (int l = 0; l < a.n_layers; ++l) {
     const bool last = l == a.n_layers - 1;
     TileOut o;
-    o.mode = !last ? kLevelsToShared
-                   : (a.out_logits ? kLogitsToGlobal : kCodesToGlobal);
+    o.mode = last ? kLogitsToGlobal : kLevelsToShared;
     o.next = buf[cur ^ 1];
     o.next_stride = a.stride;
-    o.codes = a.out_codes
-                  ? a.out_codes + static_cast<size_t>(row0) * a.n[l]
-                  : nullptr;
-    o.logits = a.out_logits
-                   ? a.out_logits + static_cast<size_t>(row0) * a.n[l]
-                   : nullptr;
+    o.logits = a.out_logits + static_cast<size_t>(row0) * a.n[l];
     o.scale = a.scale;
     o.bias = a.bias;
     layer_tile<kChainRows, kChainRpt>(buf[cur], a.stride, rows, a.w[l],
@@ -94,16 +85,13 @@ dense_chain_kernel(const ChainArgs a) {
 }
 
 // w_ptrs / thr_ptrs: host arrays of n_layers device pointers; kp / n: host
-// int arrays of n_layers entries. thr_ptrs[n_layers - 1] is unused when
-// out_logits is set.
-int launch_chain(const void* x, int m, int k0, int input_levels,
-                 const void* w_ptrs, const void* thr_ptrs, const void* kp,
-                 const void* n, int n_layers, int nthr, int abits,
-                 void* out_codes, void* out_logits, const void* scale,
-                 const void* bias, void* stream) {
+// int arrays of n_layers entries. thr_ptrs[n_layers - 1] is unused.
+int launch_chain(const void* x, int m, int k0, const void* w_ptrs,
+                 const void* thr_ptrs, const void* kp, const void* n,
+                 int n_layers, int nthr, int abits, void* out_logits,
+                 const void* scale, const void* bias, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || nthr < 1 || nthr > kMaxThr ||
-      (abits != 1 && abits != 2) || m < 0 || k0 < 1 ||
-      (out_codes == nullptr) == (out_logits == nullptr)) {
+      (abits != 1 && abits != 2) || m < 0 || k0 < 1 || out_logits == nullptr) {
     return cudaErrorInvalidValue;
   }
   if (m == 0) return cudaSuccess;
@@ -116,7 +104,6 @@ int launch_chain(const void* x, int m, int k0, int input_levels,
   a.x = static_cast<const int8_t*>(x);
   a.m = m;
   a.k0 = k0;
-  a.input_levels = input_levels;
   a.n_layers = n_layers;
   a.nthr = nthr;
   a.level_off = abits == 1 ? 1 : 3;
@@ -132,7 +119,6 @@ int launch_chain(const void* x, int m, int k0, int input_levels,
     a.n[l] = ns[l];
     a.stride = a.stride > kps[l] ? a.stride : kps[l];
   }
-  a.out_codes = static_cast<int8_t*>(out_codes);
   a.out_logits = static_cast<float*>(out_logits);
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
@@ -157,19 +143,8 @@ int bnn_fused_mlp(const void* x, int m, int k0, const void* w_ptrs,
                   const void* thr_ptrs, const void* kp, const void* n,
                   int n_layers, int nthr, int abits, const void* scale,
                   const void* bias, void* out, void* stream) {
-  return bnn::launch_chain(x, m, k0, 0, w_ptrs, thr_ptrs, kp, n, n_layers,
-                           nthr, abits, nullptr, out, scale, bias, stream);
-}
-
-// dense_block: x codes (or levels) [m, k0] → int8 codes [m, n_last]; every
-// layer is thresholded.
-int bnn_dense_block(const void* x, int m, int k0, int input_levels,
-                    const void* w_ptrs, const void* thr_ptrs, const void* kp,
-                    const void* n, int n_layers, int nthr, int abits,
-                    void* out, void* stream) {
-  return bnn::launch_chain(x, m, k0, input_levels, w_ptrs, thr_ptrs, kp, n,
-                           n_layers, nthr, abits, out, nullptr, nullptr,
-                           nullptr, stream);
+  return bnn::launch_chain(x, m, k0, w_ptrs, thr_ptrs, kp, n, n_layers, nthr,
+                           abits, out, scale, bias, stream);
 }
 
 const char* bnn_error_string(int err) {

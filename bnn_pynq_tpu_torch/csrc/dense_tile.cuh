@@ -1,5 +1,6 @@
-// Shared body of the port's kernels: one quantized layer for a tile of rows
-// whose int8 levels sit in shared memory. Each thread owns one output
+// Shared constants and helpers of the port's kernels, and the dp4a body of
+// the whole-MLP kernel (dense_chain.cu): one quantized layer for a tile of
+// rows whose int8 levels sit in shared memory. Each thread owns one output
 // column n and RPT rows: it streams weight row n (K contiguous, 16 bytes at
 // a time) once and reuses each 16-byte vector for its RPT rows, accumulating
 // exact int32 dots with __dp4a. The epilogue is the MultiThreshold
@@ -26,7 +27,9 @@ constexpr int kMaxThr = 3;                  // thresholds per channel (abits <= 
 constexpr int kDefaultSmem = 48 * 1024;     // above this: opt in per kernel
 constexpr int kMaxSmem = 227 * 1024;        // H100: 232,448 bytes a block
 
-inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
 // Four code bytes {0..3} → levels 2c - off, byte-wise (2c <= 6: no carry).
 __device__ __forceinline__ unsigned codes_to_levels4(unsigned u, int off) {
@@ -35,15 +38,13 @@ __device__ __forceinline__ unsigned codes_to_levels4(unsigned u, int off) {
 
 enum Epilogue : int {
   kLevelsToShared = 0,   // threshold → next layer's levels, in shared memory
-  kCodesToGlobal = 1,    // threshold → int8 codes, in device memory
-  kLogitsToGlobal = 2,   // float(acc) * scale + bias → float32, device memory
+  kLogitsToGlobal = 1,   // float(acc) * scale + bias → float32, device memory
 };
 
 struct TileOut {
   int mode;
   int8_t* next;          // kLevelsToShared: [tile rows, next_stride]
   int next_stride;
-  int8_t* codes;         // kCodesToGlobal: [rows, n_out], from the tile's row 0
   float* logits;         // kLogitsToGlobal: [rows, n_out], from the tile's row 0
   const float* scale;    // kLogitsToGlobal: [n_out]
   const float* bias;     // kLogitsToGlobal: [n_out]
@@ -110,13 +111,8 @@ __device__ __forceinline__ void layer_tile(
       for (int t = 0; t < kMaxThr; ++t) {
         code += (t < nthr && acc[r] >= th[t]) ? 1 : 0;
       }
-      if (o.mode == kLevelsToShared) {
-        o.next[(r0 + r) * o.next_stride + n] =
-            static_cast<int8_t>(2 * code - level_off);
-      } else if (r0 + r < rows) {
-        o.codes[static_cast<size_t>(r0 + r) * n_out + n] =
-            static_cast<int8_t>(code);
-      }
+      o.next[(r0 + r) * o.next_stride + n] =
+          static_cast<int8_t>(2 * code - level_off);
     }
   }
 }

@@ -1,0 +1,330 @@
+// Shared device code of the tensor-core kernels (conv_chain.cu,
+// dense_block.cu): int8 × int8 → int32 warp tiles on
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with both operands read
+// from shared memory by ldmatrix, cp.async staging, and the MultiThreshold
+// epilogue run on the accumulator fragments.
+//
+// Replaces the dp4a body (dense_tile.cuh::layer_tile) under the ports of
+// bnn_pynq_tpu/ops/conv_stack.py::conv_chain_vmem and ::dense_block. Both
+// are bound by operations or bytes far below what the CUDA cores reach (the
+// main-path bounds stand in the two .cu files), so the dots move to the
+// tensor cores and every operand byte is fetched from L2 once per block
+// tile, not once per thread.
+//
+// mma.sync alone reaches 1,260 TOP/s on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (tools/layer_times.py), 64 % of the published 1,979: the ceiling of these
+// kernels short of wgmma.
+//
+// A warp item is a 32-row × 64-column tile (2 m16 × 8 n8 blocks, 64 int32
+// accumulators a thread). Per k32 step it issues 2 + 4 ldmatrix.x4 and 16
+// mma: each A fragment is reused for 8 column blocks, each B fragment for
+// 2 row blocks.
+//
+// Fragment layout of m16n8k32 (g = lane / 4, t = lane % 4):
+//   A (row-major [16, 32] int8), 4 registers of 4 bytes:
+//     a0 = A[g][4t..4t+3]      a1 = A[g+8][4t..4t+3]
+//     a2 = A[g][16+4t..]       a3 = A[g+8][16+4t..]
+//   B (column-major: [8, 32] int8 with K contiguous, i.e. a weight row per
+//     output column), 2 registers:
+//     b0 = W[g][4t..4t+3]      b1 = W[g][16+4t..]
+//   C/D int32: c0, c1 = C[g][2t], C[g][2t+1]; c2, c3 = C[g+8][2t], [2t+1]
+// ldmatrix (8 rows × 16 bytes per matrix; lane l of matrix q = l / 8 gives
+// the address of row l % 8; every lane receives bytes 4t..4t+3 of row g)
+// delivers exactly these registers:
+//   A: matrices (rows 0-7, k 0-15), (rows 8-15, k 0-15), (rows 0-7,
+//      k 16-31), (rows 8-15, k 16-31) → a0..a3
+//   B: for a pair of n8 blocks j, j+1: (j, k 0-15), (j, k 16-31),
+//      (j+1, k 0-15), (j+1, k 16-31) → b0, b1 of j and of j+1
+//
+// Shared-memory rows (activation pixels or rows, weight rows) have a pitch
+// ≡ 16 (mod 32) bytes: the 8 row addresses of one ldmatrix then fall in 8
+// different 16-byte bank groups, so no load conflicts.
+//
+// Codes without a decode pass: an activation code c stands for the level
+// 2c − off (off = 1 or 3), so  Σ level·w = 2·Σ c·w − off·Σ w.  The kernels
+// copy raw codes into shared memory with cp.async, run the mma on them, and
+// the epilogue corrects for it with the per-column weight sums prepared on
+// the host (models/params.py), folded into the thresholds once per block
+// (stage_thresholds). Exact.
+#pragma once
+
+#include "dense_tile.cuh"
+
+namespace bnn {
+
+constexpr int kMmaK = 32;        // bytes of K per mma
+constexpr int kItemRows = 32;    // rows of a warp item (2 m16 blocks)
+constexpr int kItemCols = 64;    // columns of a warp item (8 n8 blocks)
+constexpr int kPitchPad = 16;    // added to a multiple of 32 → ≡ 16 (mod 32)
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a · b, exact int32 (no saturation).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp item's accumulators: [m16 block][n8 block][c0..c3].
+struct ItemAcc {
+  int c[2][8][4];
+};
+
+__device__ __forceinline__ void item_clear(ItemAcc& acc) {
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc.c[mb][j][e] = 0;
+}
+
+// The lane's ldmatrix row of m16 block mb within an item: item row
+// 16·mb + a_lane_row(lane), at K offset a_lane_k(lane).
+__device__ __forceinline__ int a_lane_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int a_lane_k(int lane) { return (lane >> 4) * 16; }
+// The lane's ldmatrix row of the n8 block pair jp: item column
+// 16·jp + b_lane_col(lane), at K offset b_lane_k(lane).
+__device__ __forceinline__ int b_lane_col(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_lane_k(int lane) {
+  return ((lane >> 3) & 1) * 16;
+}
+
+// `steps` k32 steps of a warp item. a_addr[mb] / b_addr[jp]: the lane's
+// shared-memory byte addresses (row base + its K offset) at the first step;
+// both advance 32 bytes a step. ncols: the item's real columns (1..64). A
+// full item loads its four B fragments into registers of their own before
+// the 16 mma, so no load waits for an mma to release its registers; a
+// narrower item skips the n8 block pairs wholly past ncols (warp-uniform).
+__device__ __forceinline__ void item_mma(ItemAcc& acc,
+                                         const unsigned (&a_addr)[2],
+                                         const unsigned (&b_addr)[4],
+                                         int steps, int ncols) {
+  if (ncols == kItemCols) {
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      const unsigned off = static_cast<unsigned>(s) * kMmaK;
+      unsigned a[2][4], b[4][4];
+      ldmatrix_x4(a[0], a_addr[0] + off);
+      ldmatrix_x4(a[1], a_addr[1] + off);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) ldmatrix_x4(b[jp], b_addr[jp] + off);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          mma_s8(acc.c[mb][2 * jp], a[mb], b[jp][0], b[jp][1]);
+          mma_s8(acc.c[mb][2 * jp + 1], a[mb], b[jp][2], b[jp][3]);
+        }
+      }
+    }
+    return;
+  }
+  for (int s = 0; s < steps; ++s) {
+    const unsigned off = static_cast<unsigned>(s) * kMmaK;
+    unsigned a[2][4];
+    ldmatrix_x4(a[0], a_addr[0] + off);
+    ldmatrix_x4(a[1], a_addr[1] + off);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (jp * 16 < ncols) {
+        unsigned b[4];
+        ldmatrix_x4(b, b_addr[jp] + off);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          mma_s8(acc.c[mb][2 * jp], a[mb], b[0], b[1]);
+          mma_s8(acc.c[mb][2 * jp + 1], a[mb], b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// What the epilogue needs of a layer.
+struct EpilogueArgs {
+  const int32_t* thr;    // [nthr, n_out]
+  const int32_t* wsum;   // [n_out] column sums of the weight levels
+  int nthr;
+  int n_out;
+  int level_off;         // 1 or 3
+  int codes_in;          // the A operand held codes, not levels
+};
+
+constexpr int kStagePitch = kItemCols + kPitchPad;        // 80 bytes
+constexpr int kStageBytes = 16 * kStagePitch;             // one m16 block
+constexpr int kThrNever = 0x7fffffff;
+
+// Shared memory the epilogue of a block needs: the folded thresholds of
+// `cols` staged columns (rounded up to whole items) and one output staging
+// buffer per warp.
+inline size_t epilogue_smem(int nthr, int cols, int warps = kWarps) {
+  return static_cast<size_t>(nthr) * round_up(cols, kItemCols) * 4 +
+         static_cast<size_t>(warps) * kStageBytes;
+}
+
+// Stage the thresholds of columns [nc0, nc0 + ncols) in shared memory, as
+// thr_s[k · cols_pad + n], folded onto the raw accumulator: with codes in,
+//   2·acc − off·wsum ≥ thr  ⟺  acc ≥ ceil((thr + off·wsum) / 2),
+// in 64 bits and clamped (|acc| < 2^24, so a clamped threshold compares as
+// the true one). Columns past ncols never pass. The caller synchronizes.
+__device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
+                                                 const EpilogueArgs& e,
+                                                 int nc0, int ncols) {
+  for (int i = threadIdx.x; i < e.nthr * cols_pad; i += blockDim.x) {
+    const int k = i / cols_pad;
+    const int n = i - k * cols_pad;
+    long long x = kThrNever;
+    if (n < ncols) {
+      x = __ldg(e.thr + k * e.n_out + nc0 + n);
+      if (e.codes_in) {
+        x = (x + static_cast<long long>(e.level_off) *
+                     __ldg(e.wsum + nc0 + n) + 1) >> 1;
+      }
+      x = x > kThrNever ? kThrNever : (x < -kThrNever - 1 ? -kThrNever - 1 : x);
+    }
+    thr_s[i] = static_cast<int32_t>(x);
+  }
+}
+
+// The lane's four codes of n8 block j of m16 block mb: [h][c] for item row
+// 16·mb + 8·h + g, column 8·j + 2·t + c.
+template <int NTHR>
+__device__ __forceinline__ void block_codes(const ItemAcc& acc, int mb, int j,
+                                            const int32_t* thr_lane,
+                                            int cols_pad, int (&code)[2][2]) {
+  code[0][0] = code[0][1] = code[1][0] = code[1][1] = 0;
+#pragma unroll
+  for (int k = 0; k < NTHR; ++k) {
+    const int2 th =
+        *reinterpret_cast<const int2*>(thr_lane + k * cols_pad + 8 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      code[h][0] += acc.c[mb][j][2 * h] >= th.x ? 1 : 0;
+      code[h][1] += acc.c[mb][j][2 * h + 1] >= th.y ? 1 : 0;
+    }
+  }
+}
+
+// Threshold the item's accumulators and store int8 codes.
+//   thr_s: the staged thresholds at the item's first column (stride
+//     cols_pad between thresholds); stage: this warp's kStageBytes;
+//   out + row0 · n_out + col0: the output of item row 0, column 0;
+//   rows, cols: the item's real rows (1..32) and columns (1..64).
+// Where whole 16-byte runs of a row can be stored (vec: n_out, col0 and
+// cols multiples of 16, out aligned), an m16 block's codes are gathered in
+// the staging buffer and leave as 16-byte stores, 64 contiguous bytes a
+// row; else each lane stores its bytes one by one.
+template <int NTHR>
+__device__ __forceinline__ void item_store_codes_n(
+    const ItemAcc& acc, const int32_t* thr_s, int cols_pad, int8_t* stage,
+    int8_t* out, int n_out, size_t row0, int rows, int col0, int cols,
+    bool vec, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int32_t* thr_lane = thr_s + 2 * t;
+  if (vec) {
+    int8_t* st = stage + g * kStagePitch + 2 * t;
+    const int r = lane >> 2;                  // this lane's row of a store
+    const int c16 = (lane & 3) * kVec;        // ... and its 16-byte run
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        int code[2][2];
+        block_codes<NTHR>(acc, mb, j, thr_lane, cols_pad, code);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<uint16_t*>(st + 8 * h * kStagePitch + 8 * j) =
+              static_cast<uint16_t>(code[h][0] | (code[h][1] << 8));
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = 16 * mb + 8 * i + r;
+        const int4 v = *reinterpret_cast<const int4*>(
+            stage + (8 * i + r) * kStagePitch + c16);
+        if (rr < rows && c16 < cols) {
+          *reinterpret_cast<int4*>(out + (row0 + rr) * n_out + col0 + c16) = v;
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int code[2][2];
+      block_codes<NTHR>(acc, mb, j, thr_lane, cols_pad, code);
+      const int n = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = 16 * mb + 8 * h + g;
+        if (rr < rows) {
+          int8_t* o = out + (row0 + rr) * n_out + col0 + n;
+          if (n < cols) o[0] = static_cast<int8_t>(code[h][0]);
+          if (n + 1 < cols) o[1] = static_cast<int8_t>(code[h][1]);
+        }
+      }
+    }
+  }
+}
+
+// The same with the number of thresholds (1..3) chosen at run time.
+__device__ __forceinline__ void item_store_codes(
+    const ItemAcc& acc, const int32_t* thr_s, int cols_pad, int nthr,
+    int8_t* stage, int8_t* out, int n_out, size_t row0, int rows, int col0,
+    int cols, bool vec, int lane) {
+  if (nthr == 1) {
+    item_store_codes_n<1>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
+                          col0, cols, vec, lane);
+  } else if (nthr == 2) {
+    item_store_codes_n<2>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
+                          col0, cols, vec, lane);
+  } else {
+    item_store_codes_n<3>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
+                          col0, cols, vec, lane);
+  }
+}
+
+// The smallest pitch ≥ bytes that is ≡ 16 (mod 32).
+inline int padded_pitch(int bytes) {
+  return round_up(bytes, kMmaK) + kPitchPad;
+}
+
+}  // namespace bnn

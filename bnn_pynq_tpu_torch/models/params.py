@@ -23,35 +23,55 @@ from bnn_pynq_tpu_torch.models.network import make_plan
 from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 
-# The kernels read K in 16-byte vectors (csrc/dense_tile.cuh, kVec), so
-# their weight copy pads K with zero levels to a multiple of 16. A zero
+# The dp4a kernels read K in 16-byte vectors (csrc/dense_tile.cuh, kVec),
+# so their weight copy pads K with zero levels to a multiple of 16. A zero
 # level adds nothing to the dot, whatever the activation it meets.
 K_ALIGN = 16
+# The tensor-core kernels (csrc/mma_tile.cuh) consume K in steps of 32
+# bytes, the depth of one int8 mma.
+K_ALIGN_MMA = 32
 
 
 @dataclass(frozen=True)
 class WeightMatrix:
-    """int8 weight levels of one layer in the two layouts in use.
+    """int8 weight levels of one layer in the layouts in use.
 
     kn: [K, N], K in (ki, kj, c) order — the JAX layout, used by the plain
         versions and the reference.
     nk: [N, Kp], K contiguous and zero-padded to Kp = K rounded up to
-        K_ALIGN — the layout the CUDA kernels read.
+        K_ALIGN — the layout the dp4a kernels read (`fused_mlp`,
+        `conv_direct`).
+    nk32: the same with K rounded up to K_ALIGN_MMA — what the tensor-core
+        kernels read (`conv_chain`, `dense_block`); it is `nk` itself where
+        the two pads agree.
+    wsum: int32 [N], the column sums of the levels. Those kernels run the
+        dot on activation codes c, not levels 2c − off, and correct it
+        with Σ level·w = 2·Σ c·w − off·wsum.
     """
     kn: torch.Tensor
     nk: torch.Tensor
+    nk32: torch.Tensor
+    wsum: torch.Tensor
+
+
+def _padded_nk(kn: torch.Tensor, align: int) -> torch.Tensor:
+    k, n = kn.shape
+    nk = torch.zeros((n, -(-k // align) * align), dtype=torch.int8,
+                     device=kn.device)
+    nk[:, :k] = kn.t()
+    return nk
 
 
 def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
-    """Build both layouts from int8 levels [K, N] (on kn's device)."""
+    """Build every layout from int8 levels [K, N] (on kn's device)."""
     if kn.dtype != torch.int8 or kn.ndim != 2:
         raise TypeError(f"weights must be int8 [K, N], got {kn.dtype} "
                         f"{tuple(kn.shape)}")
-    k, n = kn.shape
-    kp = -(-k // K_ALIGN) * K_ALIGN
-    nk = torch.zeros((n, kp), dtype=torch.int8, device=kn.device)
-    nk[:, :k] = kn.t()
-    return WeightMatrix(kn=kn.contiguous(), nk=nk)
+    nk = _padded_nk(kn, K_ALIGN)
+    nk32 = nk if nk.shape[1] % K_ALIGN_MMA == 0 else \
+        _padded_nk(kn, K_ALIGN_MMA)
+    return WeightMatrix(kn=kn.contiguous(), nk=nk, nk32=nk32,
+                        wsum=kn.sum(dim=0, dtype=torch.int32))
 
 
 def unpack_levels(w_packed: np.ndarray, k: int, bits: int) -> np.ndarray:

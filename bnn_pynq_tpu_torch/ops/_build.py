@@ -43,14 +43,14 @@ _SIGNATURES = {
     # bias, out, stream
     "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                       _P),
-    # x, m, k0, input_levels, w_ptrs, thr_ptrs, kp, n, n_layers, nthr,
-    # abits, out, stream
-    "bnn_dense_block": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+    # x, m, k0, input_levels, wt, k32, n_out, wsum, thr, nthr, abits, out,
+    # stream
+    "bnn_dense_block": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
                         _P),
-    # x, b, h, w, c, ksize, input_levels, wt, kp, n_out, thr, nthr, abits,
-    # out, stream
-    "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I,
-                       _P, _P),
+    # x, b, h, w, c, ksize, input_levels, wt, k32, n_out, wsum, thr, nthr,
+    # abits, out, stream
+    "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
+                       _I, _P, _P),
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
     "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
     # x, b, h, w, c, ksize, wt, wstride, n_out, thr, nthr, abits, out,

@@ -5,13 +5,15 @@ Ports of `bnn_pynq_tpu/ops/conv_stack.py`:
   an exact int dot + MultiThreshold to codes. Unlike the JAX kernel it
   returns the valid region only, and takes a raw int8 image
   (`input_levels=True`) without prebuilt patches. CUDA kernel:
-  `csrc/conv_chain.cu`, launched once per layer (the intermediate codes
-  go through device memory).
+  `csrc/conv_chain.cu` (entry `bnn_conv_layer`), launched once per layer
+  (the intermediate codes go through device memory).
 - `dense_block` ← `dense_block`: chained dense layers, all thresholded,
-  codes (or levels) in, codes out. CUDA kernel: `csrc/dense_chain.cu`
-  (entry `bnn_dense_block`), shared with `fused_mlp_forward`.
+  codes (or levels) in, codes out. CUDA kernel: `csrc/dense_block.cu`
+  (entry `bnn_dense_block`), launched once per layer likewise.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+Both kernels run their dots on the int8 tensor cores (`csrc/mma_tile.cuh`)
+and read the weights' `nk32` layout and `wsum` (models/params.py). A CPU
+tensor runs the plain version; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ import torch
 from bnn_pynq_tpu_torch.ops import _build
 from bnn_pynq_tpu_torch.ops.conv import sliding_window
 from bnn_pynq_tpu_torch.ops.fused_mlp import (check_chain,
-                                              check_cuda_operands,
-                                              launch_dense_chain)
+                                              check_cuda_operands)
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
@@ -86,9 +87,9 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
         out = torch.empty((b, h - kernel + 1, w - kernel + 1, n),
                           dtype=torch.int8, device=x.device)
         lib.call("bnn_conv_layer", act.data_ptr(), b, h, w, c, kernel,
-                 int(j == 0 and input_levels), wt.nk.data_ptr(),
-                 wt.nk.shape[1], n, thr.data_ptr(), thr.shape[0], abits,
-                 out.data_ptr(), stream)
+                 int(j == 0 and input_levels), wt.nk32.data_ptr(),
+                 wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
+                 thr.shape[0], abits, out.data_ptr(), stream)
         conv_chain.launches.add()
         act = out
     return act
@@ -124,12 +125,20 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
         return dense_block_plain(x_codes, weights, thresholds, abits=abits,
                                  input_levels=input_levels)
     check_cuda_operands(x_codes, weights, thresholds)
-    out = torch.empty((x_codes.shape[0], weights[-1].kn.shape[1]),
-                      dtype=torch.int8, device=x_codes.device)
-    launch_dense_chain(x_codes, weights, thresholds, abits=abits, out=out,
-                       input_levels=input_levels)
-    dense_block.launches.add()
-    return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x_codes.device).cuda_stream
+    act = x_codes
+    for j, (wt, thr) in enumerate(zip(weights, thresholds)):
+        m, k = act.shape
+        n = wt.kn.shape[1]
+        out = torch.empty((m, n), dtype=torch.int8, device=act.device)
+        lib.call("bnn_dense_block", act.data_ptr(), m, k,
+                 int(j == 0 and input_levels), wt.nk32.data_ptr(),
+                 wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
+                 thr.shape[0], abits, out.data_ptr(), stream)
+        dense_block.launches.add()
+        act = out
+    return act
 
 
 dense_block.launches = _build.LaunchCounter()

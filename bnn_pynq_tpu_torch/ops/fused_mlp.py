@@ -4,7 +4,7 @@ Port of `bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward` (and its
 `_padded` form: the kernel masks a ragged batch, so there is no padding).
 Per layer: levels · weights → int32, MultiThreshold back to levels; the
 last layer gives `float(acc) * out_scale + out_bias`. The CUDA kernel is
-`csrc/dense_chain.cu` (entry `bnn_fused_mlp`), which `dense_block` shares.
+`csrc/dense_chain.cu` (entry `bnn_fused_mlp`).
 """
 
 from __future__ import annotations
@@ -59,8 +59,17 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
     check_cuda_operands(x_codes, weights, thresholds, out_scale, out_bias)
     out = torch.empty((x_codes.shape[0], ncls), dtype=torch.float32,
                       device=x_codes.device)
-    launch_dense_chain(x_codes, weights, thresholds, abits=abits, out=out,
-                       scale=out_scale, bias=out_bias)
+    lib = _build.library()
+    nthr = thresholds[0].shape[0] if len(thresholds) else 1
+    m, k0 = x_codes.shape
+    lib.call("bnn_fused_mlp", x_codes.data_ptr(), m, k0,
+             _build.pointer_array([w.nk for w in weights]),
+             _build.pointer_array(list(thresholds) + [None]),
+             _build.int_array([w.nk.shape[1] for w in weights]),
+             _build.int_array([w.kn.shape[1] for w in weights]),
+             len(weights), nthr, abits, out_scale.data_ptr(),
+             out_bias.data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream(x_codes.device).cuda_stream)
     fused_mlp_forward.launches.add()
     return out
 
@@ -89,7 +98,7 @@ def check_chain(x, weights, thresholds) -> None:
 
 def check_cuda_operands(x, weights, thresholds, *extra) -> None:
     """What the CUDA launchers take: one CUDA device, contiguous operands,
-    the kernels' weight layout, nthr in 1..3, at most MAX_LAYERS layers."""
+    the kernels' weight layouts, nthr in 1..3, at most MAX_LAYERS layers."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}; tensors must be "
                          "on the CPU (plain version) or on CUDA")
@@ -99,7 +108,9 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
     if len(nthrs) > 1 or not nthrs <= {1, 2, 3}:
         raise ValueError(f"threshold counts {sorted(nthrs)}: the kernels "
                          "take one count in 1..3 for the whole chain")
-    tensors = [x, *[w.nk for w in weights], *thresholds, *extra]
+    tensors = [x, *thresholds, *extra]
+    for w in weights:
+        tensors += [w.nk, w.nk32, w.wsum]
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
@@ -108,32 +119,12 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
                              "tensors")
     for w in weights:
         k, n = w.kn.shape
-        if w.nk.dtype != torch.int8 or \
-                tuple(w.nk.shape) != (n, -(-k // 16) * 16):
-            raise ValueError(f"kernel weight layout must be int8 "
-                             f"[{n}, {-(-k // 16) * 16}], got {w.nk.dtype} "
-                             f"{tuple(w.nk.shape)}")
-
-
-def launch_dense_chain(x, weights, thresholds, *, abits: int, out,
-                       input_levels: bool = False, scale=None,
-                       bias=None) -> None:
-    """Launch csrc/dense_chain.cu on x's current stream: `bnn_fused_mlp`
-    (float logits, last layer unthresholded) when scale/bias are given,
-    else `bnn_dense_block` (codes; one threshold table per layer)."""
-    lib = _build.library()
-    nthr = thresholds[0].shape[0] if len(thresholds) else 1
-    thr = list(thresholds) + [None] * (len(weights) - len(thresholds))
-    args = (_build.pointer_array([w.nk for w in weights]),
-            _build.pointer_array(thr),
-            _build.int_array([w.nk.shape[1] for w in weights]),
-            _build.int_array([w.kn.shape[1] for w in weights]),
-            len(weights), nthr, abits)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    m, k0 = x.shape
-    if scale is not None:
-        lib.call("bnn_fused_mlp", x.data_ptr(), m, k0, *args,
-                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(), stream)
-    else:
-        lib.call("bnn_dense_block", x.data_ptr(), m, k0, int(input_levels),
-                 *args, out.data_ptr(), stream)
+        for name, pad in (("nk", 16), ("nk32", 32)):
+            t, kp = getattr(w, name), -(-k // pad) * pad
+            if t.dtype != torch.int8 or tuple(t.shape) != (n, kp):
+                raise ValueError(f"kernel weight layout {name} must be int8 "
+                                 f"[{n}, {kp}], got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        if w.wsum.dtype != torch.int32 or tuple(w.wsum.shape) != (n,):
+            raise ValueError(f"wsum must be int32 [{n}], got {w.wsum.dtype} "
+                             f"{tuple(w.wsum.shape)}")

@@ -1,0 +1,281 @@
+"""Where the `mega` route's device time goes on a CUDA card.
+
+    python -m bnn_pynq_tpu_torch.tools.layer_times
+
+Needs one CUDA card and nvcc; takes no options. Prints, at batch 1024:
+
+1. for CNV-W1A1's four `conv_chain` layers and its `dense_block` (block6) on
+   seeded inputs and random weights: the device ms per call under CUDA graph
+   replay (`graph_ms`: 10 calls a graph, median of 20 replays; no host
+   enqueue in the reading), the int8 operations per call, the rate reached;
+2. the rate of a loop of `mma.sync.aligned.m16n8k32.s8` alone (no memory, 16
+   independent accumulators a warp, 8 and 16 warps an SM) and of the same
+   loop fed by `ldmatrix` at the kernels' ratio of 6 loads per 16 mma: what
+   this instruction reaches on the card, below the published tensor-core
+   peak that `wgmma` is needed for;
+3. one `mega` forward of the pretrained CNV-W1A1 engine on a device-resident
+   batch: its device ms under graph replay, the host ms to enqueue it and to
+   prepare its 1024 images, and from one `torch.profiler` trace of 20
+   forwards the device ms per forward of every kernel in it, by name.
+
+The last line names the card and its power limit as `nvidia-smi` gives them.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from bnn_pynq_tpu_torch.models.params import weight_matrix
+from bnn_pynq_tpu_torch.ops import _build, conv_stack
+from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+
+BATCH = 1024
+# (label, input H = W, C, N): the chain layers of CNV (3×3, stride 1)
+CONV_LAYERS = (("conv0", 32, 3, 64), ("conv1", 30, 64, 64),
+               ("conv2", 14, 64, 128), ("conv3", 12, 128, 128))
+BLOCK6 = (9, 1152, 256)        # rows per image, K, N
+ARTIFACT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "pretrained", "cnv-w1a1.npz")
+
+RATE_SOURCE = r"""
+#include <cstdio>
+#include <cstdint>
+#include <cuda_runtime.h>
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldm(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// LOADS 0: mma only. LOADS 1: 6 ldmatrix.x4 + 16 mma a step (rows of 80
+// bytes: no bank conflicts).
+template <int LOADS>
+__global__ void __launch_bounds__(256, 2) rate_kernel(int iters, int* out) {
+  extern __shared__ __align__(16) int8_t sm[];
+  for (int i = threadIdx.x; i < 32768; i += 256) sm[i] = (int8_t)i;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned base =
+      (unsigned)__cvta_generic_to_shared(sm) + (threadIdx.x >> 5) * 2048;
+  const unsigned addr =
+      base + ((lane & 7) + ((lane >> 3) & 1) * 8) * 80 + (lane >> 4) * 16;
+  int c[2][8][4] = {};
+  unsigned a[2][4] = {{1u * lane, 2, 3, 4}, {5, 6, 7, 8}};
+  unsigned b[4][4] = {{1, 2, 3, 4}, {5, 6, 7, 8}, {9, 1, 2, 3}, {4, 5, 6, 7}};
+  for (int it = 0; it < iters; ++it) {
+    if (LOADS) {
+      ldm(a[0], addr + (it & 1) * 32);
+      ldm(a[1], addr + 16 * 80 + (it & 1) * 32);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (LOADS) ldm(b[jp], addr + 4096 + jp * 1280 + (it & 1) * 32);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        mma_s8(c[mb][2 * jp], a[mb], b[jp][0], b[jp][1]);
+        mma_s8(c[mb][2 * jp + 1], a[mb], b[jp][2], b[jp][3]);
+      }
+    }
+  }
+  int s = 0;
+  for (int mb = 0; mb < 2; ++mb)
+    for (int j = 0; j < 8; ++j)
+      for (int e = 0; e < 4; ++e) s += c[mb][j][e];
+  if (s == 123456789) out[0] = s;
+}
+template <int LOADS>
+void run(int sms, int blocks_per_sm, const char* name) {
+  int* out;
+  cudaMalloc(&out, 4);
+  const int iters = 20000, grid = sms * blocks_per_sm;
+  cudaFuncSetAttribute(rate_kernel<LOADS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, 100000);
+  const size_t smem = blocks_per_sm == 1 ? 100000 : 40000;
+  rate_kernel<LOADS><<<grid, 256, smem>>>(100, out);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  rate_kernel<LOADS><<<grid, 256, smem>>>(iters, out);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const double ops = 2.0 * 16 * 8 * 32 * 16 * (double)iters * 8 * grid;
+  printf("mma.sync m16n8k32 s8, %s, %d warps an SM: %.3f ms, %.1f TOP/s (%s)\n",
+         name, 8 * blocks_per_sm, ms, ops / ms / 1e9,
+         cudaGetErrorString(cudaGetLastError()));
+  cudaFree(out);
+}
+int main() {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  run<0>(sms, 1, "registers only");
+  run<0>(sms, 2, "registers only");
+  run<1>(sms, 1, "6 ldmatrix.x4 per 16 mma");
+  run<1>(sms, 2, "6 ldmatrix.x4 per 16 mma");
+  return 0;
+}
+"""
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
+    """Device ms per call with the host out of the way: `calls` calls
+    captured in one CUDA graph, median over `reps` replays. Below ~0.1 ms
+    a reading between CUDA events is the wrapper's host enqueue; this is
+    not."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def layer_times(device: torch.device) -> None:
+    rng = np.random.default_rng(0)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    def layer(k, n):
+        w = weight_matrix(dev(rng.choice([-1, 1], size=(k, n))
+                              .astype(np.int8)))
+        sd = int(k ** .5)
+        thr = dev(rng.integers(-sd, sd + 1, size=(1, n)).astype(np.int32))
+        return w, thr
+
+    total = 0.0
+    for label, hw, c, n in CONV_LAYERS:
+        image = c == 3
+        x = rng.integers(-128, 128, size=(BATCH, hw, hw, c)) if image \
+            else rng.integers(0, 2, size=(BATCH, hw, hw, c))
+        x = dev(x.astype(np.int8))
+        w, thr = layer(9 * c, n)
+        ms = graph_ms(lambda: conv_stack.conv_chain(
+            x, [w], [thr], kernel=3, abits=1, input_levels=image))
+        ops = 2 * BATCH * (hw - 2) ** 2 * 9 * c * n
+        total += ms
+        print(f"{label} {tuple(x.shape)} -> {n}: {ms:.4f} ms, "
+              f"{ops / 1e9:.1f} G operations, {ops / ms / 1e9:.1f} TOP/s")
+    print(f"conv_chain, the four layers: {total:.4f} ms")
+    rows, k, n = BLOCK6
+    x = dev(rng.integers(0, 2, size=(BATCH * rows, k)).astype(np.int8))
+    w, thr = layer(k, n)
+    ms = graph_ms(lambda: conv_stack.dense_block(x, [w], [thr], abits=1))
+    ops = 2 * BATCH * rows * k * n
+    print(f"block6 {tuple(x.shape)} -> {n}: {ms:.4f} ms, "
+          f"{ops / 1e9:.1f} G operations, {ops / ms / 1e9:.1f} TOP/s")
+
+
+def mma_rate() -> None:
+    """Build and run the mma.sync rate loop (nvcc into a temporary
+    directory, removed afterwards)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, exe = os.path.join(tmp, "rate.cu"), os.path.join(tmp, "rate")
+        with open(src, "w") as f:
+            f.write(RATE_SOURCE)
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3",
+                        "-std=c++17", "-o", exe, src], check=True)
+        print(subprocess.run([exe], check=True, capture_output=True,
+                             text=True).stdout, end="")
+
+
+def forward_profile(device: torch.device, forwards: int = 20) -> None:
+    """One `mega` forward of CNV-W1A1 (device-resident batch in, class
+    indices on the device out): graph-replay ms, host ms, and the device ms
+    per forward of each kernel in a `torch.profiler` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = InferenceEngine.from_artifact(ARTIFACT, device=device)
+    images = np.random.default_rng(1).integers(
+        0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        prepared = eng.prepare(images)
+        host.append((time.perf_counter() - t0) * 1e3)
+    xd = eng.upload(prepared)
+
+    def forward():
+        return eng.launch_prepared(xd, argmax=True)
+
+    replay = graph_ms(forward)
+    enqueue = []
+    for _ in range(forwards):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"mega forward, cnv-w1a1, batch {BATCH}: {replay:.4f} ms on the "
+          f"device under graph replay; host: enqueue "
+          f"{np.median(enqueue):.4f} ms, prepare {np.median(host):.3f} ms "
+          f"(medians of {forwards} and 5, host clock)")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            forward()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / forwards
+            count[e.name] += 1
+    if not by_name:
+        raise RuntimeError("the profiler's trace holds no device event")
+    print(f"profile of {forwards} forwards, device ms per forward "
+          f"(launches per forward), by kernel:")
+    for name, ms in by_name.most_common():
+        print(f"  {ms:.4f} ({count[name] / forwards:g}) {name[:100]}")
+    print(f"  {sum(by_name.values()):.4f} all kernels")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("layer_times measures on a CUDA card; none is "
+                           "available")
+    device = torch.device("cuda", 0)
+    layer_times(device)
+    mma_rate()
+    forward_profile(device)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,11 @@ Phases (every check raises, so any failure exits non-zero):
    the CNV-W1A1 main-path shapes at batch 1024 (and W2A2, LFC cases):
    codes exactly equal, logits within rtol=atol=1e-5; the median device
    time per call of each over 20 runs of 10 back-to-back calls, with
-   CUDA events;
+   CUDA events, and for the main-path cases also under CUDA graph
+   replay (no host in the way); then ragged and odd cases of conv_chain
+   and dense_block (batch 1 and 1023, N = 10 and 100, C = 3 and 24, a
+   5×5 kernel, chains of three layers, W2A2 with three thresholds,
+   weights too large for shared memory), all exact;
 4. the main path: InferenceEngine(cnv-w1a1, device="cuda").classify of
    1024 seeded images, with every kernel's launch count read around it;
    logits against runtime="ref" on the card; images/s of both runtimes;
@@ -55,6 +59,20 @@ Phases (every check raises, so any failure exits non-zero):
    batch 1024, and a BatchingServer with the upload stage answering 68
    requests.
 
+Beside each kernel's time stands its bound: the least time the card could
+take for the same work, the larger of operations / peak rate and bytes /
+memory rate (each input read once, each output written once; published
+peaks of the H100 SXM), computed here from the shapes of this run's
+inputs. `library_ms` is the time of one PyTorch call that computes the same
+function on the same inputs. The five copy and max probes have one (a
+strided slice made contiguous, `amax`: PROBE_LIBRARY), held equal to the
+kernel here and used nowhere in the port. The dot kernels have none (each
+is an integer dot plus thresholds or shifted rows, and PyTorch has no int8
+matmul with an epilogue nor an int8 convolution on CUDA), so theirs is
+null; for them `int_mm_ms` is `torch._int_mm` on the same M × K × N (for
+the convs on patches never built): the dot only, no im2col, no thresholds,
+a yardstick that the port never calls.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -74,6 +92,78 @@ BATCH = 1024
 REPS = 20
 TOL = dict(rtol=1e-5, atol=1e-5)
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# published peaks of the H100 SXM (dense, 700 W)
+PEAK_INT8 = 1979e12       # int8 operations/s on the tensor cores
+PEAK_FP32 = 67e12         # operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12      # device memory bytes/s
+
+
+def _work(gemms, *tensors, peak=PEAK_INT8, ops=None):
+    """What one call must do: the operations of its dots (2·M·K·N each, or
+    `ops`) at `peak`, and the bytes of the tensors it reads; the caller
+    adds the output's bytes once it exists."""
+    return {"gemms": list(gemms), "peak": peak,
+            "ops": ops if ops is not None
+            else sum(2 * m * k * n for m, k, n in gemms),
+            "bytes": sum(t.numel() * t.element_size() for t in tensors)}
+
+
+def _conv_gemms(shape, kernel, widths, stride=1):
+    """(M, K, N) of each layer of a VALID conv chain on `shape` (NHWC)."""
+    b, h, w, c = shape
+    gemms = []
+    for n in widths:
+        h, w = (h - kernel) // stride + 1, (w - kernel) // stride + 1
+        gemms.append((b * h * w, kernel * kernel * c, n))
+        c = n
+    return gemms
+
+
+def _dense_gemms(m, weights):
+    return [(m, w.kn.shape[0], w.kn.shape[1]) for w in weights]
+
+
+def _kn(weights):
+    return [w.kn for w in weights]
+
+
+def _int_mm_ms(torch, device, gemms):
+    """torch._int_mm on int8 operands of each (M, K, N), K and N rounded up
+    to 8 as it demands: the dot only. Summed over the gemms."""
+    total = 0.0
+    for m, k, n in gemms:
+        a = torch.ones((max(m, 32), -(-k // 8) * 8), dtype=torch.int8,
+                       device=device)
+        b = torch.ones((a.shape[1], -(-n // 8) * 8), dtype=torch.int8,
+                       device=device)
+        total += _time_ms(torch, lambda: torch._int_mm(a, b))
+        del a, b
+    return total
+
+
+def _new_result():
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "ops_ms": 0.0, "bytes_ms": 0.0, "int_mm_ms": None,
+            "graph_ms": None, "library_ms": None, "library_graph_ms": None}
+
+
+def _account(torch, device, r, work, out, ms, plain_ms):
+    """Add one main-path call to its kernel's row: times, bound, and the
+    `_int_mm` yardstick where the call is a dot."""
+    nbytes = work["bytes"] + out.numel() * out.element_size()
+    ops_ms = work["ops"] / work["peak"] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["ops_ms"] += ops_ms
+    r["bytes_ms"] += bytes_ms
+    r["bound_ms"] += max(ops_ms, bytes_ms)
+    if work["gemms"]:
+        r["int_mm_ms"] = (r["int_mm_ms"] or 0.0) + \
+            _int_mm_ms(torch, device, work["gemms"])
+    return max(ops_ms, bytes_ms)
 
 
 def _artifact(name):
@@ -101,10 +191,13 @@ def _time_ms(torch, fn, calls=10):
 
 
 def _kernel_cases(torch, device):
-    """(kernel name, case label, wrapper fn, plain fn, output kind) at the
-    main-path shapes, from the pretrained weights and seeded inputs."""
+    """(kernel name, case label, wrapper fn, plain fn, output kind, work) at
+    the main-path shapes, from the pretrained weights and seeded inputs;
+    then the ragged and odd cases of conv_chain and dense_block (work None:
+    checked and timed, on no kernel's row)."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
-    from bnn_pynq_tpu_torch.models.params import params_from_numpy
+    from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
+                                                  weight_matrix)
     from bnn_pynq_tpu_torch.ops import conv_stack, fused_mlp
 
     rng = np.random.default_rng(0)
@@ -116,6 +209,7 @@ def _kernel_cases(torch, device):
         return dev(rng.integers(0, 2 ** abits, size=shape).astype(np.int8))
 
     cases = []
+    nets = {}
     for name in ("cnv-w1a1", "cnv-w2a2"):
         c = load_artifact(_artifact(name))
         ab = c.config.abits
@@ -141,20 +235,29 @@ def _kernel_cases(torch, device):
             ("conv_chain", f"{name} chain0-1 {tuple(image.shape)}",
              lambda x=image, kw=chain01: conv_stack.conv_chain(x, **kw),
              lambda x=image, kw=chain01: conv_stack.conv_chain_plain(x, **kw),
-             "codes"),
+             "codes", _work(_conv_gemms(image.shape, 3, (64, 64)), image,
+                            *_kn(chain01["weights"]),
+                            *chain01["thresholds"])),
             ("conv_chain", f"{name} chain3-4 {tuple(x34.shape)}",
              lambda x=x34, kw=chain34: conv_stack.conv_chain(x, **kw),
              lambda x=x34, kw=chain34: conv_stack.conv_chain_plain(x, **kw),
-             "codes"),
+             "codes", _work(_conv_gemms(x34.shape, 3, (128, 128)), x34,
+                            *_kn(chain34["weights"]),
+                            *chain34["thresholds"])),
             ("dense_block", f"{name} block6 {tuple(x6.shape)}",
              lambda x=x6, kw=block6: conv_stack.dense_block(x, **kw),
              lambda x=x6, kw=block6: conv_stack.dense_block_plain(x, **kw),
-             "codes"),
+             "codes", _work(_dense_gemms(len(x6), block6["weights"]), x6,
+                            *_kn(block6["weights"]),
+                            *block6["thresholds"])),
             ("fused_mlp", f"{name} mlp_tail {tuple(xt.shape)}",
              lambda x=xt, kw=tail: fused_mlp.fused_mlp_forward(x, **kw),
              lambda x=xt, kw=tail: fused_mlp.fused_mlp_forward_plain(x, **kw),
-             "logits"),
+             "logits", _work(_dense_gemms(len(xt), tail["weights"]), xt,
+                             *_kn(tail["weights"]), *tail["thresholds"],
+                             scale, bias)),
         ]
+        nets[name] = layers
     c = load_artifact(_artifact("lfc-w1a1"))
     layers, scale, bias = params_from_numpy(
         c.config, c.layers, c.out_scale, c.out_bias, device)
@@ -166,13 +269,76 @@ def _kernel_cases(torch, device):
         ("fused_mlp", f"lfc-w1a1 whole net {tuple(xl.shape)}",
          lambda x=xl, kw=lfc: fused_mlp.fused_mlp_forward(x, **kw),
          lambda x=xl, kw=lfc: fused_mlp.fused_mlp_forward_plain(x, **kw),
-         "logits"))
+         "logits", None))
+
+    # -- ragged and odd cases of the two tensor-core kernels ----------------
+    def rand_layers(widths, wbits, abits, k=1):
+        """Random levels and sorted thresholds within one standard deviation
+        of the accumulator."""
+        wl = [-1, 1] if wbits == 1 else [-3, -1, 1, 3]
+        ws, ts = [], []
+        for cin, cout in zip(widths[:-1], widths[1:]):
+            ws.append(weight_matrix(dev(rng.choice(
+                wl, size=(k * k * cin, cout)).astype(np.int8))))
+            sd = int((k * k * cin) ** .5 * (1 if abits == 1 else 5 ** .5)
+                     * (1 if wbits == 1 else 5 ** .5))
+            ts.append(dev(np.sort(rng.integers(
+                -sd, sd + 1, size=(2 ** abits - 1, cout)), axis=0)
+                .astype(np.int32)))
+        return ws, ts
+
+    def conv(label, x, ws, ts, **kw):
+        kw = dict(weights=ws, thresholds=ts, **kw)
+        cases.append(("conv_chain", f"odd: {label} {tuple(x.shape)}",
+                      lambda: conv_stack.conv_chain(x, **kw),
+                      lambda: conv_stack.conv_chain_plain(x, **kw),
+                      "codes", None))
+
+    def dense(label, x, ws, ts, **kw):
+        kw = dict(weights=ws, thresholds=ts, **kw)
+        cases.append(("dense_block", f"odd: {label} {tuple(x.shape)}",
+                      lambda: conv_stack.dense_block(x, **kw),
+                      lambda: conv_stack.dense_block_plain(x, **kw),
+                      "codes", None))
+
+    def pick(name, idx):
+        return ([nets[name][i]["w"] for i in idx],
+                [nets[name][i]["thr"] for i in idx])
+
+    image = dev(rng.integers(-128, 128, size=(1023, 32, 32, 3))
+                .astype(np.int8))
+    conv("cnv-w1a1 chain0-1, batch 1", image[:1].contiguous(),
+         *pick("cnv-w1a1", (0, 1)), kernel=3, abits=1, input_levels=True)
+    conv("cnv-w2a2 chain0-1 (C=3 levels, nthr=3), batch 1023", image,
+         *pick("cnv-w2a2", (0, 1)), kernel=3, abits=2, input_levels=True)
+    conv("cnv-w1a1 chain3-4, batch 1023", codes((1023, 14, 14, 64), 1),
+         *pick("cnv-w1a1", (3, 4)), kernel=3, abits=1)
+    conv("N=10", codes((37, 9, 9, 64), 1), *rand_layers([64, 10], 1, 1, 3),
+         kernel=3, abits=1)
+    conv("C=24, N=100, W2A2", codes((33, 11, 11, 24), 2),
+         *rand_layers([24, 100], 2, 2, 3), kernel=3, abits=2)
+    conv("5x5, C=32, N=48", codes((65, 12, 12, 32), 1),
+         *rand_layers([32, 48], 1, 1, 5), kernel=5, abits=1)
+    conv("three layers, W2A2", codes((50, 12, 12, 32), 2),
+         *rand_layers([32, 64, 32, 16], 2, 2, 3), kernel=3, abits=2)
+    conv("weights past shared memory (C=256, N=256)",
+         codes((8, 6, 6, 256), 1), *rand_layers([256, 256], 1, 1, 3),
+         kernel=3, abits=1)
+    dense("cnv-w1a1 block6, 1 row", codes((1, 1152), 1), *pick("cnv-w1a1", (6,)),
+          abits=1)
+    dense("cnv-w2a2 block6 (nthr=3), 1023·9 rows", codes((1023 * 9, 1152), 2),
+          *pick("cnv-w2a2", (6,)), abits=2)
+    dense("three layers, K=200, N=100/64/10, W2A2", codes((1023, 200), 2),
+          *rand_layers([200, 100, 64, 10], 2, 2), abits=2)
+    dense("levels in, K=40, N=300", dev(rng.choice(
+        [-1, 1], size=(100, 40)).astype(np.int8)),
+        *rand_layers([40, 300], 1, 1), abits=1, input_levels=True)
     return cases
 
 
 def _packed_cases(torch, device):
-    """(case label, route, wrapper fn, plain fn, main path?) for
-    packed_matmul at the packed routes' shapes, batch 1024: the pretrained
+    """(case label, route, wrapper fn, plain fn, work on the main path or
+    None) for packed_matmul at the packed routes' shapes, batch 1024: the pretrained
     words and thresholds, activation words from a seeded generator (pad
     bits zero, as the packers leave them)."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
@@ -220,13 +386,15 @@ def _packed_cases(torch, device):
                         matmul.packed_matmul(a, wp, route=r, **kw),
                     lambda a=a, wp=layers[i]["w_packed"], kw=kw_args, r=route:
                         matmul.packed_matmul_plain(a, wp, route=r, **kw),
-                    main))
+                    _work([(m, lp.k, lp.n)], a, layers[i]["w_packed"],
+                          *([] if lp.last else [layers[i]["thr"]]))
+                    if main else None))
     return cases
 
 
 def _direct_cases(torch, device):
-    """(kernel name, case label, wrapper fn, plain fn, main path?) for the
-    direct kernels at batch 1024, from the pretrained weights and seeded
+    """(kernel name, case label, wrapper fn, plain fn, work on the main path
+    or None) for the direct kernels at batch 1024, from the pretrained weights and seeded
     inputs. The chain labels are phase 3's conv_chain labels."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
     from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
@@ -242,9 +410,11 @@ def _direct_cases(torch, device):
         return dev(rng.integers(0, 2 ** abits, size=shape).astype(np.int8))
 
     def conv(name, label, x, main=False, **kw):
+        work = _work(_conv_gemms(x.shape, kw["kernel"], [kw["w"].kn.shape[1]]),
+                     x, kw["w"].kn, kw["thr"]) if main else None
         return ("conv2d_direct", f"{name} {label} {tuple(x.shape)}",
                 lambda: cd.conv2d_direct(x, **kw),
-                lambda: cd.conv2d_direct_plain(x, **kw), main)
+                lambda: cd.conv2d_direct_plain(x, **kw), work)
 
     cases = []
     for name in ("cnv-w1a1", "cnv-w2a2"):
@@ -272,7 +442,10 @@ def _direct_cases(torch, device):
                 ("conv_chain_direct", f"{name} {label} {tuple(x.shape)}",
                  lambda x=x, kw=kw: cd.conv_chain_direct(x, **kw),
                  lambda x=x, kw=kw: cd.conv_chain_direct_plain(x, **kw),
-                 w1a1))
+                 _work(_conv_gemms(x.shape, 3, [w.kn.shape[1]
+                                                for w in kw["weights"]]),
+                       x, *_kn(kw["weights"]), *kw["thresholds"])
+                 if w1a1 else None))
         if w1a1:
             x1 = codes((BATCH, 30, 30, 64), 1)
             w5 = weight_matrix(dev(rng.choice([-1, 1], size=(25 * 64, 64))
@@ -349,6 +522,19 @@ PROBE_LINES = {"probe_lane_concat": 37, "probe_scratch_lane_store": 57,
                "probe_int32_acc_reshape": 143}
 
 
+# the one PyTorch call that computes a probe's function, where there is one
+# (inputs and options as the probe's wrapper takes them)
+PROBE_LIBRARY = {
+    "probe_mid_dim_index": lambda x: x[::2].contiguous(),
+    "probe_pool_reshape_max": lambda x, bb=4, h=16, w=16: x.view(
+        bb, h // 2, 2, w // 2, 2, -1).amax(dim=(2, 4)).view(-1, x.shape[1]),
+    "probe_strided_row_slice": lambda x, stride=2: x[::stride].contiguous(),
+    "probe_lane_slice_64": lambda x: x[:, 64:128].contiguous(),
+    "probe_int32_acc_reshape": lambda x: x.view(
+        x.shape[0] // 4, 4, -1).amax(dim=1),
+}
+
+
 def _probe_cases(torch, device):
     """(probe name, label, inputs) for each probe: JAX's inputs (ones, and
     the wrapped arange for the pool), then seeded random ones of the same
@@ -418,13 +604,14 @@ def _npz(x):
 
 
 def _probe_phase(torch, device, kind, results, launches):
-    """Phase 14: each probe kernel against its plain version, then the
-    probes' entry point on the card with every plain version counted."""
+    """Phase 14: each probe kernel against its plain version and, where one
+    PyTorch call computes its function, against that call; then the probes'
+    entry point on the card with every plain version counted."""
     from bnn_pynq_tpu_torch.ops import probes
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
     from bnn_pynq_tpu_torch.tools import mosaic_probes as probe_tool
     for fn in probes.PROBES:
-        results[fn.__name__] = {"max_abs_err": 0.0, "ms": 0.0,
-                                "plain_ms": 0.0}
+        results[fn.__name__] = _new_result()
     for name, label, inputs in _probe_cases(torch, device):
         kern = functools.partial(getattr(probes, name), **inputs)
         plain = functools.partial(getattr(probes, name + "_plain"), **inputs)
@@ -433,13 +620,35 @@ def _probe_phase(torch, device, kind, results, launches):
         assert got.shape == want.shape and got.dtype == want.dtype, label
         err = float((got.double() - want.double()).abs().max())
         assert torch.equal(got, want), f"{name} {label}: kernel != plain"
+        library = None
+        if name in PROBE_LIBRARY:
+            library = functools.partial(PROBE_LIBRARY[name], **inputs)
+            assert torch.equal(got, library()), \
+                f"{name} {label}: kernel != the library call"
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
-        print(f"{name} {label} {tuple(got.shape)}: max |kernel - plain| "
-              f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        beside = ""
         if label == "JAX inputs":        # the entry point's inputs
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            tensors = [v for v in inputs.values() if torch.is_tensor(v)]
+            if "w" in inputs:            # a dot of shifted rows
+                work = _work([(got.shape[0], inputs["w"].shape[0],
+                               got.shape[1])], *tensors)
+            else:                        # a copy or a max: one op an element
+                work = _work([], *tensors, peak=PEAK_FP32,
+                             ops=max(t.numel() for t in tensors))
+            bound = _account(torch, device, r, work, got, ms, plain_ms)
+            r["graph_ms"] = graph_ms(kern)
+            beside = (f" (graph replay {r['graph_ms']:.5f} ms), bound "
+                      f"{bound:.5f} ms")
+            if library:
+                r["library_ms"] = _time_ms(torch, library)
+                r["library_graph_ms"] = graph_ms(library)
+                beside += (f", library call {r['library_ms']:.4f} ms (graph "
+                           f"replay {r['library_graph_ms']:.5f} ms)")
+        print(f"{name} {label} {tuple(got.shape)}: max |kernel - plain| "
+              f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{beside}")
 
     # the probes' path: their entry point on the card, no plain call
     probe_plain = []
@@ -582,6 +791,7 @@ def main() -> int:
                                         fused_mlp, matmul)
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
     from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -606,10 +816,10 @@ def main() -> int:
     counters = {"fused_mlp": fused_mlp.fused_mlp_forward.launches,
                 "dense_block": conv_stack.dense_block.launches,
                 "conv_chain": conv_stack.conv_chain.launches}
-    results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in counters}
+    results = {k: _new_result() for k in counters}
     chain_ms = {}                 # conv_chain's time per case label
-    for kname, label, kern, plain, kind_out in _kernel_cases(torch, device):
+    for kname, label, kern, plain, kind_out, work in \
+            _kernel_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, label
@@ -619,15 +829,18 @@ def main() -> int:
         else:
             torch.testing.assert_close(got, want, **TOL)
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
-        print(f"{kname:11s} {label}: max |kernel - plain| {err:.3g}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if kname == "conv_chain":
-            chain_ms[label] = ms
         r = results[kname]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        beside = ""
         if label.startswith("cnv-w1a1"):    # main-path time per forward
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
+            bound = _account(torch, device, r, work, got, ms, plain_ms)
+            replay_ms = graph_ms(kern)
+            r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
+            beside = f" (graph replay {replay_ms:.4f} ms), bound {bound:.4f} ms"
+        print(f"{kname:11s} {label}: max |kernel - plain| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
+        if kname == "conv_chain":
+            chain_ms[label] = ms
 
     # -- 4. the main path -----------------------------------------------------
     rng = np.random.default_rng(1)
@@ -654,20 +867,21 @@ def main() -> int:
     _serve_68(BatchingServer, eng, eng.prepare(images[:128]), "cnv-w1a1")
 
     # -- 7. packed_matmul against its plain version ---------------------------
-    packed = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for label, route, kern, plain, main in _packed_cases(torch, device):
+    packed = _new_result()
+    for label, route, kern, plain, work in _packed_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, label
         err = float((got.double() - want.double()).abs().max())
         assert torch.equal(got, want), f"{label}: kernel != plain"
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
-        print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         packed["max_abs_err"] = max(packed["max_abs_err"], err)
-        if main:                  # cnv-w1a1 'vpu': time per forward
-            packed["ms"] += ms
-            packed["plain_ms"] += plain_ms
+        beside = ""
+        if work:                  # cnv-w1a1 'vpu': time per forward
+            bound = _account(torch, device, packed, work, got, ms, plain_ms)
+            beside = f", bound {bound:.4f} ms"
+        print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
 
     # -- 8. the packed routes -------------------------------------------------
     arms = matmul.packed_matmul.launches
@@ -735,8 +949,8 @@ def main() -> int:
                        "conv_chain_direct":
                            conv_direct.conv_chain_direct.launches}
     for k in direct_counters:
-        results[k] = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for kname, label, kern, plain, main in _direct_cases(torch, device):
+        results[k] = _new_result()
+    for kname, label, kern, plain, work in _direct_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, label
@@ -745,13 +959,13 @@ def main() -> int:
         ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
         beside = (f"; conv_chain {chain_ms[label]:.4f} ms"
                   if label in chain_ms else "")
-        print(f"{kname} {label}: max |kernel - plain| {err:.3g}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
         r = results[kname]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main:       # cnv-w1a1: the five direct layers, the two chains
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
+        if work:       # cnv-w1a1: the five direct layers, the two chains
+            bound = _account(torch, device, r, work, got, ms, plain_ms)
+            beside = f", bound {bound:.4f} ms{beside}"
+        print(f"{kname} {label}: max |kernel - plain| {err:.3g}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
 
     # -- 12. the direct route -------------------------------------------------
     direct_plain = []
@@ -799,7 +1013,7 @@ def main() -> int:
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
-           "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
+           "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
                            "bnn_pynq_tpu/ops/conv_stack.py:282"),
            "conv_chain": ("bnn_pynq_tpu_torch/csrc/conv_chain.cu",
                           "bnn_pynq_tpu/ops/conv_stack.py:65"),
@@ -813,9 +1027,35 @@ def main() -> int:
         src[name] = ("bnn_pynq_tpu_torch/csrc/mosaic_probes.cu",
                      f"tools/mosaic_probes.py:{line}")
     results["packed_matmul"] = packed
-    kernels = [{"name": k, "route": "cuda", "source": src[k][0],
-                "replaces": src[k][1], "launches": launches[k],
-                **results[k]} for k in src]
+    kernels = []
+    print("kernel rows (launches on its path per forward; ms summed over "
+          "that path's calls at batch 1024; library: the one PyTorch call "
+          "that computes the same function, where there is one; int_mm: "
+          "torch._int_mm on the same M x K x N, dot only, no im2col, no "
+          "thresholds):")
+    for k in src:
+        r = results[k]
+        row = {"name": k, "route": "cuda", "source": src[k][0],
+               "replaces": src[k][1], "launches": launches[k],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"]
+               else "bytes",
+               "library_ms": r["library_ms"], "int_mm_ms": r["int_mm_ms"],
+               "graph_ms": r["graph_ms"],
+               "library_graph_ms": r["library_graph_ms"]}
+        kernels.append(row)
+        int_mm = "none" if row["int_mm_ms"] is None \
+            else f"{row['int_mm_ms']:.4f}"
+        graph = "" if row["graph_ms"] is None \
+            else f" (graph replay {row['graph_ms']:.5f})"
+        lib = "none" if row["library_ms"] is None else \
+            (f"{row['library_ms']:.4f} (graph replay "
+             f"{row['library_graph_ms']:.5f})")
+        print(f"  {k}: launches_per_forward {row['launches']}, bound_ms "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}), kernel_ms "
+              f"{row['ms']:.4f}{graph}, plain_ms {row['plain_ms']:.4f}, "
+              f"library_ms {lib}, int_mm_ms {int_mm}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

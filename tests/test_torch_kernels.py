@@ -116,6 +116,45 @@ def test_conv_chain_on_raw_image_matches_jax(wbits, abits):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# odd shapes the tensor-core kernels mask or run on their slower paths:
+# (widths, m) with N not a multiple of 8 or 16, K not a multiple of 32
+@pytest.mark.parametrize("widths,m", [([96, 10], 1), ([96, 100], 1023),
+                                      ([40, 72, 10], 37)])
+@pytest.mark.parametrize("wbits,abits", [(1, 1), (2, 2)])
+def test_dense_block_odd_shapes_match_jax(wbits, abits, widths, m):
+    rng = np.random.default_rng(80 + 10 * wbits + abits + m)
+    ws, ts = _layers(rng, widths, wbits, abits)
+    x = rng.integers(0, 2 ** abits, size=(m, widths[0])).astype(np.int8)
+    want = jax_dense_block(jnp.asarray(x), _jax(ws), _jax(ts), abits=abits,
+                           interpret=True)
+    got = conv_stack.dense_block(torch.from_numpy(x), *_port(ws, ts),
+                                 abits=abits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# (kernel, channels, h): C = 24 (no 32-byte steps per tap; the JAX kernel
+# takes such a first layer as prebuilt patches), a 5×5 kernel, N = 10 and 100
+@pytest.mark.parametrize("k,chans,h", [(3, [24, 10], 8), (5, [32, 100], 9),
+                                       (5, [24, 32, 8], 11)])
+@pytest.mark.parametrize("wbits,abits", [(1, 1), (2, 2)])
+def test_conv_chain_odd_shapes_match_jax(wbits, abits, k, chans, h):
+    rng = np.random.default_rng(90 + 10 * wbits + abits + k + h)
+    b = 1 if h == 8 else 3
+    ws, ts = _layers(rng, chans, wbits, abits, k=k)
+    x = rng.integers(0, 2 ** abits, size=(b, h, h, chans[0])).astype(np.int8)
+    patches = chans[0] % 32 != 0
+    xin = jax_sliding_window(jnp.asarray(x), k, k, 1) if patches \
+        else jnp.asarray(x)
+    full = conv_chain_vmem(xin, _jax(ws), _jax(ts), kernel=k, abits=abits,
+                           input_patches=patches, interpret=True)
+    oh = h - (len(chans) - 1) * (k - 1)
+    want = np.asarray(full)[:, :oh, :oh, :]
+    got = conv_stack.conv_chain(torch.from_numpy(x), *_port(ws, ts),
+                                kernel=k, abits=abits)
+    assert got.shape == (b, oh, oh, chans[-1])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrappers_on_cpu_run_plain_and_launch_nothing():
     rng = np.random.default_rng(7)
     ws, ts = _layers(rng, [48, 32, 16], 1, 1)
