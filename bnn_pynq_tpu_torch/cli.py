@@ -9,7 +9,8 @@
 
 Port of `bnn_pynq_tpu/cli.py` with its flags. `--device` is `cuda` (the
 default; without CUDA it raises) or `cpu`; `--runtime` is `kernels` (the
-route's CUDA kernels, or their plain versions on the CPU) or `ref`;
+route's CUDA kernels, or their plain versions on the CPU; the JAX CLI's
+`auto`, `tpu` and `interpret` are accepted as names of it) or `ref`;
 `--route` takes every route name of the JAX package and defaults to the
 port's main path, `mega`. `train`, `compile`, `ingest` and `gate-all` need
 the training stack, which the port does not have yet.

@@ -1,36 +1,57 @@
-// Direct (no-im2col) quantized convs from a shared-memory halo tile: one
-// stride-1 VALID K×K layer (entry bnn_conv_direct), or several chained
-// layers whose intermediate levels never leave shared memory (entry
-// bnn_conv_chain_direct). Both run direct_kernel below.
+// Direct (no-im2col) quantized convs: one stride-1 VALID K×K layer (entry
+// bnn_conv_direct), or several chained layers whose intermediate levels
+// never leave shared memory (entry bnn_conv_chain_direct).
 //
 // Replaces bnn_pynq_tpu/ops/conv_direct.py::conv2d_direct and
 // ::conv_chain_direct. The TPU kernels sum K² shifted MXU dots over a
 // flattened "pitch grid", computing garbage rows at the borders that the
-// caller slices away, and pad the batch to their block; this kernel computes
-// only the valid output pixels and takes any batch.
+// caller slices away, and pad the batch to their block; these kernels compute
+// only the valid output pixels and take any batch.
 //
-// A block owns a tile: whole images where they fit in shared memory (several
-// small ones, so a block has work), else a band of output rows of one image.
-// It stages the tile's input rows plus the (K-1)-row halo of every chained
-// layer, at full width, as int8 levels: each input byte is read from device
-// memory and decoded once, where conv_chain.cu's implicit GEMM gathers every
-// pixel K² times into patch rows. Threads own (8 output pixels, output
-// channel) pairs. For each tap a thread runs __dp4a over the shifted pixels'
-// channels in shared memory against that tap's weights, streamed from L2
-// 16 bytes (or 4, for C % 16 != 0) at a time and reused across the 8 pixels
-// in registers. The epilogue thresholds to codes (next layer's levels, kept
-// in the other half of a ping-pong pair of shared buffers, or int8 codes in
-// device memory), or stores int32 when there are no thresholds. At layer j
-// of n a band recomputes the (n-1-j)(K-1) halo rows its later layers need;
-// at every CNV shape whole images fit, so nothing is recomputed there.
+// bnn_conv_direct (the `direct` route: 5 launches per CNV forward) runs on
+// the int8 tensor cores. It is conv_tile.cuh's persistent implicit GEMM, the
+// kernel of conv_chain.cu::bnn_conv_layer: the layer's weights staged once
+// per block in shared memory, the input rows of a tile of consecutive
+// output pixels copied once as raw codes by cp.async, the taps read at
+// shifted offsets by ldmatrix, mma.sync m16n8k32, the thresholds folded
+// onto the raw accumulator. What bounds it is operations (59 G MACs per
+// forward at batch 1024: 0.063 ms at the card's 1,979 TOP/s, against 47 MB
+// in and out); conv_chain.cu tells the design. Two things are this entry's:
+// - without thresholds (a network's last layer) the epilogue stores the
+//   true int32 accumulator, 2·acc − off·wsum for a dot on codes
+//   (mma_tile.cuh::item_store_acc);
+// - a conv whose kernel covers its whole input (CNV's conv5: 3×3 on a 3×3
+//   map, K = 2304) is a dense layer on contiguous [B, K²C] rows, with no
+//   gather at all and only B output pixels to tile: it goes to
+//   dense_chain.cu's kernel as one thresholded layer (bnn_dense_codes: 32
+//   rows a block, the weights streamed in tiles by bulk copy), which needs
+//   no room for 590 KB of weights. (dense_block.cu's 64-row K-ring took
+//   three times as long at batch 1024, the conv kernel here eighteen times:
+//   three input rows per output pixel crowd the weights out of shared
+//   memory.)
+// The dp4a kernel this replaced (one thread per 8 pixels and one channel,
+// weights streamed from L2 by every thread) took 2.48 ms per forward for
+// the five layers on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §6 has
+// the times of this one.
 //
-// What bounds it on the H100: dp4a throughput on the CUDA cores (59 G MACs per
-// CNV forward at batch 1024, layers 1, 3, 4, 6 and 7) and the weight stream
-// from L2 (one 16-byte load per 8 pixels × 16 MACs). int8 mma/wgmma and
-// weights staged in shared memory are later work.
+// bnn_conv_chain_direct (on no route, as in the JAX package) keeps that
+// dp4a design, direct_kernel below. A block owns a tile: whole images where
+// they fit in shared memory (several small ones, so a block has work), else
+// a band of output rows of one image. It stages the tile's input rows plus
+// the (K-1)-row halo of every chained layer, at full width, as int8 levels.
+// Threads own (8 output pixels, output channel) pairs. For each tap a thread
+// runs __dp4a over the shifted pixels' channels in shared memory against
+// that tap's weights, streamed from L2 16 bytes (or 4, for C % 16 != 0) at a
+// time and reused across the 8 pixels in registers. The epilogue thresholds
+// to codes (next layer's levels, kept in the other half of a ping-pong pair
+// of shared buffers, or int8 codes in device memory). At layer j of n a band
+// recomputes the (n-1-j)(K-1) halo rows its later layers need; at every CNV
+// shape whole images fit, so nothing is recomputed there. What bounds it:
+// dp4a throughput on the CUDA cores and the weight stream from L2 (one
+// 16-byte load per 8 pixels × 16 MACs).
 #include <algorithm>
 
-#include "dense_tile.cuh"
+#include "conv_tile.cuh"
 
 namespace bnn {
 namespace {
@@ -51,7 +72,7 @@ struct DirectLayer {
   const int8_t* w;       // [n_out, wstride] levels; tap t's channels at t*cp
   int wstride;
   int n_out;
-  const int32_t* thr;    // [nthr, n_out]; null for int32 output
+  const int32_t* thr;    // [nthr, n_out]
 };
 
 struct DirectArgs {
@@ -60,10 +81,10 @@ struct DirectArgs {
   int ksize;
   int input_levels;
   int level_off;
-  int nthr;              // 0: one layer, int32 out
+  int nthr;
   int n_layers;
   DirectLayer layer[kDirectMaxLayers];
-  void* out;             // [b, oh, ow, n_last] int8 codes, or int32
+  int8_t* out;           // [b, oh, ow, n_last] codes
   int oh, ow;            // the last layer's map
   int tile_imgs;         // images a block owns
   int tile_rows;         // final output rows a block owns (oh: whole images)
@@ -91,7 +112,7 @@ template <> struct Dot<4> {
 struct LayerOut {
   int8_t* next;          // levels [pixels, next_cp] in shared memory, or null
   int next_cp;
-  void* out;             // else device memory, from pixel out_base on
+  int8_t* out;           // else device memory, from pixel out_base on
   size_t out_base;
   int img_pixels;        // pixels between two images in `out`
 };
@@ -159,11 +180,7 @@ __device__ __forceinline__ void direct_layer(
       const size_t idx =
           (o.out_base + static_cast<size_t>(i) * o.img_pixels + (p - i * map)) *
               L.n_out + n;
-      if (nthr == 0) {
-        static_cast<int32_t*>(o.out)[idx] = acc[r];
-      } else {
-        static_cast<int8_t*>(o.out)[idx] = static_cast<int8_t>(code);
-      }
+      o.out[idx] = static_cast<int8_t>(code);
     }
   }
 }
@@ -282,7 +299,7 @@ int launch_direct(DirectArgs& a, cudaStream_t stream) {
   const int halo = a.ksize - 1;
   if (a.b < 0 || a.c < 1 || a.ksize < 1 || a.n_layers < 1 ||
       a.n_layers > kDirectMaxLayers || (a.level_off != 1 && a.level_off != 3) ||
-      a.nthr < 0 || a.nthr > kMaxThr || (a.nthr == 0 && a.n_layers != 1) ||
+      a.nthr < 1 || a.nthr > kMaxThr ||
       a.h - a.n_layers * halo < 1 || a.w - a.n_layers * halo < 1) {
     return cudaErrorInvalidValue;
   }
@@ -290,7 +307,7 @@ int launch_direct(DirectArgs& a, cudaStream_t stream) {
   for (int j = 0; j < a.n_layers; ++j) {
     const DirectLayer& L = a.layer[j];
     const int cp = chan_pad(c);
-    if (L.w == nullptr || L.n_out < 1 || (a.nthr > 0) != (L.thr != nullptr) ||
+    if (L.w == nullptr || L.n_out < 1 || L.thr == nullptr ||
         L.wstride < a.ksize * a.ksize * cp ||
         L.wstride % (cp % kVec == 0 ? kVec : 4) != 0) {
       return cudaErrorInvalidValue;
@@ -359,7 +376,7 @@ DirectArgs input_args(const void* x, int b, int h, int w, int c, int ksize,
   a.input_levels = input_levels;
   a.level_off = abits == 1 ? 1 : (abits == 2 ? 3 : 0);
   a.nthr = nthr;
-  a.out = out;
+  a.out = static_cast<int8_t*>(out);
   return a;
 }
 
@@ -368,24 +385,42 @@ DirectArgs input_args(const void* x, int b, int h, int w, int c, int ksize,
 
 extern "C" {
 
-// One layer. x: int8 codes [b, h, w, c]; wt: int8 levels [n_out, wstride],
-// tap t's channels at t * chan_pad(c) (zero levels in the pad); thr: int32
-// [nthr, n_out], or null with nthr = 0 for int32 output;
+int bnn_dense_codes(const void* x, int m, int k0, const void* tiles, int k32,
+                    int n_out, const void* wsum, const void* thr, int nthr,
+                    int abits, void* out, void* stream);
+
+// One layer. x: int8 codes [b, h, w, c]; wt: int8 levels [n_out, k32] with
+// k32 = round_up(ksize²·c, 32), (ki, kj, c) order, zero past K; tiles: the
+// same weights as 128-byte K tiles (WeightMatrix.tiles: what
+// bnn_dense_codes reads); wsum: int32 [n_out], the column sums of wt; thr:
+// int32 [nthr, n_out], or null with nthr = 0 for int32 output;
 // out: [b, h-ksize+1, w-ksize+1, n_out], int8 codes or int32.
 int bnn_conv_direct(const void* x, int b, int h, int w, int c, int ksize,
-                    const void* wt, int wstride, int n_out, const void* thr,
-                    int nthr, int abits, void* out, void* stream) {
+                    const void* wt, const void* tiles, int k32, int n_out,
+                    const void* wsum, const void* thr, int nthr, int abits,
+                    void* out, void* stream) {
   using namespace bnn;
-  DirectArgs a = input_args(x, b, h, w, c, ksize, 0, nthr, abits, out);
-  a.n_layers = 1;
-  a.layer[0] = {static_cast<const int8_t*>(wt), wstride, n_out,
-                static_cast<const int32_t*>(thr)};
-  return launch_direct(a, static_cast<cudaStream_t>(stream));
+  if ((thr == nullptr) != (nthr == 0)) return cudaErrorInvalidValue;
+  if (thr == nullptr) {
+    return launch_conv<kConvAcc>(x, b, h, w, c, ksize, 0, wt, k32, n_out,
+                                 wsum, nullptr, 0, abits, out,
+                                 static_cast<cudaStream_t>(stream));
+  }
+  if (b > 0 && c > 0 && h == ksize && w == ksize) {
+    // the kernel covers the map: a dense layer on [b, ksize²·c] rows
+    return bnn_dense_codes(x, b, ksize * ksize * c, tiles, k32, n_out, wsum,
+                           thr, nthr, abits, out, stream);
+  }
+  return launch_conv<kConvCodes>(x, b, h, w, c, ksize, 0, wt, k32, n_out,
+                                 wsum, thr, nthr, abits, out,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // n_layers chained layers, each thresholded (1 <= nthr <= 3). x: int8 codes
 // [b, h, w, c], or levels if input_levels; w_ptrs, wstrides, n_outs,
-// thr_ptrs: host arrays, one entry per layer, as for bnn_conv_direct;
+// thr_ptrs: host arrays, one entry per layer: int8 levels [n_out, wstride]
+// with tap t's channels at t * chan_pad(c) (zero levels in the pad), and
+// int32 thresholds [nthr, n_out];
 // out: int8 codes [b, h-n(ksize-1), w-n(ksize-1), n_outs[n-1]].
 int bnn_conv_chain_direct(const void* x, int b, int h, int w, int c,
                           int ksize, int input_levels,

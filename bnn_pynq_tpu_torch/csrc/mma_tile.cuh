@@ -1,15 +1,15 @@
-// Shared device code of the tensor-core kernels (conv_chain.cu,
-// dense_block.cu): int8 × int8 → int32 warp tiles on
+// Shared device code of the tensor-core kernels (conv_tile.cuh under
+// conv_chain.cu and conv_direct.cu, dense_block.cu, dense_chain.cu): int8 × int8 → int32 warp tiles on
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with both operands read
 // from shared memory by ldmatrix, cp.async staging, and the MultiThreshold
 // epilogue run on the accumulator fragments.
 //
-// Replaces the dp4a body (dense_tile.cuh::layer_tile) under the ports of
-// bnn_pynq_tpu/ops/conv_stack.py::conv_chain_vmem and ::dense_block. Both
-// are bound by operations or bytes far below what the CUDA cores reach (the
-// main-path bounds stand in the two .cu files), so the dots move to the
-// tensor cores and every operand byte is fetched from L2 once per block
-// tile, not once per thread.
+// Under the ports of bnn_pynq_tpu/ops/conv_stack.py::conv_chain_vmem and
+// ::dense_block, ops/conv_direct.py::conv2d_direct and
+// ops/fused_mlp.py::fused_mlp_forward. All are bound by operations or bytes
+// far below what the CUDA cores reach (the main-path bounds stand in the .cu
+// files), so the dots run on the tensor cores and every operand byte is
+// fetched from L2 once per block tile, not once per thread.
 //
 // mma.sync alone reaches 1,260 TOP/s on an NVIDIA H100 80GB HBM3 at 700.00 W
 // (tools/layer_times.py), 64 % of the published 1,979: the ceiling of these
@@ -48,7 +48,7 @@
 // (stage_thresholds). Exact.
 #pragma once
 
-#include "dense_tile.cuh"
+#include "common.cuh"
 
 namespace bnn {
 
@@ -200,10 +200,12 @@ inline size_t epilogue_smem(int nthr, int cols, int warps = kWarps) {
 //   2·acc − off·wsum ≥ thr  ⟺  acc ≥ ceil((thr + off·wsum) / 2),
 // in 64 bits and clamped (|acc| < 2^24, so a clamped threshold compares as
 // the true one). Columns past ncols never pass. The caller synchronizes.
+// `threads`: how many of the block's first threads take part.
 __device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
                                                  const EpilogueArgs& e,
-                                                 int nc0, int ncols) {
-  for (int i = threadIdx.x; i < e.nthr * cols_pad; i += blockDim.x) {
+                                                 int nc0, int ncols,
+                                                 int threads) {
+  for (int i = threadIdx.x; i < e.nthr * cols_pad; i += threads) {
     const int k = i / cols_pad;
     const int n = i - k * cols_pad;
     long long x = kThrNever;
@@ -246,8 +248,9 @@ __device__ __forceinline__ void block_codes(const ItemAcc& acc, int mb, int j,
 // Where whole 16-byte runs of a row can be stored (vec: n_out, col0 and
 // cols multiples of 16, out aligned), an m16 block's codes are gathered in
 // the staging buffer and leave as 16-byte stores, 64 contiguous bytes a
-// row; else each lane stores its bytes one by one.
-template <int NTHR>
+// row; else each lane stores its bytes one by one. NJ: the n8 blocks of the
+// item that hold columns (8 unless the caller's items are narrower).
+template <int NTHR, int NJ = 8>
 __device__ __forceinline__ void item_store_codes_n(
     const ItemAcc& acc, const int32_t* thr_s, int cols_pad, int8_t* stage,
     int8_t* out, int n_out, size_t row0, int rows, int col0, int cols,
@@ -262,7 +265,7 @@ __device__ __forceinline__ void item_store_codes_n(
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         int code[2][2];
         block_codes<NTHR>(acc, mb, j, thr_lane, cols_pad, code);
 #pragma unroll
@@ -288,7 +291,7 @@ __device__ __forceinline__ void item_store_codes_n(
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       int code[2][2];
       block_codes<NTHR>(acc, mb, j, thr_lane, cols_pad, code);
       const int n = 8 * j + 2 * t;
@@ -306,19 +309,80 @@ __device__ __forceinline__ void item_store_codes_n(
 }
 
 // The same with the number of thresholds (1..3) chosen at run time.
+template <int NJ = 8>
 __device__ __forceinline__ void item_store_codes(
     const ItemAcc& acc, const int32_t* thr_s, int cols_pad, int nthr,
     int8_t* stage, int8_t* out, int n_out, size_t row0, int rows, int col0,
     int cols, bool vec, int lane) {
   if (nthr == 1) {
-    item_store_codes_n<1>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
-                          col0, cols, vec, lane);
+    item_store_codes_n<1, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
+                              rows, col0, cols, vec, lane);
   } else if (nthr == 2) {
-    item_store_codes_n<2>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
-                          col0, cols, vec, lane);
+    item_store_codes_n<2, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
+                              rows, col0, cols, vec, lane);
   } else {
-    item_store_codes_n<3>(acc, thr_s, cols_pad, stage, out, n_out, row0, rows,
-                          col0, cols, vec, lane);
+    item_store_codes_n<3, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
+                              rows, col0, cols, vec, lane);
+  }
+}
+
+// The same with every thread of the block taking part.
+__device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
+                                                 const EpilogueArgs& e,
+                                                 int nc0, int ncols) {
+  stage_thresholds(thr_s, cols_pad, e, nc0, ncols, blockDim.x);
+}
+
+// For an epilogue that keeps the accumulator: stage, for columns
+// [nc0, nc0 + ncols), what the raw accumulator of a dot on codes lacks of
+// the true one, Σ level·w = 2·acc − off·wsum, as sub_s[n] = off·wsum (0
+// where the A operand held levels, and past ncols). The caller synchronizes.
+__device__ __forceinline__ void stage_acc_correction(int32_t* sub_s,
+                                                     int cols_pad,
+                                                     const EpilogueArgs& e,
+                                                     int nc0, int ncols) {
+  for (int n = threadIdx.x; n < cols_pad; n += blockDim.x) {
+    sub_s[n] = (n < ncols && e.codes_in)
+                   ? e.level_off * __ldg(e.wsum + nc0 + n)
+                   : 0;
+  }
+}
+
+// Store the item's true int32 accumulators, mul·acc − sub_s[column] (mul 2
+// with codes in, else 1; exact: |Σ| < 2^24).
+//   sub_s: the staged corrections at the item's first column;
+//   out + row0 · n_out + col0: the output of item row 0, column 0;
+//   rows, cols: the item's real rows (1..32) and columns (1..64);
+//   pairs: n_out is even and out 8-byte aligned, so a lane's two
+//     neighbouring columns leave as one 8-byte store (a quad of lanes then
+//     writes 32 contiguous bytes of a row).
+__device__ __forceinline__ void item_store_acc(
+    const ItemAcc& acc, const int32_t* sub_s, int mul, int32_t* out,
+    int n_out, size_t row0, int rows, int col0, int cols, bool pairs,
+    int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 8 * j + 2 * t;
+      const int2 sub = *reinterpret_cast<const int2*>(sub_s + n);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = 16 * mb + 8 * h + g;
+        if (rr >= rows || n >= cols) continue;
+        const int v0 = mul * acc.c[mb][j][2 * h] - sub.x;
+        const int v1 = mul * acc.c[mb][j][2 * h + 1] - sub.y;
+        int32_t* o = out + (row0 + rr) * n_out + col0 + n;
+        if (pairs && n + 1 < cols) {
+          *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (n + 1 < cols) o[1] = v1;
+        }
+      }
+    }
   }
 }
 

@@ -38,7 +38,7 @@
 // each staged vector across 4 rows or columns from registers. Moving the
 // popcount arm to mma.sync .b1 (XOR/AND + popc on the tensor cores) and the
 // decode arm to int8 wgmma with TMA-staged tiles is later work.
-#include "dense_tile.cuh"
+#include "common.cuh"
 
 namespace bnn {
 namespace {

@@ -43,6 +43,7 @@ from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
+from bnn_pynq_tpu_torch.ops.packing import np_pack_bits, np_pack_codes2
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
@@ -95,6 +96,53 @@ def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
         else:
             raise TypeError(f"unknown layer spec {spec!r}")
     return tuple(plans)
+
+
+def init_random_params(config: NetworkConfig, seed: int = 0):
+    """Random packed parameters with plausible thresholds, for tests and
+    kernel timings before trained artifacts exist.
+
+    Port of `bnn_pynq_tpu/models/network.py::init_random_params`: the same
+    per-layer dicts (`w_int8` or `w_packed` uint32 words, `thr` int32 on
+    all but the last layer) as numpy arrays, drawn from
+    `np.random.default_rng(seed)` in the same order, so one (config, seed)
+    gives equal arrays in both packages. `params_from_numpy` takes them.
+    """
+    rng = np.random.default_rng(seed)
+    bits = config.bits
+    params = []
+    for lp in make_plan(config):
+        if lp.kind == "pool":
+            params.append({})
+            continue
+        if lp.kind == "conv_int8":
+            wmat = rng.choice([-1, 1], size=(lp.k, lp.n)).astype(np.int8)
+            if config.wbits == 2:
+                wmat = rng.choice([-3, -1, 1, 3],
+                                  size=(lp.k, lp.n)).astype(np.int8)
+            entry = {"w_int8": wmat}
+            scale = lp.k * 128
+        else:
+            if bits == 1:
+                wvals = rng.choice([-1, 1], size=(lp.k, lp.n)).astype(np.int8)
+                packed = np_pack_bits(wvals, axis=0)
+            else:
+                if config.wbits == 1:
+                    wcodes = rng.choice([1, 2],
+                                        size=(lp.k, lp.n)).astype(np.int8)
+                else:
+                    wcodes = rng.integers(0, 4,
+                                          size=(lp.k, lp.n)).astype(np.int8)
+                packed = np_pack_codes2(wcodes, axis=0)
+            entry = {"w_packed": packed}
+            scale = lp.k * (1 if bits == 1 else 9)
+        if not lp.last:
+            entry["thr"] = np.sort(
+                rng.integers(-scale // 4, scale // 4,
+                             size=(config.nthr, lp.n)),
+                axis=0).astype(np.int32)
+        params.append(entry)
+    return params
 
 
 def prepare_input(config: NetworkConfig, x: torch.Tensor) -> torch.Tensor:

@@ -23,13 +23,18 @@ from bnn_pynq_tpu_torch.models.network import make_plan
 from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 
-# The dp4a kernels read K in 16-byte vectors (csrc/dense_tile.cuh, kVec),
-# so their weight copy pads K with zero levels to a multiple of 16. A zero
-# level adds nothing to the dot, whatever the activation it meets.
+# The dp4a kernel (csrc/conv_direct.cu, conv_chain_direct) reads K in
+# 16-byte vectors (csrc/common.cuh, kVec), so its weight copy pads K with
+# zero levels to a multiple of 16. A zero level adds nothing to the dot,
+# whatever the activation it meets.
 K_ALIGN = 16
 # The tensor-core kernels (csrc/mma_tile.cuh) consume K in steps of 32
 # bytes, the depth of one int8 mma.
 K_ALIGN_MMA = 32
+# The whole-MLP kernel (csrc/dense_chain.cu) fetches its weights in tiles of
+# this many bytes of K a row, 16-byte chunks at a time.
+K_TILE = 128
+K_CHUNK = 16
 
 
 @dataclass(frozen=True)
@@ -39,19 +44,27 @@ class WeightMatrix:
     kn: [K, N], K in (ki, kj, c) order — the JAX layout, used by the plain
         versions and the reference.
     nk: [N, Kp], K contiguous and zero-padded to Kp = K rounded up to
-        K_ALIGN — the layout the dp4a kernels read (`fused_mlp`,
-        `conv_direct`).
+        K_ALIGN — the layout the dp4a kernel reads (`conv_chain_direct`).
     nk32: the same with K rounded up to K_ALIGN_MMA — what the tensor-core
-        kernels read (`conv_chain`, `dense_block`); it is `nk` itself where
-        the two pads agree.
+        kernels read (`conv_chain`, `dense_block`, `conv2d_direct`); it is
+        `nk` itself where the two pads agree.
     wsum: int32 [N], the column sums of the levels. Those kernels run the
         dot on activation codes c, not levels 2c − off, and correct it
         with Σ level·w = 2·Σ c·w − off·wsum.
+    tiles: [ceil(K / K_TILE), N, K_TILE], `nk32` cut into K slices of K_TILE
+        bytes, slice-major (zero past K), so that the rows n0..n1 of one
+        slice are one contiguous run that `fused_mlp`'s kernel fetches with
+        one bulk copy (and `conv2d_direct`'s, for a conv whose kernel covers
+        its input). Within a row's slice the K_CHUNK-byte chunk c lies
+        at position c ^ (n & 7): read at a pitch of K_TILE bytes, the same
+        chunk of 8 neighbouring rows then falls in 8 different bank groups
+        of shared memory.
     """
     kn: torch.Tensor
     nk: torch.Tensor
     nk32: torch.Tensor
     wsum: torch.Tensor
+    tiles: torch.Tensor
 
 
 def _padded_nk(kn: torch.Tensor, align: int) -> torch.Tensor:
@@ -60,6 +73,21 @@ def _padded_nk(kn: torch.Tensor, align: int) -> torch.Tensor:
                      device=kn.device)
     nk[:, :k] = kn.t()
     return nk
+
+
+def _k_tiles(nk32: torch.Tensor) -> torch.Tensor:
+    n, k32 = nk32.shape
+    slices = -(-k32 // K_TILE)
+    chunks = K_TILE // K_CHUNK
+    padded = torch.zeros((n, slices * K_TILE), dtype=torch.int8,
+                         device=nk32.device)
+    padded[:, :k32] = nk32
+    # position p of row n holds chunk p ^ (n & 7): the XOR is its own inverse
+    src = torch.arange(chunks, device=nk32.device)[None, :] ^ \
+        (torch.arange(n, device=nk32.device)[:, None] & (chunks - 1))
+    t = padded.reshape(n, slices, chunks, K_CHUNK)
+    t = torch.gather(t, 2, src[:, None, :, None].expand_as(t))
+    return t.permute(1, 0, 2, 3).reshape(slices, n, K_TILE).contiguous()
 
 
 def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
@@ -71,7 +99,8 @@ def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
     nk32 = nk if nk.shape[1] % K_ALIGN_MMA == 0 else \
         _padded_nk(kn, K_ALIGN_MMA)
     return WeightMatrix(kn=kn.contiguous(), nk=nk, nk32=nk32,
-                        wsum=kn.sum(dim=0, dtype=torch.int32))
+                        wsum=kn.sum(dim=0, dtype=torch.int32),
+                        tiles=_k_tiles(nk32))
 
 
 def unpack_levels(w_packed: np.ndarray, k: int, bits: int) -> np.ndarray:

@@ -39,10 +39,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: c_void_p for pointers (device and
 # host) and the stream, c_int for ints. Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # x, m, k0, w_ptrs, thr_ptrs, kp, n, n_layers, nthr, abits, scale,
-    # bias, out, stream
-    "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                      _P),
+    # x, m, k0, w_ptrs, wsum_ptrs, thr_ptrs, k32, n, n_layers, nthr, abits,
+    # scale, bias, out, stream
+    "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                      _P, _P),
     # x, m, k0, input_levels, wt, k32, n_out, wsum, thr, nthr, abits, out,
     # stream
     "bnn_dense_block": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
@@ -53,10 +53,10 @@ _SIGNATURES = {
                        _I, _P, _P),
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
     "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
-    # x, b, h, w, c, ksize, wt, wstride, n_out, thr, nthr, abits, out,
-    # stream
-    "bnn_conv_direct": (_P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P,
-                        _P),
+    # x, b, h, w, c, ksize, wt, tiles, k32, n_out, wsum, thr, nthr, abits,
+    # out, stream
+    "bnn_conv_direct": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                        _I, _P, _P),
     # x, b, h, w, c, ksize, input_levels, w_ptrs, wstrides, n_outs,
     # thr_ptrs, n_layers, nthr, abits, out, stream
     "bnn_conv_chain_direct": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,

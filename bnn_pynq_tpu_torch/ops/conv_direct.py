@@ -8,10 +8,14 @@ Ports of `bnn_pynq_tpu/ops/conv_direct.py`:
 - `conv_chain_direct` ← `conv_chain_direct`: chained stride-1 VALID convs,
   every one thresholded; the intermediate levels stay on chip.
 
-CUDA kernel: `csrc/conv_direct.cu` (entries `bnn_conv_direct` and
-`bnn_conv_chain_direct`, one device routine). The JAX kernels' pitch grid,
-batch padding and pre-overlapped windows are TPU layout devices: the port
-computes and returns the valid region only and takes any batch.
+CUDA kernels: `csrc/conv_direct.cu`. `bnn_conv_direct` runs on the int8
+tensor cores: the implicit GEMM of `csrc/conv_tile.cuh`, shared with
+`conv_chain`, on the weights' `nk32` layout and `wsum`; a conv whose kernel
+covers its input goes to `csrc/dense_chain.cu` as one dense layer on the
+weights' `tiles`. `bnn_conv_chain_direct` is a dp4a kernel on weights
+padded per tap. The JAX kernels' pitch grid, batch padding and
+pre-overlapped windows are TPU layout devices: the port computes and
+returns the valid region only and takes any batch.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
 """
@@ -73,9 +77,10 @@ def _check_layer(j, w, thr, c: int, kernel: int) -> None:
 
 
 def _kernel_weights(w, c: int, kernel: int) -> torch.Tensor:
-    """The kernel's weight layout: levels [N, K²·Cp], each tap's C channels
-    padded with zero levels to Cp = C rounded up to 4, so that every tap's
-    dot is whole dp4a words. For C % 4 == 0 that is `w.nk` itself."""
+    """The chain kernel's weight layout: levels [N, K²·Cp], each tap's C
+    channels padded with zero levels to Cp = C rounded up to 4, so that
+    every tap's dot is whole dp4a words. For C % 4 == 0 that is `w.nk`
+    itself."""
     if c % 4 == 0:
         return w.nk
     taps, n = kernel * kernel, w.kn.shape[1]
@@ -94,6 +99,12 @@ def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
     w: WeightMatrix (models/params.py), levels [K²·C, O] in (ki,kj,c) order.
     thr: int32 [nthr, O], or None for int32 accumulators (stride 1 only).
     Returns [B, OH, OW, O]: int8 codes, or int32 without `thr`.
+
+    On a CUDA tensor the kernel keeps, in shared memory, the input rows of
+    32 output pixels beside at least 8 weight columns (or, for a conv whose
+    kernel covers its input, 32 rows of K²·C codes): a layer too wide for
+    that (K²·C beyond about 3,500 on a covered map) makes the launcher
+    return an error, and this wrapper raises.
     """
     _check_input(x_codes)
     _check_layer(0, w, thr, x_codes.shape[-1], kernel)
@@ -106,19 +117,25 @@ def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
         return conv2d_direct_plain(x_codes, w, thr, kernel=kernel,
                                    abits=abits, stride=stride)
     check_cuda_operands(x_codes, [w], [] if thr is None else [thr])
+    k32 = w.nk32.shape[1]
     if stride != 1:
+        # a 1×1 conv over the patches, their K²·C channels padded to the
+        # weights' k32 (any code will do: the weights are zero there), so
+        # that the kernel copies whole rows and gathers nothing
         x_codes = sliding_window(x_codes, kernel, kernel, stride)
+        if x_codes.shape[-1] != k32:
+            x_codes = torch.nn.functional.pad(
+                x_codes, (0, k32 - x_codes.shape[-1]))
         kernel = 1
     b, h, wd, c = x_codes.shape
     n = w.kn.shape[1]
-    wt = _kernel_weights(w, c, kernel)
     out = torch.empty((b, h - kernel + 1, wd - kernel + 1, n),
                       dtype=torch.int8 if thr is not None else torch.int32,
                       device=x_codes.device)
     stream = torch.cuda.current_stream(x_codes.device).cuda_stream
     _build.library().call(
         "bnn_conv_direct", x_codes.data_ptr(), b, h, wd, c, kernel,
-        wt.data_ptr(), wt.shape[1], n,
+        w.nk32.data_ptr(), w.tiles.data_ptr(), k32, n, w.wsum.data_ptr(),
         None if thr is None else thr.data_ptr(),
         0 if thr is None else thr.shape[0], abits, out.data_ptr(), stream)
     conv2d_direct.launches.add()

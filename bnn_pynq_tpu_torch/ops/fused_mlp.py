@@ -4,7 +4,11 @@ Port of `bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward` (and its
 `_padded` form: the kernel masks a ragged batch, so there is no padding).
 Per layer: levels · weights → int32, MultiThreshold back to levels; the
 last layer gives `float(acc) * out_scale + out_bias`. The CUDA kernel is
-`csrc/dense_chain.cu` (entry `bnn_fused_mlp`).
+`csrc/dense_chain.cu` (entry `bnn_fused_mlp`): one launch, the dots on the
+int8 tensor cores, the weights' `tiles` layout and `wsum` (models/params.py).
+A block keeps 32 rows of every layer's activations in shared memory, so the
+widest layer input it takes is about 4,000 codes (2,304 for CNV's tail);
+beyond that the launcher returns an error and the wrapper raises.
 """
 
 from __future__ import annotations
@@ -63,9 +67,10 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
     nthr = thresholds[0].shape[0] if len(thresholds) else 1
     m, k0 = x_codes.shape
     lib.call("bnn_fused_mlp", x_codes.data_ptr(), m, k0,
-             _build.pointer_array([w.nk for w in weights]),
+             _build.pointer_array([w.tiles for w in weights]),
+             _build.pointer_array([w.wsum for w in weights]),
              _build.pointer_array(list(thresholds) + [None]),
-             _build.int_array([w.nk.shape[1] for w in weights]),
+             _build.int_array([w.nk32.shape[1] for w in weights]),
              _build.int_array([w.kn.shape[1] for w in weights]),
              len(weights), nthr, abits, out_scale.data_ptr(),
              out_bias.data_ptr(), out.data_ptr(),
@@ -110,7 +115,7 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
                          "take one count in 1..3 for the whole chain")
     tensors = [x, *thresholds, *extra]
     for w in weights:
-        tensors += [w.nk, w.nk32, w.wsum]
+        tensors += [w.nk, w.nk32, w.wsum, w.tiles]
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
@@ -125,6 +130,11 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
                 raise ValueError(f"kernel weight layout {name} must be int8 "
                                  f"[{n}, {kp}], got {t.dtype} "
                                  f"{tuple(t.shape)}")
+        tiles = (-(-k // 128), n, 128)      # models/params.py K_TILE
+        if w.tiles.dtype != torch.int8 or tuple(w.tiles.shape) != tiles:
+            raise ValueError(f"kernel weight layout tiles must be int8 "
+                             f"{list(tiles)}, got {w.tiles.dtype} "
+                             f"{tuple(w.tiles.shape)}")
         if w.wsum.dtype != torch.int32 or tuple(w.wsum.shape) != (n,):
             raise ValueError(f"wsum must be int32 [{n}], got {w.wsum.dtype} "
                              f"{tuple(w.wsum.shape)}")

@@ -64,6 +64,10 @@ def params_dirs() -> List[str]:
     return dirs
 
 
+def default_params_dir() -> str:
+    return params_dirs()[0]
+
+
 def available_params(network: Optional[str] = None) -> List[str]:
     """Artifact files across the search path, optionally filtered by
     network name."""

@@ -6,7 +6,11 @@ classifications, padding batches to fixed buckets.
 
 Runtimes:
 - 'kernels': the route's kernels — on a CUDA device the CUDA kernels, on
-  the CPU their plain versions. Routes (models/network.py):
+  the CPU their plain versions. 'auto' (the JAX engine's default), 'tpu'
+  and 'interpret', the JAX engine's names for its Pallas kernels compiled
+  or interpreted, are accepted as names of 'kernels': which of the two a
+  tensor runs follows from its device, not from the name. The engine
+  keeps the resolved name in `runtime`. Routes (models/network.py):
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
     fused_mlp stage list. The JAX package's decoded-integer routes 's2d'
     (its default), 'xla' and 'xlaconv' compute the same function in
@@ -31,6 +35,13 @@ than int8 codes.
 `upload` + `launch_prepared` split a launch into the host→device copy and
 the run on the device-resident batch.
 
+Batches above the largest bucket: a conv net runs them one largest bucket
+at a time, as the JAX engine does (`lax.map` over 1024-image chunks): each
+chunk is prepared, padded to its own bucket, uploaded and launched before
+any result is fetched, so the host prepares a chunk while the device runs
+the one before. An MLP runs one forward on the batch padded to a multiple
+of the largest bucket (its one kernel takes any number of rows).
+
 A CUDA engine never runs on the CPU: `device="cuda"` without CUDA raises.
 """
 
@@ -45,7 +56,8 @@ import torch
 from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
-from bnn_pynq_tpu_torch.models.config import DenseSpec, NetworkConfig
+from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+                                              NetworkConfig)
 from bnn_pynq_tpu_torch.models.network import (forward, forward_direct,
                                                forward_mega, forward_ref,
                                                input_shape)
@@ -54,7 +66,9 @@ from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
-RUNTIMES = ("kernels", "ref")
+# the JAX engine's names for its kernel runtimes, all 'kernels' here
+KERNEL_RUNTIMES = ("auto", "kernels", "tpu", "interpret")
+RUNTIMES = KERNEL_RUNTIMES + ("ref",)
 # routes that run forward_mega (the JAX package's names for the same
 # decoded-integer forward, and 'fused', its all-dense special case)
 MEGA_ROUTES = ("mega", "s2d", "xla", "xlaconv", "fused")
@@ -85,6 +99,8 @@ class InferenceEngine:
         if runtime not in RUNTIMES:
             raise ValueError(f"unknown runtime {runtime!r}; one of "
                              f"{RUNTIMES}")
+        if runtime in KERNEL_RUNTIMES:
+            runtime = "kernels"
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
         if route == "vpu" and runtime == "kernels" and \
@@ -196,21 +212,43 @@ class InferenceEngine:
         x, b = self._pad_to_bucket(x)
         return self.launch_prepared(self.upload(x), argmax=argmax), b
 
-    def _run(self, x: np.ndarray, *, argmax: bool, words: bool = False):
-        x, b = self._pad_to_bucket(x)
+    def _chunks(self, b: int):
+        """[lo, hi) ranges a batch of b runs in: one, or for a conv net
+        above the largest bucket one per largest bucket."""
+        top = self.batch_buckets[-1]
+        if b <= top or not any(isinstance(s, ConvSpec)
+                               for s in self.config.layers):
+            return [(0, b)]
+        return [(lo, min(lo + top, b)) for lo in range(0, b, top)]
+
+    def _run(self, x: np.ndarray, *, argmax: bool, words: bool = False,
+             prepared: bool = True):
+        """Prepare (unless prepared), pad, upload and launch every chunk of
+        the batch, then fetch. `usecPerImage` covers the uploads, the
+        launches and the fetch."""
+        x = np.asarray(x)
+        b = x.shape[0]
+        outs = []
+        spent = 0.0
+        for lo, hi in self._chunks(b):
+            xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
+            xc, n = self._pad_to_bucket(xc)
+            t0 = time.perf_counter()
+            outs.append((self.launch_prepared(self.upload(xc), argmax=argmax,
+                                              words=words), n))
+            spent += time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = self.fetch(self.launch_prepared(self.upload(x), argmax=argmax,
-                                              words=words))
-        self.usecPerImage = (time.perf_counter() - t0) * 1e6 / b
-        return out[:b]
+        parts = [self.fetch(out)[:n] for out, n in outs]
+        self.usecPerImage = (spent + time.perf_counter() - t0) * 1e6 / b
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def logits(self, x: np.ndarray, *, prepared: bool = False) -> np.ndarray:
         """Float logits [B, num_classes]."""
-        return self._run(x if prepared else self.prepare(x), argmax=False)
+        return self._run(x, argmax=False, prepared=prepared)
 
     def classify(self, x: np.ndarray, *, prepared: bool = False) -> np.ndarray:
         """Class indices [B] (int32); the argmax runs on the device."""
-        return self._run(x if prepared else self.prepare(x), argmax=True)
+        return self._run(x, argmax=True, prepared=prepared)
 
     def classify_one(self, image: np.ndarray) -> int:
         return int(self.classify(image[None])[0])

@@ -1,4 +1,4 @@
-"""Where the `mega` route's device time goes on a CUDA card.
+"""Where the `mega` and `direct` routes' device time goes on a CUDA card.
 
     python -m bnn_pynq_tpu_torch.tools.layer_times
 
@@ -8,15 +8,20 @@ Needs one CUDA card and nvcc; takes no options. Prints, at batch 1024:
    seeded inputs and random weights: the device ms per call under CUDA graph
    replay (`graph_ms`: 10 calls a graph, median of 20 replays; no host
    enqueue in the reading), the int8 operations per call, the rate reached;
+   the same for the five `conv2d_direct` layers of the `direct` route (the
+   last, whose kernel covers its map, also through the conv kernel and
+   through `dense_block`'s on the flattened rows), and for `fused_mlp` at
+   the widths of CNV's tail, LFC and SFC, at 1024 rows and at one;
 2. the rate of a loop of `mma.sync.aligned.m16n8k32.s8` alone (no memory, 16
    independent accumulators a warp, 8 and 16 warps an SM) and of the same
    loop fed by `ldmatrix` at the kernels' ratio of 6 loads per 16 mma: what
    this instruction reaches on the card, below the published tensor-core
    peak that `wgmma` is needed for;
-3. one `mega` forward of the pretrained CNV-W1A1 engine on a device-resident
-   batch: its device ms under graph replay, the host ms to enqueue it and to
-   prepare its 1024 images, and from one `torch.profiler` trace of 20
-   forwards the device ms per forward of every kernel in it, by name.
+3. one forward of the pretrained CNV-W1A1 engine on a device-resident batch
+   on the `mega` and on the `direct` route (and CNV-W2A2 on `direct`): its
+   device ms under graph replay, the host ms to enqueue it and to prepare
+   its 1024 images, and from one `torch.profiler` trace of 20 forwards the
+   device ms per forward of every kernel in it, by name.
 
 The last line names the card and its power limit as `nvidia-smi` gives them.
 """
@@ -34,7 +39,8 @@ import numpy as np
 import torch
 
 from bnn_pynq_tpu_torch.models.params import weight_matrix
-from bnn_pynq_tpu_torch.ops import _build, conv_stack
+from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
+                                    fused_mlp)
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
 
 BATCH = 1024
@@ -42,9 +48,16 @@ BATCH = 1024
 CONV_LAYERS = (("conv0", 32, 3, 64), ("conv1", 30, 64, 64),
                ("conv2", 14, 64, 128), ("conv3", 12, 128, 128))
 BLOCK6 = (9, 1152, 256)        # rows per image, K, N
-ARTIFACT = os.path.join(
+# the direct route's conv layers (3×3, stride 1): conv1-3 above, then
+DIRECT_LAYERS = CONV_LAYERS[1:] + (("conv4", 5, 128, 256),
+                                   ("conv5", 3, 256, 256))
+# (label, layer widths) of the whole-MLP kernel's main-path shapes
+MLPS = (("cnv tail", (2304, 256, 512, 512, 10)),
+        ("lfc", (784, 1024, 1024, 1024, 10)),
+        ("sfc", (784, 256, 256, 256, 10)))
+PRETRAINED = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "pretrained", "cnv-w1a1.npz")
+        __file__)))), "pretrained")
 
 RATE_SOURCE = r"""
 #include <cstdio>
@@ -195,6 +208,39 @@ def layer_times(device: torch.device) -> None:
     print(f"block6 {tuple(x.shape)} -> {n}: {ms:.4f} ms, "
           f"{ops / 1e9:.1f} G operations, {ops / ms / 1e9:.1f} TOP/s")
 
+    total = 0.0
+    for label, hw, c, n in DIRECT_LAYERS:
+        x = dev(rng.integers(0, 2, size=(BATCH, hw, hw, c)).astype(np.int8))
+        w, thr = layer(9 * c, n)
+        ms = graph_ms(lambda: conv_direct.conv2d_direct(
+            x, w, thr, kernel=3, abits=1))
+        ops = 2 * BATCH * (hw - 2) ** 2 * 9 * c * n
+        total += ms
+        print(f"direct {label} {tuple(x.shape)} -> {n}: {ms:.4f} ms, "
+              f"{ops / 1e9:.1f} G operations, {ops / ms / 1e9:.1f} TOP/s")
+        if hw == 3:     # the kernel covers the map: a dense layer on rows
+            conv_ms = graph_ms(lambda: conv_stack.conv_chain(
+                x, [w], [thr], kernel=3, abits=1))
+            rows = x.reshape(BATCH, 9 * c)
+            ring_ms = graph_ms(lambda: conv_stack.dense_block(
+                rows, [w], [thr], abits=1))
+            print(f"  the same layer through the conv kernel {conv_ms:.4f} "
+                  f"ms, through dense_block's kernel {ring_ms:.4f} ms")
+    print(f"conv2d_direct, the five layers: {total:.4f} ms")
+
+    for label, widths in MLPS:
+        ws, ts = zip(*(layer(k, n) for k, n in zip(widths, widths[1:])))
+        scale = dev(rng.uniform(0.01, 1.0, size=widths[-1])
+                    .astype(np.float32))
+        bias = dev(rng.standard_normal(widths[-1]).astype(np.float32))
+        ops = 2 * BATCH * sum(k * n for k, n in zip(widths, widths[1:]))
+        x = dev(rng.integers(0, 2, size=(BATCH, widths[0])).astype(np.int8))
+        ms, ms1 = (graph_ms(lambda: fused_mlp.fused_mlp_forward(
+            xs, ws, ts[:-1], scale, bias, abits=1)) for xs in (x, x[:1]))
+        print(f"fused_mlp {label} {'-'.join(map(str, widths))}: {ms:.4f} ms "
+              f"at {BATCH} rows ({ops / 1e9:.2f} G operations, "
+              f"{ops / ms / 1e9:.1f} TOP/s), {ms1:.4f} ms at 1 row")
+
 
 def mma_rate() -> None:
     """Build and run the mma.sync rate loop (nvcc into a temporary
@@ -209,14 +255,16 @@ def mma_rate() -> None:
                              text=True).stdout, end="")
 
 
-def forward_profile(device: torch.device, forwards: int = 20) -> None:
-    """One `mega` forward of CNV-W1A1 (device-resident batch in, class
-    indices on the device out): graph-replay ms, host ms, and the device ms
-    per forward of each kernel in a `torch.profiler` trace."""
+def forward_profile(device: torch.device, name: str, route: str,
+                    forwards: int = 20) -> None:
+    """One forward of a pretrained net on a route (device-resident batch in,
+    class indices on the device out): graph-replay ms, host ms, and the
+    device ms per forward of each kernel in a `torch.profiler` trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = InferenceEngine.from_artifact(ARTIFACT, device=device)
+    eng = InferenceEngine.from_artifact(
+        os.path.join(PRETRAINED, f"{name}.npz"), device=device, route=route)
     images = np.random.default_rng(1).integers(
         0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
     host = []
@@ -237,7 +285,7 @@ def forward_profile(device: torch.device, forwards: int = 20) -> None:
         forward()
         enqueue.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    print(f"mega forward, cnv-w1a1, batch {BATCH}: {replay:.4f} ms on the "
+    print(f"{route} forward, {name}, batch {BATCH}: {replay:.4f} ms on the "
           f"device under graph replay; host: enqueue "
           f"{np.median(enqueue):.4f} ms, prepare {np.median(host):.3f} ms "
           f"(medians of {forwards} and 5, host clock)")
@@ -269,7 +317,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     layer_times(device)
     mma_rate()
-    forward_profile(device)
+    for name, route in (("cnv-w1a1", "mega"), ("cnv-w1a1", "direct"),
+                        ("cnv-w2a2", "direct")):
+        forward_profile(device, name, route)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

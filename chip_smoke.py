@@ -15,7 +15,10 @@ Phases (every check raises, so any failure exits non-zero):
    replay (no host in the way); then ragged and odd cases of conv_chain
    and dense_block (batch 1 and 1023, N = 10 and 100, C = 3 and 24, a
    5×5 kernel, chains of three layers, W2A2 with three thresholds,
-   weights too large for shared memory), all exact;
+   weights too large for shared memory), all exact, and of fused_mlp (1, 7
+   and 1023 rows; SFC, LFC and CNV-tail widths, LFC and SFC with their
+   bound and graph-replay time; W2A2 with three thresholds; hidden widths
+   that are no multiple of 64; thresholds at the ends of int32);
 4. the main path: InferenceEngine(cnv-w1a1, device="cuda").classify of
    1024 seeded images, with every kernel's launch count read around it;
    logits against runtime="ref" on the card; images/s of both runtimes;
@@ -35,14 +38,18 @@ Phases (every check raises, so any failure exits non-zero):
 10. a BatchingServer over the lfc-w1a1 "vpu" engine with the packed
    transport (words_device) answering 68 requests;
 11. conv2d_direct and conv_chain_direct (csrc/conv_direct.cu) against
-   their plain versions, exactly: CNV-W1A1's five direct-path layers,
-   CNV-W2A2's layer 1, an int32 (no thresholds), a 5×5 and a stride-2
-   case; both chains of both nets, printed beside conv_chain's time at
-   the same shapes (phase 3);
+   their plain versions, exactly: CNV-W1A1's five direct-path layers
+   (by events and under graph replay, conv1-3 beside conv_chain's kernel
+   on the same layer), CNV-W2A2's layer 1, int32 output (no thresholds),
+   5×5, stride 2, C = 3 / 24 / 32 / 256, N = 10 / 48 / 100 / 300, batch 1
+   and 1023, W2A2; both chains of both nets, printed beside conv_chain's
+   time at the same shapes (phase 3);
 12. the direct route: InferenceEngine(cnv-w1a1, route="direct").classify
    of the 1024 images with conv2d_direct's launch count read around it
    (5) and no plain call, logits against runtime="ref"; the same for
-   cnv-w2a2;
+   cnv-w2a2; then batches above the largest bucket: classify of 2048 and
+   4096 images on "mega", "direct" and "vpu" equal to runtime="ref" taken
+   1024 at a time, with images/s beside the 1024 figure;
 13. a BatchingServer over the cnv-w1a1 "direct" engine answering 68
    requests;
 14. the seven Mosaic probes (csrc/mosaic_probes.cu) against their plain
@@ -149,12 +156,17 @@ def _new_result():
             "graph_ms": None, "library_ms": None, "library_graph_ms": None}
 
 
+def _bounds(work, out):
+    """(ops_ms, bytes_ms) of one call: its operations at their peak rate,
+    and its inputs' and output's bytes at the memory rate."""
+    nbytes = work["bytes"] + out.numel() * out.element_size()
+    return work["ops"] / work["peak"] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def _account(torch, device, r, work, out, ms, plain_ms):
     """Add one main-path call to its kernel's row: times, bound, and the
     `_int_mm` yardstick where the call is a dot."""
-    nbytes = work["bytes"] + out.numel() * out.element_size()
-    ops_ms = work["ops"] / work["peak"] * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms, bytes_ms = _bounds(work, out)
     r["ms"] += ms
     r["plain_ms"] += plain_ms
     r["ops_ms"] += ops_ms
@@ -269,7 +281,13 @@ def _kernel_cases(torch, device):
         ("fused_mlp", f"lfc-w1a1 whole net {tuple(xl.shape)}",
          lambda x=xl, kw=lfc: fused_mlp.fused_mlp_forward(x, **kw),
          lambda x=xl, kw=lfc: fused_mlp.fused_mlp_forward_plain(x, **kw),
-         "logits", None))
+         "logits", _work(_dense_gemms(len(xl), lfc["weights"]), xl,
+                         *_kn(lfc["weights"]), *lfc["thresholds"], scale,
+                         bias)))
+    tails = {name: dict(weights=[nets[name][i]["w"] for i in (7, 8, 9, 10)],
+                        thresholds=[nets[name][i]["thr"] for i in (7, 8, 9)],
+                        out_scale=scale, out_bias=bias)
+             for name in nets}      # any scale and bias of 10 classes will do
 
     # -- ragged and odd cases of the two tensor-core kernels ----------------
     def rand_layers(widths, wbits, abits, k=1):
@@ -300,6 +318,24 @@ def _kernel_cases(torch, device):
                       lambda: conv_stack.dense_block(x, **kw),
                       lambda: conv_stack.dense_block_plain(x, **kw),
                       "codes", None))
+
+    def mlp(label, x, work=False, **kw):
+        cases.append(("fused_mlp", f"odd: {label} {tuple(x.shape)}",
+                      lambda: fused_mlp.fused_mlp_forward(x, **kw),
+                      lambda: fused_mlp.fused_mlp_forward_plain(x, **kw),
+                      "logits",
+                      _work(_dense_gemms(len(x), kw["weights"]), x,
+                            *_kn(kw["weights"]), *kw["thresholds"],
+                            kw["out_scale"], kw["out_bias"])
+                      if work else None))
+
+    def rand_mlp(widths, wbits, abits):
+        ws, ts = rand_layers(widths, wbits, abits)
+        return dict(weights=ws, thresholds=ts[:-1], abits=abits,
+                    out_scale=dev(rng.uniform(0.01, 1.0, size=widths[-1])
+                                  .astype(np.float32)),
+                    out_bias=dev(rng.standard_normal(widths[-1])
+                                 .astype(np.float32)))
 
     def pick(name, idx):
         return ([nets[name][i]["w"] for i in idx],
@@ -333,6 +369,23 @@ def _kernel_cases(torch, device):
     dense("levels in, K=40, N=300", dev(rng.choice(
         [-1, 1], size=(100, 40)).astype(np.int8)),
         *rand_layers([40, 300], 1, 1), abits=1, input_levels=True)
+    mlp("cnv-w1a1 mlp_tail, 1 row", codes((1, 2304), 1), abits=1,
+        **tails["cnv-w1a1"])
+    mlp("cnv-w2a2 mlp_tail (nthr=3), 1023 rows", codes((1023, 2304), 2),
+        abits=2, **tails["cnv-w2a2"])
+    mlp("lfc-w1a1 whole net, 7 rows", codes((7, 784), 1), **lfc)
+    mlp("sfc widths 784-256-256-256-10", codes((BATCH, 784), 1), work=True,
+        **rand_mlp([784, 256, 256, 256, 10], 1, 1))
+    mlp("hidden N=100/72, K0=200, W2A2", codes((37, 200), 2),
+        **rand_mlp([200, 100, 72, 10], 2, 2))
+    mlp("one layer, N=10", codes((1023, 96), 1), **rand_mlp([96, 10], 1, 1))
+    ends = rand_mlp([64, 136, 48, 10], 2, 2)
+    for t in ends["thresholds"]:            # never / always, per column
+        t[0, ::3] = -2 ** 31
+        t[2, ::2] = 2 ** 31 - 1
+        t[:, 5] = 2 ** 31 - 1
+        t[:, 7] = -2 ** 31
+    mlp("thresholds at the ends of int32", codes((70, 64), 2), **ends)
     return cases
 
 
@@ -394,12 +447,15 @@ def _packed_cases(torch, device):
 
 def _direct_cases(torch, device):
     """(kernel name, case label, wrapper fn, plain fn, work on the main path
-    or None) for the direct kernels at batch 1024, from the pretrained weights and seeded
-    inputs. The chain labels are phase 3's conv_chain labels."""
+    or None, conv_chain's kernel on the same layer or None) for the direct
+    kernels at batch 1024, from the pretrained weights and seeded inputs;
+    then odd cases of conv2d_direct on random weights. The chain labels are
+    phase 3's conv_chain labels."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
     from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
                                                   weight_matrix)
     from bnn_pynq_tpu_torch.ops import conv_direct as cd
+    from bnn_pynq_tpu_torch.ops import conv_stack
 
     rng = np.random.default_rng(3)
 
@@ -409,12 +465,27 @@ def _direct_cases(torch, device):
     def codes(shape, abits):
         return dev(rng.integers(0, 2 ** abits, size=shape).astype(np.int8))
 
-    def conv(name, label, x, main=False, **kw):
+    def conv(name, label, x, main=False, chain=False, **kw):
         work = _work(_conv_gemms(x.shape, kw["kernel"], [kw["w"].kn.shape[1]]),
                      x, kw["w"].kn, kw["thr"]) if main else None
         return ("conv2d_direct", f"{name} {label} {tuple(x.shape)}",
                 lambda: cd.conv2d_direct(x, **kw),
-                lambda: cd.conv2d_direct_plain(x, **kw), work)
+                lambda: cd.conv2d_direct_plain(x, **kw), work,
+                (lambda: conv_stack.conv_chain(
+                    x, [kw["w"]], [kw["thr"]], kernel=kw["kernel"],
+                    abits=kw["abits"])) if chain else None)
+
+    def rand(cin, cout, k, wbits, abits):
+        """Random levels and sorted thresholds within one standard deviation
+        of the accumulator."""
+        wl = [-1, 1] if wbits == 1 else [-3, -1, 1, 3]
+        w = weight_matrix(dev(rng.choice(wl, size=(k * k * cin, cout))
+                              .astype(np.int8)))
+        sd = int((k * k * cin) ** .5 * (1 if abits == 1 else 5 ** .5)
+                 * (1 if wbits == 1 else 5 ** .5))
+        return w, dev(np.sort(rng.integers(
+            -sd, sd + 1, size=(2 ** abits - 1, cout)), axis=0)
+            .astype(np.int32))
 
     cases = []
     for name in ("cnv-w1a1", "cnv-w2a2"):
@@ -423,11 +494,14 @@ def _direct_cases(torch, device):
         layers = params_from_numpy(c.config, c.layers, c.out_scale,
                                    c.out_bias, device)[0]
         w1a1 = name == "cnv-w1a1"
-        # the direct path's conv layers: (plan index, input H = W, C)
-        for i, hw, ch in ((1, 30, 64), (3, 14, 64), (4, 12, 128),
-                          (6, 5, 128), (7, 3, 256))[:5 if w1a1 else 1]:
+        # the direct path's conv layers: (plan index, input H = W, C); the
+        # last one's kernel covers its map (the dense kernel takes it)
+        direct_layers = ((1, 30, 64), (3, 14, 64), (4, 12, 128),
+                         (6, 5, 128), (7, 3, 256))
+        for i, hw, ch in direct_layers if w1a1 else direct_layers[::4]:
             cases.append(conv(name, f"layer{i}", codes((BATCH, hw, hw, ch),
                                                        ab), main=w1a1,
+                              chain=w1a1 and i in (1, 3, 4),
                               w=layers[i]["w"], thr=layers[i]["thr"],
                               kernel=3, abits=ab))
         image = dev(rng.integers(-128, 128, size=(BATCH, 32, 32, 3))
@@ -445,13 +519,10 @@ def _direct_cases(torch, device):
                  _work(_conv_gemms(x.shape, 3, [w.kn.shape[1]
                                                 for w in kw["weights"]]),
                        x, *_kn(kw["weights"]), *kw["thresholds"])
-                 if w1a1 else None))
+                 if w1a1 else None, None))
         if w1a1:
             x1 = codes((BATCH, 30, 30, 64), 1)
-            w5 = weight_matrix(dev(rng.choice([-1, 1], size=(25 * 64, 64))
-                                   .astype(np.int8)))
-            t5 = dev(np.sort(rng.integers(-200, 200, size=(1, 64)), axis=0)
-                     .astype(np.int32))
+            w5, t5 = rand(64, 64, 5, 1, 1)
             cases += [
                 conv(name, "layer1 int32", x1, w=layers[1]["w"], kernel=3,
                      abits=1),
@@ -459,7 +530,32 @@ def _direct_cases(torch, device):
                      thr=layers[1]["thr"], kernel=3, abits=1, stride=2),
                 conv(name, "5x5 random weights", codes((BATCH, 14, 14, 64),
                                                        1),
-                     w=w5, thr=t5, kernel=5, abits=1)]
+                     w=w5, thr=t5, kernel=5, abits=1),
+                conv(name, "layer3, batch 1023", codes((1023, 14, 14, 64), 1),
+                     w=layers[3]["w"], thr=layers[3]["thr"], kernel=3,
+                     abits=1),
+                conv(name, "layer7 int32 (1x1 map, column chunks)",
+                     codes((1023, 3, 3, 256), 1), w=layers[7]["w"], kernel=3,
+                     abits=1)]
+
+    def odd(label, shape, cout, k, wbits, abits, thr=True, stride=1):
+        w, t = rand(shape[-1], cout, k, wbits, abits)
+        cases.append(conv("odd:", label, codes(shape, abits), w=w,
+                          thr=t if thr else None, kernel=k, abits=abits,
+                          **({"stride": stride} if stride != 1 else {})))
+
+    odd("C=3, N=10, batch 1", (1, 9, 9, 3), 10, 3, 1, 1)
+    odd("C=24, N=100, W2A2", (33, 11, 11, 24), 100, 3, 2, 2)
+    odd("C=32, N=48, 5x5", (65, 12, 12, 32), 48, 5, 1, 1)
+    odd("C=256, N=300 (column chunks)", (8, 6, 6, 256), 300, 3, 1, 1)
+    odd("C=256, N=300 int32", (8, 6, 6, 256), 300, 3, 1, 1, thr=False)
+    odd("C=32, N=10 int32, W2A2", (5, 7, 7, 32), 10, 3, 2, 2, thr=False)
+    odd("C=3, N=9 int32 (odd width)", (5, 7, 7, 3), 9, 3, 1, 1, thr=False)
+    odd("stride 2, C=24, N=20, W2A2", (9, 11, 11, 24), 20, 3, 2, 2,
+        stride=2)
+    odd("stride 2, C=3, N=48", (1023, 8, 8, 3), 48, 3, 1, 1, stride=2)
+    odd("kernel covers the map, 5x5, C=24, N=100, W2A2", (9, 5, 5, 24), 100,
+        5, 2, 2)
     return cases
 
 
@@ -491,6 +587,38 @@ def _engine_check(torch, name, images, label, route="mega"):
           f"images/s {route} {rates[route]:.1f}, ref {rates['ref']:.1f} "
           f"(batch {len(images)}, host clock, median of 5)")
     return eng
+
+
+def _big_batch_check(torch, rng):
+    """Batches above the largest bucket (1024) on CNV-W1A1: `classify` of
+    2048 and 4096 images on three routes must give, image for image, what
+    runtime="ref" gives 1024 at a time; images/s (host clock, median and
+    range of 5) beside the 1024 figure of the same engine."""
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    big = rng.integers(0, 256, size=(4 * BATCH, 32, 32, 3), dtype=np.uint8)
+    ref = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda",
+                                        runtime="ref")
+    want = np.concatenate([ref.classify(big[i:i + BATCH])
+                           for i in range(0, len(big), BATCH)])
+    for route in ("mega", "direct", "vpu"):
+        eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"),
+                                            device="cuda", route=route)
+        assert eng.batch_buckets[-1] == BATCH
+        parts = []
+        for b in (BATCH, 2 * BATCH, 4 * BATCH):
+            got = eng.classify(big[:b])
+            assert got.shape == (b,) and (got == want[:b]).all(), \
+                f"{route}: classify of {b} images != ref in buckets"
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.classify(big[:b])
+                walls.append(time.perf_counter() - t0)
+            parts.append(f"{b}: {b / float(np.median(walls)):.1f} "
+                         f"({b / max(walls):.1f}-{b / min(walls):.1f})")
+        print(f"big batches cnv-w1a1 {route}: classify == ref taken "
+              f"{BATCH} at a time; images/s (median of 5, range) "
+              f"{'; '.join(parts)}")
 
 
 def _serve_68(BatchingServer, eng, prepared, label, **server_kw):
@@ -837,6 +965,11 @@ def main() -> int:
             replay_ms = graph_ms(kern)
             r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
             beside = f" (graph replay {replay_ms:.4f} ms), bound {bound:.4f} ms"
+        elif work:      # another net's whole MLP: on no row, with its bound
+            ops_ms, bytes_ms = _bounds(work, got)
+            beside = (f" (graph replay {graph_ms(kern):.4f} ms), bound "
+                      f"{max(ops_ms, bytes_ms):.5f} ms "
+                      f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
         print(f"{kname:11s} {label}: max |kernel - plain| {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
         if kname == "conv_chain":
@@ -950,7 +1083,8 @@ def main() -> int:
                            conv_direct.conv_chain_direct.launches}
     for k in direct_counters:
         results[k] = _new_result()
-    for kname, label, kern, plain, work in _direct_cases(torch, device):
+    for kname, label, kern, plain, work, chain in \
+            _direct_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, label
@@ -963,7 +1097,15 @@ def main() -> int:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if work:       # cnv-w1a1: the five direct layers, the two chains
             bound = _account(torch, device, r, work, got, ms, plain_ms)
-            beside = f", bound {bound:.4f} ms{beside}"
+            replay_ms = graph_ms(kern)
+            r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
+            beside = (f" (graph replay {replay_ms:.4f} ms), bound "
+                      f"{bound:.4f} ms{beside}")
+        if chain:      # conv_chain's kernel on the same layer
+            assert torch.equal(chain(), got), f"{label}: != conv_chain"
+            beside += (f"; conv_chain on this layer "
+                       f"{_time_ms(torch, chain):.4f} ms (graph replay "
+                       f"{graph_ms(chain):.4f} ms)")
         print(f"{kname} {label}: max |kernel - plain| {err:.3g}; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
 
@@ -1004,6 +1146,9 @@ def main() -> int:
     finally:
         (conv_direct.conv2d_direct_plain,
          conv_direct.conv_chain_direct_plain) = plain_fns
+
+    # -- 12b. batches above the largest bucket ------------------------------
+    _big_batch_check(torch, rng)
 
     # -- 14. the Mosaic probes --------------------------------------------
     _probe_phase(torch, device, kind, results, launches)

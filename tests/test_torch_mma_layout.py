@@ -1,6 +1,9 @@
 """The tensor-core kernels' host-side layout and index arithmetic, on the CPU.
 
-`csrc/conv_chain.cu` and `csrc/dense_block.cu` run only on a card. What can
+`csrc/conv_tile.cuh` (the conv kernel of `conv_chain.cu` and of
+`conv_direct.cu::bnn_conv_direct`) and `csrc/dense_block.cu` run only on a
+card (`tests/test_torch_mma_layout2.py` holds `bnn_conv_direct`'s own
+paths and `csrc/dense_chain.cu`). What can
 go wrong in them without the compiler noticing is arithmetic: which input
 rows a tile stages, where a pixel's tap lies in the staged tile, which
 thread holds which bytes of an `m16n8k32` fragment, which accumulator
@@ -27,7 +30,7 @@ from bnn_pynq_tpu_torch.models.params import (K_ALIGN_MMA, WeightMatrix,
                                               weight_matrix)
 from bnn_pynq_tpu_torch.ops import conv_stack
 
-# csrc/dense_tile.cuh, csrc/mma_tile.cuh, csrc/dense_block.cu
+# csrc/common.cuh, csrc/mma_tile.cuh, csrc/dense_block.cu
 THREADS, VEC, MAX_SMEM = 256, 16, 227 * 1024
 MMA_K, ITEM_ROWS, ITEM_COLS, PITCH_PAD = 32, 32, 64, 16
 WARPS = THREADS // 32
@@ -169,11 +172,44 @@ def item_store_codes(acc, thr_s, cols_pad, nthr, out, row0, rows, col0, cols,
                                     r * STAGE_PITCH + c16 + VEC]
 
 
-# -- conv_chain.cu ------------------------------------------------------------
+def stage_acc_correction(cols_pad, ep, nc0, ncols):
+    """sub_s [cols_pad]: off·wsum where the dot ran on codes, else 0."""
+    _, wsum, _, off, codes_in = ep
+    return np.array([off * int(wsum[nc0 + n]) if n < ncols and codes_in
+                     else 0 for n in range(cols_pad)], np.int64)
+
+
+def item_store_acc(acc, sub_s, mul, out, row0, rows, col0, cols, pairs):
+    """out: [all rows, n_out] int32. sub_s starts at the item's column 0."""
+    g, t = LANES >> 2, LANES & 3
+    for mb in range(2):
+        for j in range(8):
+            for lane in range(32):
+                n = 8 * j + 2 * t[lane]
+                sub = sub_s[n], sub_s[n + 1]          # one 8-byte load
+                for h in range(2):
+                    rr = 16 * mb + 8 * h + g[lane]
+                    if rr >= rows or n >= cols:
+                        continue
+                    v = [mul * acc[mb, j, lane, 2 * h + c] - sub[c]
+                         for c in range(2)]
+                    if pairs and n + 1 < cols:
+                        out[row0 + rr, col0 + n:col0 + n + 2] = v
+                    else:
+                        out[row0 + rr, col0 + n] = v[0]
+                        if n + 1 < cols:
+                            out[row0 + rr, col0 + n + 1] = v[1]
+
+
+# -- conv_tile.cuh ------------------------------------------------------------
 
 class ConvEmu:
+    """`thr` None: the int32 epilogue (kConvAcc). grid: blocks along x;
+    room: the blocks the card holds at once (SMs × resident), which decides
+    whether the column chunks go on the grid's second axis."""
+
     def __init__(self, x, ksize, input_levels, w: WeightMatrix, thr, abits,
-                 tile=None, grid=3):
+                 tile=None, grid=3, room=6):
         self.x = x.reshape(-1)
         b, self.h, self.w, self.c = x.shape
         self.ksize, self.input_levels = ksize, input_levels
@@ -187,13 +223,17 @@ class ConvEmu:
         self.a_pitch = padded_pitch(self.c if halo else self.k32)
         self.w_pitch = padded_pitch(self.k32)
         self.off = 1 if abits == 1 else 3
-        self.ep = (thr.numpy(), w.wsum.numpy(), self.n_out, self.off,
-                   halo and not input_levels)
+        self.acc_out = thr is None
+        self.ep = (None if thr is None else thr.numpy(), w.wsum.numpy(),
+                   self.n_out, self.off, halo and not input_levels)
         # the launcher's sizing
         self.warps = WARPS
         self.tile = tile or (256 if self.n_out <= ITEM_COLS else 128)
         self.n_chunk = round_up(self.n_out, 8)
-        nthr = thr.shape[0]
+        while self.n_chunk > 8 and \
+                self.n_chunk * self.w_pitch > MAX_SMEM // 3 * 2:
+            self.n_chunk = round_up(self.n_chunk // 2, 8)
+        nthr = self.thr_rows = 1 if thr is None else thr.shape[0]
 
         def smem_of(tile, warps):
             self.tile = tile
@@ -218,7 +258,11 @@ class ConvEmu:
         smem = smem_of(tile8, self.warps)
         self.smem_bytes = smem
         self.grid = grid
-        self.out = np.full((self.pixels, self.n_out), -1, np.int8)
+        ntiles = -(-self.pixels // self.tile)
+        chunks = -(-self.n_out // self.n_chunk)
+        self.grid_y = chunks if ntiles * chunks <= room else 1
+        self.out = np.full((self.pixels, self.n_out), -1,
+                           np.int32 if self.acc_out else np.int8)
 
     def max_tile_rows(self):
         out_rows = (self.tile - 1) // self.ow + 2
@@ -259,7 +303,7 @@ class ConvEmu:
                 d = buf + r * self.a_pitch + ki * run
                 smem[d:d + run] = v
 
-    def block(self, block_idx, rng):
+    def block(self, block_idx, block_y, rng):
         smem = rng.integers(-128, 128, size=self.smem_bytes).astype(np.int8)
         wsm = 0
         patches = self.smem_bytes - self.tile * 4 - 2 * self.rows_bytes - \
@@ -272,11 +316,15 @@ class ConvEmu:
         ks = self.ksize if halo else 1
         c_eff = self.c if halo else self.k32
         cols_pad = round_up(self.n_chunk, ITEM_COLS)
-        nthr = self.ep[0].shape[0]
-        out_vec = self.n_out % VEC == 0
-        for nc0 in range(0, self.n_out, self.n_chunk):
+        nthr = self.thr_rows
+        out_vec = self.n_out % (2 if self.acc_out else VEC) == 0
+        for nc0 in range(block_y * self.n_chunk, self.n_out,
+                         self.grid_y * self.n_chunk):
             ncols = min(self.n_chunk, self.n_out - nc0)
-            thr_s = stage_thresholds(cols_pad, self.ep, nc0, ncols)
+            if self.acc_out:
+                thr_s = stage_acc_correction(cols_pad, self.ep, nc0, ncols)
+            else:
+                thr_s = stage_thresholds(cols_pad, self.ep, nc0, ncols)
             for i in range(ncols * kvec):
                 n, v = divmod(i, kvec)
                 d = wsm + n * self.w_pitch + v * VEC
@@ -334,18 +382,25 @@ class ConvEmu:
                                      c_eff // MMA_K, cols)
                             koff += c_eff
                     col0 = nc0 + n0
-                    item_store_codes(
-                        acc, thr_s[n0:], cols_pad, nthr, self.out, p0 + m0,
-                        min(ITEM_ROWS, p1 - p0 + 1 - m0), col0, cols,
-                        out_vec and col0 % VEC == 0 and cols % VEC == 0)
+                    rows = min(ITEM_ROWS, p1 - p0 + 1 - m0)
+                    if self.acc_out:
+                        item_store_acc(acc, thr_s[n0:],
+                                       2 if self.ep[4] else 1, self.out,
+                                       p0 + m0, rows, col0, cols, out_vec)
+                    else:
+                        item_store_codes(
+                            acc, thr_s[n0:], cols_pad, nthr, self.out,
+                            p0 + m0, rows, col0, cols,
+                            out_vec and col0 % VEC == 0 and cols % VEC == 0)
                 if halo:
                     cur ^= 1
                 tile += self.grid
 
     def run(self):
         rng = np.random.default_rng(99)
-        for blk in range(self.grid):
-            self.block(blk, rng)
+        for by in range(self.grid_y):
+            for blk in range(self.grid):
+                self.block(blk, by, rng)
         return self.out
 
 

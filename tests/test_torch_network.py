@@ -19,7 +19,10 @@ import torch
 from bnn_pynq_tpu.models import config as jc
 from bnn_pynq_tpu.models import network as jax_net
 from bnn_pynq_tpu.runtime.engine import InferenceEngine as JaxEngine
-from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+from bnn_pynq_tpu.compiler.finnthesizer import \
+    CompiledNetwork as JaxCompiledNetwork
+from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
+                                                   load_artifact)
 from bnn_pynq_tpu_torch.models import config as pc
 from bnn_pynq_tpu_torch.models import network as port_net
 from bnn_pynq_tpu_torch.models.params import params_from_numpy
@@ -108,6 +111,118 @@ def test_forward_ref_matches_forward_xla_mlp():
         np.ones(10), np.zeros(10), "cpu")[0]
     got = port_net.forward_ref(pcfg, layers, torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _random_engines(name, seed, **engine_kw):
+    """(port engine kwargs → engine, JAX engine) on `init_random_params` of
+    each package for one (config, seed), with one seeded scale and bias."""
+    if name.startswith("cnv-narrow"):
+        wbits, abits = int(name[-3]), int(name[-1])
+        jcfg, pcfg = _narrow_cnv(jc, wbits, abits), \
+            _narrow_cnv(pc, wbits, abits)
+    else:
+        jcfg, pcfg = jc.get_config(name), pc.get_config(name)
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.01, 1.0, size=pcfg.num_classes).astype(np.float32)
+    bias = rng.standard_normal(pcfg.num_classes).astype(np.float32)
+    jparams = [{k: np.asarray(v) for k, v in p.items()}
+               for p in jax_net.init_random_params(jcfg, seed=seed)]
+    pparams = port_net.init_random_params(pcfg, seed=seed)
+
+    def port_engine(**kw):
+        return InferenceEngine(CompiledNetwork(pcfg, pparams, scale, bias),
+                               device="cpu", **engine_kw, **kw)
+
+    jax_engine = JaxEngine(JaxCompiledNetwork(jcfg, jparams, scale, bias),
+                           runtime="ref", **engine_kw)
+    return pcfg, jparams, pparams, port_engine, jax_engine
+
+
+@pytest.mark.parametrize("name", ["sfc-w1a1", "cnv-w1a1", "cnv-w2a2"])
+def test_init_random_params_equals_jax(name):
+    """One (config, seed) holds equal arrays in both packages, layer by
+    layer and key by key, and an engine built from them answers as JAX's."""
+    pcfg, jparams, pparams, port_engine, jax_engine = _random_engines(
+        name, 7, batch_buckets=(2,))
+    assert len(pparams) == len(jparams) == len(pcfg.layers)
+    for i, (got, want) in enumerate(zip(pparams, jparams)):
+        assert sorted(got) == sorted(want), f"layer {i}: keys"
+        for key in want:
+            assert isinstance(got[key], np.ndarray)
+            assert got[key].dtype == want[key].dtype, (i, key)
+            np.testing.assert_array_equal(got[key], want[key],
+                                          err_msg=f"layer {i} {key}")
+    assert port_net.init_random_params(pcfg, seed=8)[0].keys() == \
+        pparams[0].keys()
+    assert not np.array_equal(
+        next(iter(port_net.init_random_params(pcfg, seed=8)[0].values())),
+        next(iter(pparams[0].values()))), "the seed must matter"
+    shape = (2,) + (pcfg.input_shape if pcfg.input_kind == "int8"
+                    else (28, 28))
+    x = np.random.default_rng(9).integers(0, 256, size=shape, dtype=np.uint8)
+    want = jax_engine.logits(x)
+    for runtime in ("kernels", "ref"):
+        got = port_engine(runtime=runtime).logits(x)
+        np.testing.assert_allclose(got, want, **TOL)
+        assert (got.argmax(1) == want.argmax(1)).all()
+
+
+@pytest.mark.parametrize("name,route", [
+    ("cnv-narrow-w1a1", "mega"), ("cnv-narrow-w1a1", "direct"),
+    ("cnv-narrow-w1a1", "vpu"), ("cnv-narrow-w1a1", "mxu"),
+    ("cnv-narrow-w1a1", "mxu_rm"), ("cnv-narrow-w2a2", "mega"),
+    ("cnv-narrow-w2a2", "direct"), ("cnv-narrow-w2a2", "mxu")])
+def test_batches_above_the_largest_bucket(name, route):
+    """A conv net takes a batch above its largest bucket (5, 8 and 9 images
+    on buckets (1, 4)): every image gets the answer it gets alone in a
+    bucket, from the route's kernels, from the reference, and from the JAX
+    engine."""
+    _, _, _, port_engine, jax_engine = _random_engines(
+        name, 11, batch_buckets=(1, 4))
+    x = np.random.default_rng(12).integers(0, 256, size=(9, 32, 32, 3),
+                                           dtype=np.uint8)
+    eng, ref = port_engine(route=route), port_engine(runtime="ref")
+    # one largest bucket at a time, the rest in its own bucket
+    uploads = []
+    upload = eng.upload
+    eng.upload = lambda xp: uploads.append(len(xp)) or upload(xp)
+    eng.logits(x)
+    eng.logits(x[:5])
+    eng.logits(x[:8])
+    eng.upload = upload
+    assert uploads == [4, 4, 1, 4, 1, 4, 4]
+    want = jax_engine.logits(x)
+    in_bucket = np.concatenate([eng.logits(x[i:i + 4])
+                                for i in range(0, 9, 4)])
+    np.testing.assert_allclose(in_bucket, want, **TOL)
+    for b in (5, 8, 9):
+        got = eng.logits(x[:b])
+        assert got.shape == (b, 10)
+        np.testing.assert_array_equal(got, in_bucket[:b])
+        np.testing.assert_array_equal(ref.logits(x[:b]), got)
+        np.testing.assert_array_equal(eng.classify(x[:b]),
+                                      want[:b].argmax(1))
+
+
+def test_mlp_above_the_largest_bucket_runs_one_forward():
+    """An MLP never chunks (as in JAX): 9 rows on buckets (1, 4) are one
+    forward of 12, and every row answers as alone in a bucket."""
+    _, _, _, port_engine, jax_engine = _random_engines(
+        "sfc-w1a1", 13, batch_buckets=(1, 4))
+    x = np.random.default_rng(14).integers(0, 256, size=(9, 28, 28),
+                                           dtype=np.uint8)
+    eng = port_engine()
+    uploads = []
+    upload = eng.upload
+    eng.upload = lambda xp: uploads.append(len(xp)) or upload(xp)
+    got = eng.logits(x)
+    eng.upload = upload
+    assert uploads == [12] and got.shape == (9, 10)
+    np.testing.assert_allclose(got, jax_engine.logits(x), **TOL)
+    np.testing.assert_array_equal(
+        got, np.concatenate([eng.logits(x[i:i + 4])
+                             for i in range(0, 9, 4)]))
+    np.testing.assert_array_equal(eng.classify(x), got.argmax(1))
 
 
 @pytest.mark.parametrize("runtime", ["kernels", "ref"])
@@ -223,10 +338,14 @@ def test_cuda_engine_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine.from_artifact(
             str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cuda")
+    # an unknown runtime raises; the JAX engine's 'tpu' names the kernels
     with pytest.raises(ValueError, match="runtime"):
         InferenceEngine.from_artifact(
             str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu",
-            runtime="tpu")
+            runtime="gpu")
+    assert InferenceEngine.from_artifact(
+        str(REPO / "pretrained" / "sfc-w1a1.npz"), device="cpu",
+        runtime="tpu").runtime == "kernels"
 
 
 def test_port_never_imports_jax():

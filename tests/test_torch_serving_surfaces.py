@@ -88,6 +88,45 @@ def test_jax_route_names_match_jax_engine(name, route):
     np.testing.assert_array_equal(eng.classify(x), want.argmax(1))
 
 
+@pytest.mark.parametrize("runtime", ["auto", "tpu", "interpret", "kernels"])
+def test_jax_runtime_names_are_the_kernels_runtime(runtime, capsys,
+                                                   tmp_path):
+    """The JAX engine's runtime names ('auto' is its default) name the
+    port's kernels runtime: the engine, the Classifier, the HTTP server and
+    the CLI take them, and an engine on the CPU gives the logits of
+    runtime='kernels'. An unknown name still raises."""
+    x = _images((3, 32, 32, 3), 12)
+    want = InferenceEngine.from_artifact(CNV, device="cpu",
+                                         runtime="kernels").logits(x)
+    eng = InferenceEngine.from_artifact(CNV, device="cpu", runtime=runtime)
+    assert eng.runtime == "kernels"
+    np.testing.assert_array_equal(eng.logits(x), want)
+    clf = Classifier.from_artifact(CNV, device="cpu", runtime=runtime)
+    assert clf.engine.runtime == "kernels"
+    httpd, batcher = serve(SFC, port=0, device="cpu",
+                                       runtime=runtime, block=False,
+                                       warmup=False)
+    try:
+        assert batcher.engine.runtime == "kernels"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+    path = tmp_path / "x.npy"
+    np.save(path, x)
+    outs = []
+    for rt in (runtime, "kernels"):
+        cli.main(["classify", CNV, str(path), "--device", "cpu",
+                  "--runtime", rt])
+        outs.append(capsys.readouterr().out.splitlines()[:3])
+    assert outs[0] == outs[1] and len(outs[0]) == 3
+    with pytest.raises(ValueError, match="unknown runtime"):
+        InferenceEngine.from_artifact(CNV, device="cpu", runtime="gpu")
+    with pytest.raises(SystemExit):
+        cli.main(["classify", CNV, str(path), "--runtime", "gpu"])
+    capsys.readouterr()
+
+
 def test_fused_route_rejects_conv_nets_as_jax_does():
     with pytest.raises(ValueError):
         JaxEngine.from_artifact(CNV, runtime="interpret", route="fused")
@@ -214,6 +253,18 @@ def test_available_params_and_class_tables(tmp_path, monkeypatch):
         jax_classifier.available_params("cnv")
     assert port_classifier.params_dirs() == jax_classifier.params_dirs()
     assert port_classifier.DATASET_CLASSES == jax_classifier.DATASET_CLASSES
+
+
+def test_default_params_dir_equals_jax(tmp_path, monkeypatch):
+    """The first directory of the search path, with and without
+    $BNN_PARAMS_DIR, as in the JAX package."""
+    from bnn_pynq_tpu.runtime import classifier as jax_classifier
+    monkeypatch.delenv("BNN_PARAMS_DIR", raising=False)
+    assert port_classifier.default_params_dir() == \
+        jax_classifier.default_params_dir() == str(REPO / "artifacts")
+    monkeypatch.setenv("BNN_PARAMS_DIR", str(tmp_path))
+    assert port_classifier.default_params_dir() == \
+        jax_classifier.default_params_dir() == str(tmp_path)
 
 
 # -- the HTTP server -----------------------------------------------------
