@@ -1,14 +1,16 @@
-"""Load the packed-parameter artifacts that `bnn_pynq_tpu` writes.
+"""The packed-parameter artifact format, written and read byte for byte
+as `bnn_pynq_tpu` writes and reads it.
 
-Ported from `bnn_pynq_tpu/compiler/artifacts.py` (`load_artifact`,
-`config_from_json`) with numpy only. Layout: one `.npz` holding every
-layer array under `layer{i}/{name}` plus `out_scale`/`out_bias`, and a
-JSON manifest under key `manifest` describing the network config.
+Ported from `bnn_pynq_tpu/compiler/artifacts.py` with numpy only. Layout:
+one `.npz` holding every layer array under `layer{i}/{name}` plus
+`out_scale`/`out_bias`, and a JSON manifest under key `manifest`
+describing the network config, so an artifact is self-contained.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -36,6 +38,22 @@ class CompiledNetwork:
     meta: Dict[str, Any] = field(default_factory=dict)
 
 
+def config_to_json(cfg: NetworkConfig) -> dict:
+    layers = []
+    for s in cfg.layers:
+        if isinstance(s, ConvSpec):
+            layers.append({"kind": "conv", "out_ch": s.out_ch,
+                           "kernel": s.kernel, "stride": s.stride})
+        elif isinstance(s, PoolSpec):
+            layers.append({"kind": "pool", "window": s.window})
+        else:
+            layers.append({"kind": "dense", "out_features": s.out_features})
+    return {"name": cfg.name, "wbits": cfg.wbits, "abits": cfg.abits,
+            "input_kind": cfg.input_kind,
+            "input_shape": list(cfg.input_shape), "layers": layers,
+            "num_classes": cfg.num_classes, "dataset": cfg.dataset}
+
+
 def config_from_json(d: dict) -> NetworkConfig:
     specs = []
     for s in d["layers"]:
@@ -50,6 +68,26 @@ def config_from_json(d: dict) -> NetworkConfig:
         input_kind=d["input_kind"], input_shape=tuple(d["input_shape"]),
         layers=tuple(specs), num_classes=d["num_classes"],
         dataset=d.get("dataset", ""))
+
+
+def save_artifact(path: str, compiled: CompiledNetwork):
+    arrays = {}
+    for i, layer in enumerate(compiled.layers):
+        for name, arr in layer.items():
+            arrays[f"layer{i}/{name}"] = np.asarray(arr)
+    arrays["out_scale"] = np.asarray(compiled.out_scale)
+    arrays["out_bias"] = np.asarray(compiled.out_bias)
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "config": config_to_json(compiled.config),
+        "num_layers": len(compiled.layers),
+        "scheme": compiled.config.scheme(),
+        "meta": _jsonable(compiled.meta),
+    }
+    arrays["manifest"] = np.frombuffer(
+        json.dumps(manifest).encode(), dtype=np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
 
 
 def load_artifact(path: str) -> CompiledNetwork:
@@ -69,3 +107,15 @@ def load_artifact(path: str) -> CompiledNetwork:
                                out_scale=z["out_scale"],
                                out_bias=z["out_bias"],
                                meta=manifest.get("meta", {}))
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (np.integer,)):
+        return int(obj)
+    if isinstance(obj, (np.floating,)):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj

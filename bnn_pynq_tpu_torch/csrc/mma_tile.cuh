@@ -1,19 +1,24 @@
 // Shared device code of the tensor-core kernels (conv_tile.cuh under
-// conv_chain.cu and conv_direct.cu, dense_block.cu, dense_chain.cu): int8 × int8 → int32 warp tiles on
+// conv_chain.cu and conv_direct.cu, dense_block.cu, dense_chain.cu,
+// packed_matmul.cu): int8 × int8 → int32 warp tiles on
 // mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with both operands read
 // from shared memory by ldmatrix, cp.async staging, and the MultiThreshold
-// epilogue run on the accumulator fragments.
+// epilogue run on the accumulator fragments. (packed_matmul.cu's popcount
+// arm runs the same item on the 1-bit m16n8k256, whose fragments are these
+// counted in bytes; it and the decode arm read A from packed words.)
 //
 // Under the ports of bnn_pynq_tpu/ops/conv_stack.py::conv_chain_vmem and
-// ::dense_block, ops/conv_direct.py::conv2d_direct and
-// ops/fused_mlp.py::fused_mlp_forward. All are bound by operations or bytes
-// far below what the CUDA cores reach (the main-path bounds stand in the .cu
-// files), so the dots run on the tensor cores and every operand byte is
-// fetched from L2 once per block tile, not once per thread.
+// ::dense_block, ops/conv_direct.py::conv2d_direct and ::conv_chain_direct,
+// ops/fused_mlp.py::fused_mlp_forward and ops/matmul.py::packed_matmul. All
+// are bound by operations or bytes far below what the CUDA cores reach (the
+// main-path bounds stand in the .cu files), so the dots run on the tensor
+// cores and every operand byte is fetched from L2 once per block tile, not
+// once per thread.
 //
 // mma.sync alone reaches 1,260 TOP/s on an NVIDIA H100 80GB HBM3 at 700.00 W
 // (tools/layer_times.py), 64 % of the published 1,979: the ceiling of these
-// kernels short of wgmma.
+// kernels short of wgmma. The 1-bit m16n8k256 with .and.popc runs at the same
+// instruction rate, 10,100 binary TOP/s; with .xor.popc at a tenth of it.
 //
 // A warp item is a 32-row × 64-column tile (2 m16 × 8 n8 blocks, 64 int32
 // accumulators a thread). Per k32 step it issues 2 + 4 ldmatrix.x4 and 16

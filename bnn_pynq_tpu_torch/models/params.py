@@ -23,13 +23,10 @@ from bnn_pynq_tpu_torch.models.network import make_plan
 from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 
-# The dp4a kernel (csrc/conv_direct.cu, conv_chain_direct) reads K in
-# 16-byte vectors (csrc/common.cuh, kVec), so its weight copy pads K with
-# zero levels to a multiple of 16. A zero level adds nothing to the dot,
-# whatever the activation it meets.
-K_ALIGN = 16
 # The tensor-core kernels (csrc/mma_tile.cuh) consume K in steps of 32
-# bytes, the depth of one int8 mma.
+# bytes, the depth of one int8 mma, so their weight copy pads K with zero
+# levels to a multiple of 32. A zero level adds nothing to the dot, whatever
+# the activation it meets.
 K_ALIGN_MMA = 32
 # The whole-MLP kernel (csrc/dense_chain.cu) fetches its weights in tiles of
 # this many bytes of K a row, 16-byte chunks at a time.
@@ -43,11 +40,9 @@ class WeightMatrix:
 
     kn: [K, N], K in (ki, kj, c) order — the JAX layout, used by the plain
         versions and the reference.
-    nk: [N, Kp], K contiguous and zero-padded to Kp = K rounded up to
-        K_ALIGN — the layout the dp4a kernel reads (`conv_chain_direct`).
-    nk32: the same with K rounded up to K_ALIGN_MMA — what the tensor-core
-        kernels read (`conv_chain`, `dense_block`, `conv2d_direct`); it is
-        `nk` itself where the two pads agree.
+    nk32: [N, Kp], K contiguous and zero-padded to Kp = K rounded up to
+        K_ALIGN_MMA — what the tensor-core kernels read (`conv_chain`,
+        `dense_block`, `conv2d_direct`, `conv_chain_direct`).
     wsum: int32 [N], the column sums of the levels. Those kernels run the
         dot on activation codes c, not levels 2c − off, and correct it
         with Σ level·w = 2·Σ c·w − off·wsum.
@@ -61,16 +56,15 @@ class WeightMatrix:
         of shared memory.
     """
     kn: torch.Tensor
-    nk: torch.Tensor
     nk32: torch.Tensor
     wsum: torch.Tensor
     tiles: torch.Tensor
 
 
-def _padded_nk(kn: torch.Tensor, align: int) -> torch.Tensor:
+def _padded_nk(kn: torch.Tensor) -> torch.Tensor:
     k, n = kn.shape
-    nk = torch.zeros((n, -(-k // align) * align), dtype=torch.int8,
-                     device=kn.device)
+    nk = torch.zeros((n, -(-k // K_ALIGN_MMA) * K_ALIGN_MMA),
+                     dtype=torch.int8, device=kn.device)
     nk[:, :k] = kn.t()
     return nk
 
@@ -95,10 +89,8 @@ def weight_matrix(kn: torch.Tensor) -> WeightMatrix:
     if kn.dtype != torch.int8 or kn.ndim != 2:
         raise TypeError(f"weights must be int8 [K, N], got {kn.dtype} "
                         f"{tuple(kn.shape)}")
-    nk = _padded_nk(kn, K_ALIGN)
-    nk32 = nk if nk.shape[1] % K_ALIGN_MMA == 0 else \
-        _padded_nk(kn, K_ALIGN_MMA)
-    return WeightMatrix(kn=kn.contiguous(), nk=nk, nk32=nk32,
+    nk32 = _padded_nk(kn)
+    return WeightMatrix(kn=kn.contiguous(), nk32=nk32,
                         wsum=kn.sum(dim=0, dtype=torch.int32),
                         tiles=_k_tiles(nk32))
 

@@ -37,7 +37,8 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every exported function: c_void_p for pointers (device and
-# host) and the stream, c_int for ints. Each returns a cudaError_t as int.
+# host) and the stream, c_int for ints. Each
+# returns a cudaError_t as int, or DECLINED.
 _SIGNATURES = {
     # x, m, k0, w_ptrs, wsum_ptrs, thr_ptrs, k32, n, n_layers, nthr, abits,
     # scale, bias, out, stream
@@ -57,10 +58,10 @@ _SIGNATURES = {
     # out, stream
     "bnn_conv_direct": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I,
                         _I, _P, _P),
-    # x, b, h, w, c, ksize, input_levels, w_ptrs, wstrides, n_outs,
+    # x, b, h, w, c, ksize, input_levels, w_ptrs, k32s, n_outs, wsum_ptrs,
     # thr_ptrs, n_layers, nthr, abits, out, stream
     "bnn_conv_chain_direct": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                              _I, _I, _I, _P, _P),
+                              _P, _I, _I, _I, _P, _P),
     # the Mosaic probes (csrc/mosaic_probes.cu)
     # x, m, c, w, taps, n, out, stream
     "bnn_probe_lane_concat": (_P, _I, _I, _P, _I, _I, _P, _P),
@@ -77,6 +78,8 @@ _SIGNATURES = {
     "bnn_probe_int32_acc_reshape": (_P, _I, _I, _I, _P, _P),
 }
 
+DECLINED = -1     # no cudaError_t: csrc/conv_direct.cu kChainNoImageFits
+
 
 @dataclass(frozen=True)
 class KernelLibrary:
@@ -85,12 +88,18 @@ class KernelLibrary:
     build_seconds: float      # 0.0 when an existing build was loaded
     build_log: str            # nvcc's output (ptxas register/smem report)
 
-    def call(self, name: str, *args) -> None:
-        """Call an exported launcher; raise if it returns a CUDA error."""
+    def call(self, name: str, *args, may_decline: bool = False) -> bool:
+        """Call an exported launcher; raise if it returns a CUDA error.
+        True if it launched; False if it answered DECLINED (the shape is
+        another kernel's, nothing was launched), which only a caller that
+        says `may_decline` accepts."""
         rc = getattr(self.lib, name)(*args)
+        if rc == DECLINED and may_decline:
+            return False
         if rc != 0:
             msg = self.lib.bnn_error_string(rc).decode()
             raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+        return True
 
 
 class LaunchCounter:

@@ -6,14 +6,15 @@ Ports of `bnn_pynq_tpu/ops/conv_direct.py`:
   stride > 1 takes thresholds and runs, as in JAX, on prebuilt patches:
   the kernel then sees a 1×1 conv over the `sliding_window` patches.
 - `conv_chain_direct` ← `conv_chain_direct`: chained stride-1 VALID convs,
-  every one thresholded; the intermediate levels stay on chip.
+  every one thresholded; the intermediate codes stay on chip.
 
-CUDA kernels: `csrc/conv_direct.cu`. `bnn_conv_direct` runs on the int8
-tensor cores: the implicit GEMM of `csrc/conv_tile.cuh`, shared with
-`conv_chain`, on the weights' `nk32` layout and `wsum`; a conv whose kernel
+CUDA kernels: `csrc/conv_direct.cu`, both on the int8 tensor cores, on the
+weights' `nk32` layout and `wsum`. `bnn_conv_direct` is the implicit GEMM
+of `csrc/conv_tile.cuh`, shared with `conv_chain`; a conv whose kernel
 covers its input goes to `csrc/dense_chain.cu` as one dense layer on the
-weights' `tiles`. `bnn_conv_chain_direct` is a dp4a kernel on weights
-padded per tap. The JAX kernels' pitch grid, batch padding and
+weights' `tiles`. `bnn_conv_chain_direct` runs the same inner loop layer
+after layer on whole images held in shared memory, the codes between the
+layers never leaving it. The JAX kernels' pitch grid, batch padding and
 pre-overlapped windows are TPU layout devices: the port computes and
 returns the valid region only and takes any batch.
 
@@ -28,6 +29,7 @@ import torch
 
 from bnn_pynq_tpu_torch.ops import _build
 from bnn_pynq_tpu_torch.ops.conv import sliding_window
+from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.ops.fused_mlp import check_cuda_operands
 from bnn_pynq_tpu_torch.ops.ref import conv2d_int_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
@@ -74,20 +76,6 @@ def _check_layer(j, w, thr, c: int, kernel: int) -> None:
                             thr.shape[1] != w.kn.shape[1]):
         raise ValueError(f"layer {j}: thresholds must be int32 "
                          f"[nthr, {w.kn.shape[1]}]")
-
-
-def _kernel_weights(w, c: int, kernel: int) -> torch.Tensor:
-    """The chain kernel's weight layout: levels [N, K²·Cp], each tap's C
-    channels padded with zero levels to Cp = C rounded up to 4, so that
-    every tap's dot is whole dp4a words. For C % 4 == 0 that is `w.nk`
-    itself."""
-    if c % 4 == 0:
-        return w.nk
-    taps, n = kernel * kernel, w.kn.shape[1]
-    cp = -(-c // 4) * 4
-    padded = torch.zeros((n, taps, cp), dtype=torch.int8, device=w.kn.device)
-    padded[:, :, :c] = w.kn.reshape(taps, c, n).permute(2, 0, 1)
-    return padded.reshape(n, taps * cp)
 
 
 def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
@@ -156,6 +144,14 @@ def conv_chain_direct(x: torch.Tensor, weights: Sequence,
        order. thresholds: int32 [nthr, C_{j+1}] per layer, one nthr for
        all layers (each layer quantizes; the chain never ends a network).
     Returns int8 codes [B, H - n(K-1), W - n(K-1), C_last], n = layers.
+
+    On a CUDA tensor the kernel keeps whole images in shared memory, layer
+    after layer, beside a chunk of each layer's weights; that holds at every
+    CNV shape. Where not even one image fits (a 64×64×64 map, say) the
+    launcher declines and the chain runs one layer a launch through
+    `ops/conv_stack.py::conv_chain`, the codes between the layers in device
+    memory; `conv_chain_direct.layerwise` counts the calls that took that
+    branch (they add to `conv_chain.launches`, not to this wrapper's).
     """
     _check_input(x)
     if len(thresholds) != len(weights):
@@ -178,18 +174,25 @@ def conv_chain_direct(x: torch.Tensor, weights: Sequence,
     check_cuda_operands(x, weights, thresholds)
     b, h, wd, c = x.shape
     shrink = n_layers * (kernel - 1)
-    wts = [_kernel_weights(w, cj, kernel) for w, cj in zip(weights, chans)]
     out = torch.empty((b, h - shrink, wd - shrink, chans[-1]),
                       dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.library().call(
+    launched = _build.library().call(
         "bnn_conv_chain_direct", x.data_ptr(), b, h, wd, c, kernel,
-        int(input_levels), _build.pointer_array(wts),
-        _build.int_array([t.shape[1] for t in wts]),
-        _build.int_array(chans[1:]), _build.pointer_array(thresholds),
-        n_layers, thresholds[0].shape[0], abits, out.data_ptr(), stream)
+        int(input_levels), _build.pointer_array([w.nk32 for w in weights]),
+        _build.int_array([w.nk32.shape[1] for w in weights]),
+        _build.int_array(chans[1:]),
+        _build.pointer_array([w.wsum for w in weights]),
+        _build.pointer_array(thresholds), n_layers, thresholds[0].shape[0],
+        abits, out.data_ptr(), stream, may_decline=True)
+    if not launched:
+        conv_chain_direct.layerwise.add()
+        return conv_chain(x, weights, thresholds, kernel=kernel, abits=abits,
+                          input_levels=input_levels)
     conv_chain_direct.launches.add()
     return out
 
 
 conv_chain_direct.launches = _build.LaunchCounter()
+# the calls that ran a layer a launch instead (no image fits on chip)
+conv_chain_direct.layerwise = _build.LaunchCounter()

@@ -115,7 +115,7 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
                          "take one count in 1..3 for the whole chain")
     tensors = [x, *thresholds, *extra]
     for w in weights:
-        tensors += [w.nk, w.nk32, w.wsum, w.tiles]
+        tensors += [w.nk32, w.wsum, w.tiles]
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
@@ -124,12 +124,11 @@ def check_cuda_operands(x, weights, thresholds, *extra) -> None:
                              "tensors")
     for w in weights:
         k, n = w.kn.shape
-        for name, pad in (("nk", 16), ("nk32", 32)):
-            t, kp = getattr(w, name), -(-k // pad) * pad
-            if t.dtype != torch.int8 or tuple(t.shape) != (n, kp):
-                raise ValueError(f"kernel weight layout {name} must be int8 "
-                                 f"[{n}, {kp}], got {t.dtype} "
-                                 f"{tuple(t.shape)}")
+        k32 = -(-k // 32) * 32              # models/params.py K_ALIGN_MMA
+        if w.nk32.dtype != torch.int8 or tuple(w.nk32.shape) != (n, k32):
+            raise ValueError(f"kernel weight layout nk32 must be int8 "
+                             f"[{n}, {k32}], got {w.nk32.dtype} "
+                             f"{tuple(w.nk32.shape)}")
         tiles = (-(-k // 128), n, 128)      # models/params.py K_TILE
         if w.tiles.dtype != torch.int8 or tuple(w.tiles.shape) != tiles:
             raise ValueError(f"kernel weight layout tiles must be int8 "

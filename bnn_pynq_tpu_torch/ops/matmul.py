@@ -18,10 +18,19 @@ Routes, all exact and equal to each other:
 With `thr` int32 [nthr, N] the result is the int8 code
 ``Σ_t (acc >= thr[t])``; without it, the int32 `acc`.
 
-The CUDA kernel is `csrc/packed_matmul.cu` (entry `bnn_packed_matmul`).
-It takes any M and N, so the TPU's tiling limits (M, N divisible by the
-block) are gone and `packed_matmul_padded` pads nothing. A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel.
+The CUDA kernel is `csrc/packed_matmul.cu` (entry `bnn_packed_matmul`),
+on the tensor cores: 'vpu' runs the 1-bit `mma.sync.m16n8k256` with
+`.and.popc` on the packed words as they lie in memory (popc(a XOR w) =
+popc(a) + popc(w) − 2·popc(a AND w), the row and column counts taken in
+the kernel), 'mxu' / 'mxu_rm' decode the weights to int8 levels once a
+block, in shared memory, and the activations in registers, and run the
+int8 `mma.sync.m16n8k32`. It takes any M and N, so the TPU's tiling limits
+(M, N divisible by the block) are gone and `packed_matmul_padded` pads
+nothing; it takes any K as well: where a block's shared memory cannot hold
+whole rows of K (beyond about 13,000 1-bit or 9,000 2-bit levels on the
+decode arm, 24,000 bits on 'vpu') the same kernel body walks K in slices
+with the accumulators kept across them. A CPU tensor runs the plain version;
+a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations

@@ -312,3 +312,9 @@ class InferenceEngine:
     @classmethod
     def from_artifact(cls, path: str, **kw) -> "InferenceEngine":
         return cls(load_artifact(path), **kw)
+
+    @classmethod
+    def from_training(cls, config, params, batch_stats,
+                      **kw) -> "InferenceEngine":
+        from bnn_pynq_tpu_torch.compiler.finnthesizer import compile_network
+        return cls(compile_network(config, params, batch_stats), **kw)

@@ -1,8 +1,10 @@
-"""Where the `mega` and `direct` routes' device time goes on a CUDA card.
+"""Where the `mega`, `direct` and `vpu` routes' device time goes on a CUDA
+card.
 
-    python -m bnn_pynq_tpu_torch.tools.layer_times
+    python -m bnn_pynq_tpu_torch.tools.layer_times [--only SECTION ...]
 
-Needs one CUDA card and nvcc; takes no options. Prints, at batch 1024:
+Needs one CUDA card and nvcc. Without options it prints all four sections
+(`layers`, `packed`, `rates`, `profiles`), at batch 1024:
 
 1. for CNV-W1A1's four `conv_chain` layers and its `dense_block` (block6) on
    seeded inputs and random weights: the device ms per call under CUDA graph
@@ -12,22 +14,33 @@ Needs one CUDA card and nvcc; takes no options. Prints, at batch 1024:
    last, whose kernel covers its map, also through the conv kernel and
    through `dense_block`'s on the flattened rows), and for `fused_mlp` at
    the widths of CNV's tail, LFC and SFC, at 1024 rows and at one;
-2. the rate of a loop of `mma.sync.aligned.m16n8k32.s8` alone (no memory, 16
-   independent accumulators a warp, 8 and 16 warps an SM) and of the same
-   loop fed by `ldmatrix` at the kernels' ratio of 6 loads per 16 mma: what
-   this instruction reaches on the card, below the published tensor-core
-   peak that `wgmma` is needed for;
-3. one forward of the pretrained CNV-W1A1 engine on a device-resident batch
-   on the `mega` and on the `direct` route (and CNV-W2A2 on `direct`): its
-   device ms under graph replay, the host ms to enqueue it and to prepare
-   its 1024 images, and from one `torch.profiler` trace of 20 forwards the
-   device ms per forward of every kernel in it, by name.
+2. `packed`: `packed_matmul` at the eight packed layers of CNV-W1A1 on the
+   popcount arm ('vpu') and on the decode arm ('mxu'), at one row (batch-1
+   dense layers) and at the 10-column last layer, and `conv_chain_direct`
+   at CNV's two chains, all under graph replay, with the rate reached;
+3. `rates`: the rate of a loop of `mma.sync.aligned.m16n8k32.s8` alone (no
+   memory, 16 independent accumulators a warp, 8 and 16 warps an SM) and of
+   the same loop fed by `ldmatrix` at the kernels' ratio of 6 loads per 16
+   mma: what this instruction reaches on the card, below the published
+   tensor-core peak that `wgmma` is needed for; then the same two loops for
+   the 1-bit `mma.sync.aligned.m16n8k256.b1` with `.and.popc` and with
+   `.xor.popc` (each built on its own: a form the assembler refuses for this
+   card is reported, not fatal), each after a one-warp check of the
+   fragment layout the packed kernel relies on against a popcount on the
+   host;
+4. `profiles`: one forward of the pretrained CNV-W1A1 engine on a
+   device-resident batch on the `mega`, `direct` and `vpu` routes (and
+   CNV-W2A2 on `direct`): its device ms under graph replay, the host ms to
+   enqueue it and to prepare its 1024 images, and from one `torch.profiler`
+   trace of 20 forwards the device ms per forward of every kernel in it, by
+   name.
 
 The last line names the card and its power limit as `nvidia-smi` gives them.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import subprocess
@@ -40,7 +53,7 @@ import torch
 
 from bnn_pynq_tpu_torch.models.params import weight_matrix
 from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
-                                    fused_mlp)
+                                    fused_mlp, matmul)
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
 
 BATCH = 1024
@@ -55,6 +68,12 @@ DIRECT_LAYERS = CONV_LAYERS[1:] + (("conv4", 5, 128, 256),
 MLPS = (("cnv tail", (2304, 256, 512, 512, 10)),
         ("lfc", (784, 1024, 1024, 1024, 10)),
         ("sfc", (784, 256, 256, 256, 10)))
+# (label, M at batch 1024, K, N) of CNV-W1A1's packed layers; the last has no
+# thresholds (int32 out)
+PACKED_LAYERS = (("conv1", 802816, 576, 64), ("conv2", 147456, 576, 128),
+                 ("conv3", 102400, 1152, 128), ("conv4", 9216, 1152, 256),
+                 ("conv5", 1024, 2304, 256), ("dense0", 1024, 256, 512),
+                 ("dense1", 1024, 512, 512), ("dense2", 1024, 512, 10))
 PRETRAINED = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "pretrained")
@@ -136,6 +155,139 @@ void run(int sms, int blocks_per_sm, const char* name) {
   cudaFree(out);
 }
 int main() {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  run<0>(sms, 1, "registers only");
+  run<0>(sms, 2, "registers only");
+  run<1>(sms, 1, "6 ldmatrix.x4 per 16 mma");
+  run<1>(sms, 2, "6 ldmatrix.x4 per 16 mma");
+  return 0;
+}
+"""
+
+# The 1-bit mma: -DB1_OP=and|xor -DB1_XOR=0|1. First one warp checks the
+# fragment layout (A: registers a0..a3 = words t, t (row g + 8), 4 + t,
+# 4 + t (row g + 8) of a row's 8-word step; B: b0, b1 = words t, 4 + t of
+# column g; C: c0, c1 = [g][2t], [g][2t + 1], c2, c3 the same of row g + 8)
+# against a popcount on the host, then the rate loops of RATE_SOURCE.
+B1_SOURCE = r"""
+#include <cstdio>
+#include <cstdint>
+#include <cstdlib>
+#include <cuda_runtime.h>
+#define STR2(x) #x
+#define STR(x) STR2(x)
+__device__ __forceinline__ void mma_b1(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32." STR(B1_OP) ".popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldm(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__global__ void layout_kernel(const unsigned* A, const unsigned* B, int* C) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const unsigned a[4] = {A[g * 8 + t], A[(g + 8) * 8 + t], A[g * 8 + 4 + t],
+                         A[(g + 8) * 8 + 4 + t]};
+  int c[4] = {0, 0, 0, 0};
+  mma_b1(c, a, B[g * 8 + t], B[g * 8 + 4 + t]);
+  C[g * 8 + 2 * t] = c[0];
+  C[g * 8 + 2 * t + 1] = c[1];
+  C[(g + 8) * 8 + 2 * t] = c[2];
+  C[(g + 8) * 8 + 2 * t + 1] = c[3];
+}
+template <int LOADS>
+__global__ void __launch_bounds__(256, 2) rate_kernel(int iters, int* out) {
+  extern __shared__ __align__(16) int8_t sm[];
+  for (int i = threadIdx.x; i < 32768; i += 256) sm[i] = (int8_t)i;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned base =
+      (unsigned)__cvta_generic_to_shared(sm) + (threadIdx.x >> 5) * 2048;
+  const unsigned addr =
+      base + ((lane & 7) + ((lane >> 3) & 1) * 8) * 80 + (lane >> 4) * 16;
+  int c[2][8][4] = {};
+  unsigned a[2][4] = {{1u * lane, 2, 3, 4}, {5, 6, 7, 8}};
+  unsigned b[4][4] = {{1, 2, 3, 4}, {5, 6, 7, 8}, {9, 1, 2, 3}, {4, 5, 6, 7}};
+  for (int it = 0; it < iters; ++it) {
+    if (LOADS) {
+      ldm(a[0], addr + (it & 1) * 32);
+      ldm(a[1], addr + 16 * 80 + (it & 1) * 32);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      if (LOADS) ldm(b[jp], addr + 4096 + jp * 1280 + (it & 1) * 32);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        mma_b1(c[mb][2 * jp], a[mb], b[jp][0], b[jp][1]);
+        mma_b1(c[mb][2 * jp + 1], a[mb], b[jp][2], b[jp][3]);
+      }
+    }
+  }
+  int s = 0;
+  for (int mb = 0; mb < 2; ++mb)
+    for (int j = 0; j < 8; ++j)
+      for (int e = 0; e < 4; ++e) s += c[mb][j][e];
+  if (s == 123456789) out[0] = s;
+}
+template <int LOADS>
+void run(int sms, int blocks_per_sm, const char* name) {
+  int* out;
+  cudaMalloc(&out, 4);
+  const int iters = 20000, grid = sms * blocks_per_sm;
+  cudaFuncSetAttribute(rate_kernel<LOADS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, 100000);
+  const size_t smem = blocks_per_sm == 1 ? 100000 : 40000;
+  rate_kernel<LOADS><<<grid, 256, smem>>>(100, out);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  rate_kernel<LOADS><<<grid, 256, smem>>>(iters, out);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const double ops = 2.0 * 16 * 8 * 256 * 16 * (double)iters * 8 * grid;
+  printf("mma.sync m16n8k256 b1 " STR(B1_OP) ".popc, %s, %d warps an SM: "
+         "%.3f ms, %.1f TOP/s binary (%s)\n",
+         name, 8 * blocks_per_sm, ms, ops / ms / 1e9,
+         cudaGetErrorString(cudaGetLastError()));
+  cudaFree(out);
+}
+int main() {
+  unsigned hA[128], hB[64], *dA, *dB;
+  int hC[128], *dC;
+  srand(7);
+  for (int i = 0; i < 128; ++i) hA[i] = (unsigned)rand() * 2654435761u;
+  for (int i = 0; i < 64; ++i) hB[i] = (unsigned)rand() * 2246822519u;
+  cudaMalloc(&dA, sizeof hA);
+  cudaMalloc(&dB, sizeof hB);
+  cudaMalloc(&dC, sizeof hC);
+  cudaMemcpy(dA, hA, sizeof hA, cudaMemcpyHostToDevice);
+  cudaMemcpy(dB, hB, sizeof hB, cudaMemcpyHostToDevice);
+  layout_kernel<<<1, 32>>>(dA, dB, dC);
+  cudaMemcpy(hC, dC, sizeof hC, cudaMemcpyDeviceToHost);
+  int bad = 0;
+  for (int r = 0; r < 16; ++r)
+    for (int n = 0; n < 8; ++n) {
+      int want = 0;
+      for (int w = 0; w < 8; ++w) {
+        const unsigned x = B1_XOR ? hA[r * 8 + w] ^ hB[n * 8 + w]
+                                  : hA[r * 8 + w] & hB[n * 8 + w];
+        want += __builtin_popcount(x);
+      }
+      bad += want != hC[r * 8 + n];
+    }
+  printf("mma.sync m16n8k256 b1 " STR(B1_OP) ".popc, one warp against the "
+         "host's popcount: %s (%d of 128 differ; %s)\n",
+         bad ? "MISMATCH" : "equal", bad,
+         cudaGetErrorString(cudaGetLastError()));
+  if (bad) return 1;
   int sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
   run<0>(sms, 1, "registers only");
@@ -242,17 +394,94 @@ def layer_times(device: torch.device) -> None:
               f"{ops / ms / 1e9:.1f} TOP/s), {ms1:.4f} ms at 1 row")
 
 
+def packed_times(device: torch.device) -> None:
+    """`packed_matmul`'s two arms and `conv_chain_direct` under graph replay,
+    on seeded random operands."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    rng = np.random.default_rng(0)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def packed(label, m, k, n, routes=("vpu", "mxu")):
+        a, w = words(m, k // 32), words(k // 32, n)
+        sd = int(k ** .5)
+        thr = None if n == 10 else torch.randint(
+            -sd, sd + 1, (1, n), generator=gen, device=device,
+            dtype=torch.int32)
+        out = []
+        for route in routes:
+            ms = graph_ms(lambda: matmul.packed_matmul(
+                a, w, thr, k=k, bits=1, route=route))
+            out.append(ms)
+            print(f"packed_matmul {route} {label} M={m} K={k} N={n}: "
+                  f"{ms:.4f} ms, {2 * m * k * n / ms / 1e9:.1f} TOP/s")
+        return out
+
+    totals = np.sum([packed(*layer) for layer in PACKED_LAYERS], axis=0)
+    print(f"packed_matmul, the eight layers: vpu {totals[0]:.4f} ms, mxu "
+          f"{totals[1]:.4f} ms")
+    for label, m, k, n in (("batch-1 dense", 1, 512, 512),
+                           ("batch-1 conv5", 1, 2304, 256),
+                           ("batch-1 last layer", 1, 512, 10)):
+        packed(label, m, k, n)
+
+    def layer(k, n):
+        w = weight_matrix(torch.from_numpy(
+            rng.choice([-1, 1], size=(k, n)).astype(np.int8)).to(device))
+        sd = int(k ** .5)
+        return w, torch.from_numpy(rng.integers(
+            -sd, sd + 1, size=(1, n)).astype(np.int32)).to(device)
+
+    total = 0.0
+    for label, hw, chans, image in (("chain0-1", 32, (3, 64, 64), True),
+                                    ("chain2-3", 14, (64, 128, 128), False)):
+        x = rng.integers(-128, 128, size=(BATCH, hw, hw, chans[0])) if image \
+            else rng.integers(0, 2, size=(BATCH, hw, hw, chans[0]))
+        x = torch.from_numpy(x.astype(np.int8)).to(device)
+        ws, ts = zip(*(layer(9 * ci, co)
+                       for ci, co in zip(chans[:-1], chans[1:])))
+        ms = graph_ms(lambda: conv_direct.conv_chain_direct(
+            x, list(ws), list(ts), kernel=3, abits=1, input_levels=image))
+        cms = graph_ms(lambda: conv_stack.conv_chain(
+            x, list(ws), list(ts), kernel=3, abits=1, input_levels=image))
+        ops = sum(2 * BATCH * (hw - 2 * (j + 1)) ** 2 * 9 * ci * co
+                  for j, (ci, co) in enumerate(zip(chans[:-1], chans[1:])))
+        total += ms
+        print(f"conv_chain_direct {label} {tuple(x.shape)} -> "
+              f"{chans[1:]}: {ms:.4f} ms, {ops / ms / 1e9:.1f} TOP/s; "
+              f"conv_chain on the same layers {cms:.4f} ms")
+    print(f"conv_chain_direct, the two chains: {total:.4f} ms")
+
+
+def _build_and_run(tmp: str, name: str, source: str, *defines: str) -> str:
+    src, exe = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, name)
+    with open(src, "w") as f:
+        f.write(source)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3", "-std=c++17",
+                    *defines, "-o", exe, src], check=True,
+                   capture_output=True, text=True)
+    return subprocess.run([exe], check=True, capture_output=True,
+                          text=True).stdout
+
+
 def mma_rate() -> None:
-    """Build and run the mma.sync rate loop (nvcc into a temporary
-    directory, removed afterwards)."""
+    """Build and run the mma.sync rate loops (nvcc into a temporary
+    directory, removed afterwards): int8, then the two 1-bit forms."""
     with tempfile.TemporaryDirectory() as tmp:
-        src, exe = os.path.join(tmp, "rate.cu"), os.path.join(tmp, "rate")
-        with open(src, "w") as f:
-            f.write(RATE_SOURCE)
-        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3",
-                        "-std=c++17", "-o", exe, src], check=True)
-        print(subprocess.run([exe], check=True, capture_output=True,
-                             text=True).stdout, end="")
+        print(_build_and_run(tmp, "rate", RATE_SOURCE), end="")
+        for op, is_xor in (("and", 0), ("xor", 1)):
+            try:
+                print(_build_and_run(tmp, f"b1_{op}", B1_SOURCE,
+                                     f"-DB1_OP={op}", f"-DB1_XOR={is_xor}"),
+                      end="")
+            except subprocess.CalledProcessError as e:
+                lines = [l for l in (e.stderr or "").splitlines() +
+                         (e.stdout or "").splitlines() if l.strip()]
+                print(f"mma.sync m16n8k256 b1 {op}.popc: not usable on this "
+                      f"card (exit {e.returncode}): "
+                      f"{' | '.join(lines[:3]) or 'no output'}")
 
 
 def forward_profile(device: torch.device, name: str, route: str,
@@ -310,16 +539,28 @@ def forward_profile(device: torch.device, name: str, route: str,
     print(f"  {sum(by_name.values()):.4f} all kernels")
 
 
-def main() -> int:
+SECTIONS = ("layers", "packed", "rates", "profiles")
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("layer_times measures on a CUDA card; none is "
                            "available")
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", nargs="+", choices=SECTIONS,
+                        default=SECTIONS, help="the sections to run")
+    only = parser.parse_args(argv).only
     device = torch.device("cuda", 0)
-    layer_times(device)
-    mma_rate()
+    if "layers" in only:
+        layer_times(device)
+    if "packed" in only:
+        packed_times(device)
+    if "rates" in only:
+        mma_rate()
     for name, route in (("cnv-w1a1", "mega"), ("cnv-w1a1", "direct"),
-                        ("cnv-w2a2", "direct")):
-        forward_profile(device, name, route)
+                        ("cnv-w2a2", "direct"), ("cnv-w1a1", "vpu")):
+        if "profiles" in only:
+            forward_profile(device, name, route)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -25,10 +25,18 @@ Phases (every check raises, so any failure exits non-zero):
 5. the same agreement for lfc-w1a1 (whole net in fused_mlp) and cnv-w2a2;
 6. a BatchingServer over the CUDA CNV-W1A1 engine answering 68 requests;
 7. packed_matmul (csrc/packed_matmul.cu) against its plain version, every
-   arm: 'vpu' at all eight packed layers of CNV-W1A1 at batch 1024,
-   'mxu' and 'mxu_rm' at its conv1/conv4/conv7/dense-512 shapes, 'mxu'
-   at CNV-W2A2's (bits=2), and 'vpu'/'mxu' at LFC-W1A1's 784→1024 (K
-   ragged) and 1024→1024 layers; codes and int32 exactly equal;
+   arm: 'vpu' (the 1-bit tensor-core arm) and 'mxu' (the decode arm on the
+   int8 tensor cores) at all eight packed layers of CNV-W1A1 at batch 1024,
+   each with its time by events and under graph replay; 'mxu_rm' at its
+   conv1/conv4/conv7/dense-512 shapes, 'mxu' at CNV-W2A2's (bits=2), and
+   'vpu'/'mxu' at LFC-W1A1's 784→1024 (K ragged) and 1024→1024 layers;
+   then odd cases on random words, every route the width allows: M = 1, 7,
+   1023; N = 10 int32, N = 10 / 100 / 300 with thresholds; K tails (Kw = 1,
+   5, 18, 25); W1A2 words (codes 1 / 2); thresholds at THR_ALWAYS,
+   THR_NEVER and the ends of int32; random thresholds within one standard
+   deviation of the accumulator; K = 30,000 bits and 12,000 2-bit levels,
+   which no block holds whole rows of and the kernel walks in slices; codes
+   and int32 exactly equal;
 8. the packed routes: InferenceEngine(cnv-w1a1, route="vpu").classify of
    the 1024 images with the packed kernel's launch counts read around it
    (and no plain packed_matmul call), logits against runtime="ref";
@@ -43,7 +51,11 @@ Phases (every check raises, so any failure exits non-zero):
    on the same layer), CNV-W2A2's layer 1, int32 output (no thresholds),
    5×5, stride 2, C = 3 / 24 / 32 / 256, N = 10 / 48 / 100 / 300, batch 1
    and 1023, W2A2; both chains of both nets, printed beside conv_chain's
-   time at the same shapes (phase 3);
+   time at the same shapes (phase 3); then odd chains: batch 1 and 1023,
+   one layer and three, C = 3 / 24 / 32, N = 10 / 48 / 100, 5×5, W2A2, all
+   in one launch with the codes between the layers in shared memory, and
+   a 64×64 map that does not fit there and runs a layer a launch through
+   conv_chain;
 12. the direct route: InferenceEngine(cnv-w1a1, route="direct").classify
    of the 1024 images with conv2d_direct's launch count read around it
    (5) and no plain call, logits against runtime="ref"; the same for
@@ -69,8 +81,9 @@ Phases (every check raises, so any failure exits non-zero):
 Beside each kernel's time stands its bound: the least time the card could
 take for the same work, the larger of operations / peak rate and bytes /
 memory rate (each input read once, each output written once; published
-peaks of the H100 SXM), computed here from the shapes of this run's
-inputs. `library_ms` is the time of one PyTorch call that computes the same
+peaks of the H100 SXM; the operations of packed_matmul's 'vpu' arm, whose
+operands are single bits, at 8 × the int8 peak: PEAK_B1), computed here
+from the shapes of this run's inputs. `library_ms` is the time of one PyTorch call that computes the same
 function on the same inputs. The five copy and max probes have one (a
 strided slice made contiguous, `amax`: PROBE_LIBRARY), held equal to the
 kernel here and used nowhere in the port. The dot kernels have none (each
@@ -103,6 +116,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published peaks of the H100 SXM (dense, 700 W)
 PEAK_INT8 = 1979e12       # int8 operations/s on the tensor cores
+# 1-bit operations/s on the tensor cores: the data sheet publishes none; the
+# 1-bit mma does 8 × the int8 mma's operations at the same instruction rate
+# (tools/layer_times.py measures both forms alone), so 8 × the int8 peak
+PEAK_B1 = 8 * PEAK_INT8
 PEAK_FP32 = 67e12         # operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12      # device memory bytes/s
 
@@ -390,19 +407,33 @@ def _kernel_cases(torch, device):
 
 
 def _packed_cases(torch, device):
-    """(case label, route, wrapper fn, plain fn, work on the main path or
-    None) for packed_matmul at the packed routes' shapes, batch 1024: the pretrained
-    words and thresholds, activation words from a seeded generator (pad
-    bits zero, as the packers leave them)."""
+    """(case label, route, wrapper fn, plain fn, work or None, the sum the
+    case's times go to or None) for packed_matmul. First the packed routes'
+    shapes at batch 1024 (operations counted at the rate of the operands the
+    arm multiplies: 1-bit on 'vpu', int8 on the decode arm): the pretrained
+    words and thresholds, activation
+    words from a seeded generator (pad bits zero, as the packers leave
+    them); CNV-W1A1's eight layers on 'vpu' are the kernel's row, the same
+    on 'mxu' the decode arm's sum. Then odd cases on random levels, packed
+    here, thresholds within one standard deviation of the accumulator."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
     from bnn_pynq_tpu_torch.models.network import make_plan
     from bnn_pynq_tpu_torch.models.params import params_from_numpy
     from bnn_pynq_tpu_torch.ops import matmul, packing
+    from bnn_pynq_tpu_torch.ops.thresholds import THR_ALWAYS, THR_NEVER
 
     gen = torch.Generator(device=device).manual_seed(2)
     cases = []
-    plan_arms = (("cnv-w1a1", ("vpu",), None, True),
-                 ("cnv-w1a1", ("mxu", "mxu_rm"), (1, 4, 7, 9), False),
+
+    def add(label, route, a, wp, kw, work=None, total=None):
+        cases.append((
+            label, route,
+            lambda: matmul.packed_matmul(a, wp, route=route, **kw),
+            lambda: matmul.packed_matmul_plain(a, wp, route=route, **kw),
+            work, total))
+
+    plan_arms = (("cnv-w1a1", ("vpu", "mxu"), None, True),
+                 ("cnv-w1a1", ("mxu_rm",), (1, 4, 7, 9), False),
                  ("cnv-w2a2", ("mxu",), (1, 4, 7, 9), False),
                  ("lfc-w1a1", ("vpu", "mxu"), (0, 1), False))
     for name, routes, only, main in plan_arms:
@@ -431,17 +462,70 @@ def _packed_cases(torch, device):
             kw_args = dict(thr=layers[i].get("thr") if not lp.last else None,
                            k=lp.k, bits=bits)
             for route in routes:
-                label = (f"{name} layer{i} {route} M={m} K={lp.k} N={lp.n}"
-                         f"{' int32' if lp.last else ''}")
-                cases.append((
-                    label, route,
-                    lambda a=a, wp=layers[i]["w_packed"], kw=kw_args, r=route:
-                        matmul.packed_matmul(a, wp, route=r, **kw),
-                    lambda a=a, wp=layers[i]["w_packed"], kw=kw_args, r=route:
-                        matmul.packed_matmul_plain(a, wp, route=r, **kw),
+                add(f"{name} layer{i} {route} M={m} K={lp.k} N={lp.n}"
+                    f"{' int32' if lp.last else ''}", route, a,
+                    layers[i]["w_packed"], kw_args,
                     _work([(m, lp.k, lp.n)], a, layers[i]["w_packed"],
-                          *([] if lp.last else [layers[i]["thr"]]))
-                    if main else None))
+                          *([] if lp.last else [layers[i]["thr"]]),
+                          peak=PEAK_B1 if route == "vpu" else PEAK_INT8)
+                    if main else None, route if main else None)
+
+    # -- odd cases ------------------------------------------------------------
+    rng = np.random.default_rng(5)
+
+    def words(levels_or_codes, bits, axis):
+        pack = packing.np_pack_bits if bits == 1 else packing.np_pack_codes2
+        return packing.words_to_tensor(pack(levels_or_codes, axis=axis)) \
+            .to(device)
+
+    def odd(label, bits, m, k, n, nthr, w_binary=False, ends=False,
+            timed=False):
+        if bits == 1:
+            a = words(rng.choice([-1, 1], size=(m, k)), 1, -1)
+            wp = words(rng.choice([-1, 1], size=(k, n)), 1, 0)
+            sd = int(k ** .5)
+        else:
+            a = words(rng.integers(0, 4, size=(m, k)), 2, -1)
+            wp = words(rng.integers(1, 3, size=(k, n)) if w_binary
+                       else rng.integers(0, 4, size=(k, n)), 2, 0)
+            sd = int(k ** .5 * 5 ** .5 * (1 if w_binary else 5 ** .5))
+        thr = None
+        if nthr:
+            thr = np.sort(rng.integers(-sd, sd + 1, size=(nthr, n)),
+                          axis=0).astype(np.int32)
+            if ends:                # never / always, per column
+                thr[0, ::3] = -2 ** 31
+                thr[-1, ::2] = 2 ** 31 - 1
+                thr[:, 5] = 2 ** 31 - 1
+                thr[:, 7] = -2 ** 31
+                thr[:, 9] = THR_NEVER
+                thr[:, 11] = THR_ALWAYS
+            thr = torch.from_numpy(thr).to(device)
+        for route in (("vpu", "mxu", "mxu_rm") if bits == 1
+                      else ("mxu", "mxu_rm")):
+            add(f"{'small' if timed else 'odd'}: {label} {route} M={m} K={k} "
+                f"N={n} bits={bits}{'' if nthr else ' int32'}", route, a, wp,
+                dict(thr=thr, k=k, bits=bits))
+
+    odd("batch-1 dense", 1, 1, 512, 512, 1, timed=True)
+    odd("batch-1 conv5", 1, 1, 2304, 256, 1, timed=True)
+    odd("last layer", 1, 1024, 512, 10, 0, timed=True)
+    odd("batch-1 last layer", 1, 1, 512, 10, 0, timed=True)
+    odd("7 rows, Kw=18", 1, 7, 576, 64, 1)
+    odd("1023 rows, Kw=18", 1, 1023, 576, 64, 1)
+    odd("N=10, Kw=5 (K tail)", 1, 333, 150, 10, 1)
+    odd("N=100, Kw=25 (K tail)", 1, 1023, 784, 100, 1)
+    odd("N=300, Kw=1 (K=27)", 1, 500, 27, 300, 1)
+    odd("N=300 int32, Kw=18, odd M", 1, 77, 576, 300, 0)
+    odd("W1A2 words (codes 1/2), nthr=3", 2, 777, 576, 64, 3, w_binary=True)
+    odd("W2A2 K=27 (K tail), N=100", 2, 1023, 27, 100, 3)
+    odd("W2A2 N=10 int32, K=200", 2, 64, 200, 10, 0)
+    # K beyond what a block holds whole rows of: walked in slices
+    odd("K=30,000 in slices", 1, 300, 30000, 72, 1)
+    odd("K=30,000 in slices, N=10 int32, one row", 1, 1, 30000, 10, 0)
+    odd("W2A2 K=12,000 in slices, N=300", 2, 77, 12000, 300, 3)
+    odd("thresholds at the ends", 1, 70, 150, 48, 3, ends=True)
+    odd("thresholds at the ends, W2A2", 2, 70, 150, 48, 3, ends=True)
     return cases
 
 
@@ -556,6 +640,42 @@ def _direct_cases(torch, device):
     odd("stride 2, C=3, N=48", (1023, 8, 8, 3), 48, 3, 1, 1, stride=2)
     odd("kernel covers the map, 5x5, C=24, N=100, W2A2", (9, 5, 5, 24), 100,
         5, 2, 2)
+
+    # -- odd chains: one launch, the codes between the layers on chip ---------
+    def chain(label, x, chans, k, wbits, abits, **kw):
+        ws, ts = zip(*(rand(ci, co, k, wbits, abits)
+                       for ci, co in zip(chans[:-1], chans[1:])))
+        if kw.get("input_levels"):      # the image's accumulator is wider
+            ts = (ts[0] * 74,) + ts[1:]
+        kw = dict(weights=list(ws), thresholds=list(ts), kernel=k,
+                  abits=abits, **kw)
+        cases.append(
+            ("conv_chain_direct", f"odd: {label} {tuple(x.shape)}",
+             lambda: cd.conv_chain_direct(x, **kw),
+             lambda: cd.conv_chain_direct_plain(x, **kw), None, None))
+
+    def image(b, hw):
+        return dev(rng.integers(-128, 128, size=(b, hw, hw, 3))
+                   .astype(np.int8))
+
+    chain("batch 1, image, N=64/64", image(1, 32), [3, 64, 64], 3, 1, 1,
+          input_levels=True)
+    chain("batch 1023, C=64, N=128/128", codes((1023, 14, 14, 64), 1),
+          [64, 128, 128], 3, 1, 1)
+    chain("one layer, C=32, N=48", codes((65, 12, 12, 32), 1), [32, 48], 3,
+          1, 1)
+    chain("one layer, image, N=100", image(33, 16), [3, 100], 3, 1, 1,
+          input_levels=True)
+    chain("three layers, W2A2, N=64/32/10", codes((50, 12, 12, 32), 2),
+          [32, 64, 32, 10], 3, 2, 2)
+    chain("C=24 gathered, N=24 gathered, N=16", codes((33, 11, 11, 24), 1),
+          [24, 24, 16], 3, 1, 1)
+    chain("5x5, C=32, N=32/48, W2A2", codes((17, 13, 13, 32), 2),
+          [32, 32, 48], 5, 2, 2)
+    chain("weight chunks, C=128, N=256/64", codes((9, 7, 7, 128), 1),
+          [128, 256, 64], 3, 1, 1)
+    chain("a 64x64 map: a layer a launch", codes((3, 64, 64, 64), 1),
+          [64, 64, 32], 3, 1, 1)
     return cases
 
 
@@ -1000,21 +1120,43 @@ def main() -> int:
     _serve_68(BatchingServer, eng, eng.prepare(images[:128]), "cnv-w1a1")
 
     # -- 7. packed_matmul against its plain version ---------------------------
-    packed = _new_result()
-    for label, route, kern, plain, work in _packed_cases(torch, device):
+    packed = _new_result()            # 'vpu', the kernel's row
+    packed_mxu = _new_result()        # the decode arm at the same layers
+    vpu_bound_int8 = 0.0              # 'vpu' held to the int8 rate, as before
+    for label, route, kern, plain, work, total in \
+            _packed_cases(torch, device):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == want.dtype, label
         err = float((got.double() - want.double()).abs().max())
         assert torch.equal(got, want), f"{label}: kernel != plain"
-        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
         packed["max_abs_err"] = max(packed["max_abs_err"], err)
         beside = ""
-        if work:                  # cnv-w1a1 'vpu': time per forward
-            bound = _account(torch, device, packed, work, got, ms, plain_ms)
-            beside = f", bound {bound:.4f} ms"
+        if label.startswith("odd:"):      # checked, not timed
+            print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}")
+            continue
+        ms, plain_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+        if total:                 # cnv-w1a1 'vpu' / 'mxu': time per forward
+            r = packed if total == "vpu" else packed_mxu
+            bound = _account(torch, device, r, work, got, ms, plain_ms)
+            if total == "vpu":
+                vpu_bound_int8 += max(work["ops"] / PEAK_INT8 * 1e3, bound)
+            replay_ms = graph_ms(kern)
+            r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
+            beside = f" (graph replay {replay_ms:.4f} ms), bound {bound:.4f} ms"
+        elif label.startswith("small:"):  # an event reading is the enqueue
+            beside = f" (graph replay {graph_ms(kern):.4f} ms)"
         print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
+    print(f"packed_matmul decode arm, cnv-w1a1 'mxu', the 8 layers: kernel "
+          f"{packed_mxu['ms']:.4f} ms (graph replay "
+          f"{packed_mxu['graph_ms']:.4f} ms), bound "
+          f"{packed_mxu['bound_ms']:.5f} ms, plain "
+          f"{packed_mxu['plain_ms']:.4f} ms; popcount arm 'vpu': kernel "
+          f"{packed['ms']:.4f} ms (graph replay {packed['graph_ms']:.4f} ms), "
+          f"bound {packed['bound_ms']:.5f} ms (operations at the 1-bit rate "
+          f"{packed['ops_ms']:.5f}, bytes {packed['bytes_ms']:.5f}; "
+          f"{vpu_bound_int8:.5f} with the operations at the int8 rate)")
 
     # -- 8. the packed routes -------------------------------------------------
     arms = matmul.packed_matmul.launches
@@ -1083,10 +1225,17 @@ def main() -> int:
                            conv_direct.conv_chain_direct.launches}
     for k in direct_counters:
         results[k] = _new_result()
+    layerwise = conv_direct.conv_chain_direct.layerwise
     for kname, label, kern, plain, work, chain in \
             _direct_cases(torch, device):
+        layerwise.reset()
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if kname == "conv_chain_direct":
+            # one launch with the codes on chip, but for the map that
+            # cannot fit there
+            assert layerwise.value == ("a layer a launch" in label), \
+                f"{label}: layerwise branch taken {layerwise.value} times"
         assert got.shape == want.shape and got.dtype == want.dtype, label
         err = float((got.double() - want.double()).abs().max())
         assert torch.equal(got, want), f"{label}: kernel != plain"

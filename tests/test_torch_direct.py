@@ -304,3 +304,26 @@ def test_direct_engine_surface_hot_swap_and_server(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine.from_artifact(path, device="cuda", route="direct")
+
+
+@pytest.mark.parametrize("rc,may_decline,want", [
+    (0, False, True), (0, True, True), (-1, True, False),
+    (-1, False, RuntimeError), (1, True, RuntimeError)])
+def test_library_call_lets_a_launcher_decline_only_where_asked(rc, may_decline,
+                                                               want):
+    """`bnn_conv_chain_direct` answers DECLINED where no image fits on chip:
+    `conv_chain_direct` asks for that answer and runs `conv_chain`; to any
+    other caller, and for any CUDA error, the call raises."""
+    from types import SimpleNamespace
+
+    from bnn_pynq_tpu_torch.ops import _build
+    fake = SimpleNamespace(entry=lambda *args: rc,
+                           bnn_error_string=lambda code: b"refused")
+    lib = _build.KernelLibrary(lib=fake, path=Path("none"), build_seconds=0.0,
+                               build_log="")
+    assert _build.DECLINED == -1
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="entry: CUDA error"):
+            lib.call("entry", 1, 2, may_decline=may_decline)
+    else:
+        assert lib.call("entry", 1, 2, may_decline=may_decline) is want

@@ -552,11 +552,10 @@ def test_mma_weight_layout_round_trips(k, n):
     assert not w.nk32[:, k:].any(), "the K padding must be zero levels"
     assert w.wsum.dtype == torch.int32 and tuple(w.wsum.shape) == (n,)
     assert torch.equal(w.wsum, w.nk32.sum(dim=1, dtype=torch.int32))
-    # the dp4a kernels' layout did not move
-    k16 = round_up(k, 16)
-    assert tuple(w.nk.shape) == (n, k16)
-    assert torch.equal(w.nk[:, :k].t(), kn) and not w.nk[:, k:].any()
-    assert (w.nk32 is w.nk) == (k16 == k32)
+    # the one K-contiguous layout: every kernel reads it or its K tiles
+    assert tuple(w.tiles.shape) == (-(-k32 // 128), n, 128)
+    assert w.nk32.data_ptr() % 16 == 0 and w.tiles.data_ptr() % 16 == 0
+    assert not hasattr(w, "nk"), "the dp4a kernels' layout went with them"
 
 
 # -- (b) the transliteration against the plain versions -------------------------

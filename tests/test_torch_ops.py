@@ -16,7 +16,7 @@ from bnn_pynq_tpu.ops import thresholds as jax_thr
 from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
 from bnn_pynq_tpu_torch.models import config as port_config
 from bnn_pynq_tpu_torch.models.network import make_plan
-from bnn_pynq_tpu_torch.models.params import (K_ALIGN, params_from_numpy,
+from bnn_pynq_tpu_torch.models.params import (K_ALIGN_MMA, params_from_numpy,
                                               unpack_levels, weight_matrix)
 from bnn_pynq_tpu_torch.ops import conv, ref, thresholds
 
@@ -71,8 +71,8 @@ def test_params_from_numpy_matches_decode_params(name):
         w = want["w_int8"] if "w_int8" in want else \
             _np(want["w_hwio"]).reshape(lp.k, lp.n)
         np.testing.assert_array_equal(got["w"].kn.numpy(), _np(w))
-        nk = got["w"].nk.numpy()
-        assert nk.shape == (lp.n, -(-lp.k // K_ALIGN) * K_ALIGN)
+        nk = got["w"].nk32.numpy()
+        assert nk.shape == (lp.n, -(-lp.k // K_ALIGN_MMA) * K_ALIGN_MMA)
         np.testing.assert_array_equal(nk[:, :lp.k], _np(w).T)
         assert not nk[:, lp.k:].any()
         if "thr" in want:
@@ -101,8 +101,8 @@ def test_weight_matrix_layouts():
     kn = torch.from_numpy(np.random.default_rng(1).integers(
         -3, 4, size=(27, 5)).astype(np.int8))
     w = weight_matrix(kn)
-    assert w.nk.shape == (5, 32) and w.nk.is_contiguous()
-    assert torch.equal(w.nk[:, :27].t(), kn) and not w.nk[:, 27:].any()
+    assert w.nk32.shape == (5, 32) and w.nk32.is_contiguous()
+    assert torch.equal(w.nk32[:, :27].t(), kn) and not w.nk32[:, 27:].any()
     with pytest.raises(TypeError):
         weight_matrix(kn.to(torch.int32))
 
