@@ -76,7 +76,21 @@ Phases (every check raises, so any failure exits non-zero):
    round trip's p50/p99 over 50 POSTs), a Frontend over a "mega" and a
    "direct" HTTP backend answering 64 requests, `cli bench --classify` at
    batch 1024, and a BatchingServer with the upload stage answering 68
-   requests.
+   requests;
+16. training on the card (bnn_pynq_tpu_torch/train/, float32 with TF32
+   off): one epoch of CNV-W1A1 at its published widths on the synthetic
+   CIFAR-10 set at the preset batch of 50 (81 steps), every parameter and
+   buffer on the card, the loss finite and falling from its first to its
+   last 10 steps, the quantized kernels within [-1, 1], steps/s and
+   images/s (and of a second epoch timed alone); three steps on the card
+   against the same steps on the CPU from the same state (losses, batch
+   statistics and gradients within the tolerances stated at
+   STEP_LOSS_RTOL, the parameters within STEP_PARAM_ATOL of the CPU's Adam
+   applied to the card's gradients); the checkpoint read back equal, compiled, and served on
+   `mega` by conv_chain, dense_block and fused_mlp (counted launches, no
+   plain call) equal to runtime="ref" on the card, the float model's
+   accuracy beside the engine's; LFC-W1A2 and CNV-W2A2 trained 10 steps and
+   served the same way; `cli train` → `compile` → `eval` on the card.
 
 Beside each kernel's time stands its bound: the least time the card could
 take for the same work, the larger of operations / peak rate and bytes /
@@ -1029,6 +1043,339 @@ def _serving_entry_points(torch, images, counters):
     assert server.upload_pipeline, "the upload stage was off"
 
 
+# Phase 16's tolerances (the precision of bnn_pynq_tpu_torch/train/trainer.py:
+# float32 with TF32 off). A step on the card against the same step on the
+# CPU, each from the same state: the losses within STEP_LOSS_RTOL; the
+# batch statistics within STEP_STATS_TOL; each gradient within _grad_delta
+# of the CPU's; the card's parameters within STEP_PARAM_ATOL of the CPU's
+# trainer.Adam applied to the card's gradients (float32 rounding of Adam's
+# arithmetic, whose updates here are at most ~0.03). The float model's
+# argmax against the integer engine's on the 1024 test images: at most
+# FLOAT_ENGINE_DIFFER images differ.
+STEP_LOSS_RTOL = 1e-5
+STEP_STATS_TOL = dict(rtol=1e-4, atol=1e-6)
+STEP_PARAM_ATOL = 1e-6
+FLOAT_ENGINE_DIFFER = 2
+
+
+def _grad_delta(g):
+    """How far a card gradient may lie from the CPU's: 1e-4 relative plus
+    1e-4 of the layer's largest gradient. Against float64 on an H100
+    (PERF.md §6) cuDNN's float32 weight gradients are off by up to 4.5e-5
+    of the layer's largest (conv1), the CPU's by 3.8e-6; with TF32 on they
+    are off by 4.2e-4 to 6.7e-4."""
+    return 1e-4 * np.abs(g) + 1e-4 * np.abs(g).max()
+
+
+def _card_vs_cpu(torch, cfg, ds):
+    """Three train steps of CNV-W1A1 at batch 50 on the card and on the
+    CPU, each from the same state (the card takes the CPU's after each).
+    Both sides run trainer.Adam, which the CPU tests hold to optax; Adam
+    turns a gradient of rounding noise into a full step, so the parameters
+    are held through the gradients: each card gradient within _grad_delta
+    of the CPU's, and the card's parameters within STEP_PARAM_ATOL of the
+    CPU's Adam applied to the card's gradients. Returns the largest
+    differences, each also as a share of its tolerance (`*_ratio`, within
+    tolerance at <= 1), the leaf where that share was largest, and the
+    parameters' raw difference from the CPU's step (`param`,
+    `beyond_1e-6`)."""
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    from bnn_pynq_tpu_torch.train import model as tmodel
+    from bnn_pynq_tpu_torch.train import trainer
+
+    class KeepGrads(trainer.Adam):
+        """trainer.Adam that keeps its last gradients, on the CPU."""
+
+        def update(self, grads):
+            self.grads = [g.detach().cpu() for g in grads]
+            super().update(grads)
+
+    idx = np.random.default_rng(3).permutation(len(ds.x_train))[:150]
+    x = torch.from_numpy(data_mod.train_inputs(
+        cfg.dataset, ds.x_train[idx], cfg.input_kind))
+    y = torch.from_numpy(ds.y_train[idx].astype(np.int64))
+    start = tmodel.QuantNet(
+        cfg, generator=torch.Generator().manual_seed(1)).variables()
+    sides = {}
+    for dev in ("cuda", "cpu", "check"):
+        m = tmodel.QuantNet(cfg).to("cpu" if dev == "check" else dev)
+        m.load_variables(start["params"], start["batch_stats"])
+        tx = KeepGrads(m, 81, 1e-3, 1e-6)
+        sides[dev] = (m, tx, trainer.make_train_step(cfg, m, tx))
+    (mc, txc, step_c), (m0, tx0, step_0) = sides["cuda"], sides["cpu"]
+    mk, txk, _ = sides["check"]
+    names = [n for n, _ in m0.named_parameters()]
+    worst = {"loss_rel": 0.0, "stats": 0.0, "stats_ratio": 0.0,
+             "grad_ratio": 0.0, "grad_leaf": "", "adam": 0.0,
+             "adam_ratio": 0.0, "param": 0.0, "beyond_1e-6": 0}
+
+    def note(key, value, leaf_key=None, leaf=""):
+        if value > worst[key]:
+            worst[key] = value
+            if leaf_key:
+                worst[leaf_key] = leaf
+
+    for s in range(3):
+        xb, yb = x[50 * s:50 * (s + 1)], y[50 * s:50 * (s + 1)]
+        lc = float(step_c(xb.cuda(), yb.cuda()))
+        l0 = float(step_0(xb, yb))
+        txk.update(txc.grads)
+        note("loss_rel", abs(lc - l0) / abs(l0) if np.isfinite(lc)
+             else np.inf)
+        vc, v0, vk = mc.variables(), m0.variables(), mk.variables()
+        for layer, leaves in v0["batch_stats"].items():
+            for leaf, want in leaves.items():
+                d = np.abs(vc["batch_stats"][layer][leaf] - want)
+                note("stats", float(d.max()))
+                note("stats_ratio", float((d / (
+                    STEP_STATS_TOL["atol"] + STEP_STATS_TOL["rtol"]
+                    * np.abs(want))).max()))
+        for i, name in enumerate(names):
+            _, layer, leaf = name.split(".")
+            g = tx0.grads[i].double().numpy()
+            gc = txc.grads[i].double().numpy()
+            note("grad_ratio", float((np.abs(gc - g) / _grad_delta(g)).max()),
+                 "grad_leaf", f"step {s} {layer}/{leaf}")
+            got = vc["params"][layer][leaf]
+            note("adam", float(np.abs(got - vk["params"][layer][leaf]).max()))
+            d = np.abs(got - v0["params"][layer][leaf])
+            note("param", float(d.max()))
+            worst["beyond_1e-6"] += int((d > 1e-6).sum())
+        # the next step starts from the CPU's state on every side
+        for m, tx in ((mc, txc), (mk, txk)):
+            m.load_variables(v0["params"], v0["batch_stats"])
+            with torch.no_grad():
+                for a, b in zip(tx.mu + tx.nu, tx0.mu + tx0.nu):
+                    a.copy_(b)
+    worst["adam_ratio"] = worst["adam"] / STEP_PARAM_ATOL
+    return worst
+
+
+def _serve_trained(torch, compiled, images, counters, want_kernels):
+    """A freshly compiled artifact on `mega` with runtime="kernels" on the
+    card: the wanted kernels launched (counted), no plain version called,
+    logits equal runtime="ref" on the card, argmax equal. Returns the
+    engine's classes and launches."""
+    from bnn_pynq_tpu_torch.ops import conv_stack, fused_mlp
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(compiled, device="cuda", route="mega")
+    want = InferenceEngine(compiled, device="cuda",
+                           runtime="ref").logits(images)
+    plain_calls = []
+    saved = (conv_stack.conv_chain_plain, conv_stack.dense_block_plain,
+             fused_mlp.fused_mlp_forward_plain)
+
+    def counted(fn):
+        return lambda *a, **kw: plain_calls.append(1) or fn(*a, **kw)
+
+    (conv_stack.conv_chain_plain, conv_stack.dense_block_plain,
+     fused_mlp.fused_mlp_forward_plain) = (counted(f) for f in saved)
+    try:
+        for c in counters.values():
+            c.reset()
+        got = eng.logits(images)
+        pred = eng.classify(images)
+        torch.cuda.synchronize()
+        launches = {k: c.value for k, c in counters.items()}
+    finally:
+        (conv_stack.conv_chain_plain, conv_stack.dense_block_plain,
+         fused_mlp.fused_mlp_forward_plain) = saved
+    assert not plain_calls, "a trained artifact ran a plain version"
+    for k in want_kernels:
+        assert launches[k] > 0, f"the trained artifact never launched {k}"
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert (got.argmax(1) == want.argmax(1)).all() and \
+        (pred == want.argmax(1)).all(), "argmax differs from ref"
+    return pred, launches, float(np.abs(got - want).max())
+
+
+def _float_predictions(torch, cfg, result, x_uint8):
+    """The float model's classes on the card, from the trained params."""
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    from bnn_pynq_tpu_torch.train import model as tmodel
+    from bnn_pynq_tpu_torch.train import trainer
+
+    model = tmodel.QuantNet(cfg).to("cuda")
+    model.load_variables(result.params, result.batch_stats)
+    logits_fn = trainer.make_eval_fn(cfg, model)
+    x = torch.from_numpy(data_mod.train_inputs(
+        cfg.dataset, x_uint8, cfg.input_kind)).cuda()
+    return logits_fn(x).argmax(-1).cpu().numpy()
+
+
+def _step_profile(torch, step, x, y, wall_ms, steps=10):
+    """Device time of one train step by kernel (torch.profiler over
+    `steps` steps), and its share of the step's wall time `wall_ms`."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(x, y)
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
+            launches += 1
+    assert by_name, "the profiler's trace holds no device event"
+    device_ms = sum(by_name.values())
+    top = "; ".join(f"{ms:.4f} {name[:60]}"
+                    for name, ms in by_name.most_common(5))
+    print(f"train step profile ({steps} steps): device {device_ms:.4f} ms "
+          f"per step in {launches / steps:g} launches, "
+          f"{100 * device_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms wall "
+          f"step; top kernels (ms per step): {top}")
+
+
+def _training_phase(torch, counters):
+    """Phase 16: training on the card, and what it trained served by the
+    kernels."""
+    import tempfile
+
+    from bnn_pynq_tpu_torch import cli
+    from bnn_pynq_tpu_torch.compiler import compile_network
+    from bnn_pynq_tpu_torch.models.config import get_config
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    from bnn_pynq_tpu_torch.train import trainer
+
+    cfg = get_config("cnv-w1a1")
+    ds = data_mod.load(cfg.dataset)
+    preset = trainer.preset_for(cfg)
+    print(f"training precision: float32, TF32 off inside the trainer "
+          f"(outside it cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})")
+    with tempfile.TemporaryDirectory() as tmp:
+        # 16.1 one epoch of CNV-W1A1 at its published widths
+        ckpt = os.path.join(tmp, "cnv-w1a1-checkpoint.npz")
+        result = trainer.train(
+            cfg, ds, epochs=1, batch_size=preset["batch_size"],
+            lr_start=preset["lr_start"], lr_end=preset["lr_end"], seed=0,
+            checkpoint_path=ckpt, device="cuda")
+        model = result.model
+        tensors = list(model.parameters()) + list(model.buffers())
+        assert all(t.device.type == "cuda" for t in tensors), \
+            "a parameter or buffer of the trained model is not on the card"
+        hist = result.history[0]
+        losses = np.asarray(hist["losses"])
+        steps = len(losses)
+        assert steps == len(ds.x_train) // preset["batch_size"], steps
+        assert np.isfinite(losses).all(), "non-finite training loss"
+        assert losses[-10:].mean() < losses[:10].mean(), \
+            f"loss did not fall: {losses[:10].mean()} → {losses[-10:].mean()}"
+        for layer, leaves in result.params.items():
+            if layer.startswith("quant_"):
+                assert np.abs(leaves["kernel"]).max() <= 1.0, layer
+        bs = preset["batch_size"]
+        print(f"train cnv-w1a1 on the card: 1 epoch, {steps} steps at batch "
+              f"{bs}, loss {losses[:10].mean():.4f} (first 10 steps) → "
+              f"{losses[-10:].mean():.4f} (last 10), val acc "
+              f"{result.best_val_acc:.4f}; {hist['seconds']:.2f} s with "
+              f"first-use set-up: {steps / hist['seconds']:.1f} steps/s, "
+              f"{steps * bs / hist['seconds']:.1f} images/s (host clock)")
+        x_dev = torch.from_numpy(data_mod.train_inputs(
+            cfg.dataset, ds.x_train, cfg.input_kind)).cuda()
+        y_dev = torch.from_numpy(ds.y_train.astype(np.int64)).cuda()
+        tx = trainer.Adam(model, steps, preset["lr_start"], preset["lr_end"])
+        epoch = trainer.make_epoch_fn(cfg, model, tx, steps, bs)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = epoch(x_dev, y_dev, gen).cpu().numpy()
+        dt = time.perf_counter() - t0
+        assert np.isfinite(timed).all()
+        print(f"train cnv-w1a1 on the card, a second epoch timed alone: "
+              f"{dt:.3f} s, {steps / dt:.1f} steps/s, "
+              f"{steps * bs / dt:.1f} images/s (host clock, ends in the "
+              f"loss fetch)")
+        _step_profile(torch, trainer.make_train_step(cfg, model, tx),
+                      x_dev[:bs], y_dev[:bs], dt / steps * 1e3)
+        del x_dev, y_dev, tx, epoch
+
+        # 16.2 the same steps on the card and on the CPU
+        worst = _card_vs_cpu(torch, cfg, ds)
+        print(f"card vs CPU, 3 steps of cnv-w1a1 at batch 50 from the same "
+              f"state: largest differences {json.dumps(worst)}")
+        assert worst["loss_rel"] <= STEP_LOSS_RTOL, worst
+        for key in ("stats_ratio", "grad_ratio", "adam_ratio"):
+            assert worst[key] <= 1.0, (key, worst)
+
+        # 16.3 serve what was trained
+        params, stats, meta = trainer.load_checkpoint(ckpt)
+        for kind, got, want in (("params", params, result.params),
+                                ("batch_stats", stats, result.batch_stats)):
+            for layer, leaves in want.items():
+                for leaf, arr in leaves.items():
+                    assert np.array_equal(got[layer][leaf], arr), \
+                        f"checkpoint {kind}/{layer}/{leaf}"
+        assert str(meta["config"]) == cfg.name
+        compiled = compile_network(cfg, params, stats)
+        pred, launches, err = _serve_trained(
+            torch, compiled, ds.x_test, counters,
+            ("conv_chain", "dense_block", "fused_mlp"))
+        fpred = _float_predictions(torch, cfg, result, ds.x_test)
+        differ = int((fpred != pred).sum())
+        facc = float((fpred == ds.y_test).mean())
+        eacc = float((pred == ds.y_test).mean())
+        print(f"trained cnv-w1a1 served on mega (kernels, the card): "
+              f"launches {launches}, no plain call, logits == ref (max "
+              f"|diff| {err:.3g}), argmax equal; accuracy on the "
+              f"{len(pred)} test images: float model {facc:.4f}, engine "
+              f"{eacc:.4f}, argmax differs on {differ}")
+        assert differ <= FLOAT_ENGINE_DIFFER, \
+            f"float model and engine differ on {differ} images"
+
+        # 16.4 the 2-bit quantizer on both sides
+        for name, want_kernels in (("lfc-w1a2", ("fused_mlp",)),
+                                   ("cnv-w2a2", ("conv_chain", "dense_block",
+                                                 "fused_mlp"))):
+            c2 = get_config(name)
+            d2 = data_mod.load(c2.dataset)
+            p2 = trainer.preset_for(c2)
+            r2 = trainer.train(c2, d2, epochs=1, batch_size=p2["batch_size"],
+                               lr_start=p2["lr_start"], lr_end=p2["lr_end"],
+                               max_train=10 * p2["batch_size"], device="cuda")
+            assert len(r2.history[0]["losses"]) == 10
+            assert np.isfinite(r2.history[0]["losses"]).all()
+            pred2, launches2, err2 = _serve_trained(
+                torch, compile_network(c2, r2.params, r2.batch_stats),
+                d2.x_test, counters, want_kernels)
+            differ2 = int((_float_predictions(torch, c2, r2, d2.x_test)
+                           != pred2).sum())
+            print(f"trained {name} (10 steps) served on mega: launches "
+                  f"{launches2}, no plain call, logits == ref (max |diff| "
+                  f"{err2:.3g}), argmax equal; float model and engine "
+                  f"argmax differ on {differ2} of {len(pred2)}")
+            assert differ2 <= FLOAT_ENGINE_DIFFER, \
+                f"{name}: float model and engine differ on {differ2} images"
+
+        # 16.5 the CLI end to end on the card
+        out_dir = os.path.join(tmp, "cli")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            cli.main(["train", "cnv-w1a1", "--epochs", "1", "--device",
+                      "cuda", "--out", out_dir])
+            cli.main(["compile", os.path.join(out_dir,
+                                              "cnv-w1a1-checkpoint.npz"),
+                      "--out", os.path.join(out_dir, "compiled.npz")])
+            cli.main(["eval", os.path.join(out_dir, "compiled.npz"),
+                      "--device", "cuda"])
+        lines = log.getvalue().splitlines()
+        assert any(line.startswith("artifact: ") for line in lines)
+        ev = json.loads(lines[-1])
+        assert ev["network"] == "cnv-w1a1" and ev["n_test"] == len(ds.x_test)
+        print(f"cli train → compile → eval on the card: "
+              f"{lines[0]}; {json.dumps(ev)}")
+
+
 def main() -> int:
     import torch
 
@@ -1304,6 +1651,9 @@ def main() -> int:
 
     # -- 15. the serving entry points on the card -------------------------
     _serving_entry_points(torch, images, counters)
+
+    # -- 16. training on the card, served by the kernels --------------------
+    _training_phase(torch, counters)
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
