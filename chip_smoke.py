@@ -90,7 +90,34 @@ Phases (every check raises, so any failure exits non-zero):
    `mega` by conv_chain, dense_block and fused_mlp (counted launches, no
    plain call) equal to runtime="ref" on the card, the float model's
    accuracy beside the engine's; LFC-W1A2 and CNV-W2A2 trained 10 steps and
-   served the same way; `cli train` → `compile` → `eval` on the card.
+   served the same way; `cli train` → `compile` → `eval` on the card;
+17. tensor-parallel inference (bnn_pynq_tpu_torch/parallel/): first
+   packed_matmul (every arm), conv2d_direct (int32 out on input-channel
+   shards, and thresholded) and conv_chain (one layer on the raw image)
+   against their plain versions at the shard widths the engines give them;
+   then, in a world of one rank on NCCL (mesh (1, 1)), TPInferenceEngine
+   on 'vpu' and 'mxu' (8 packed_matmul launches a forward) and
+   OverlapTPEngine ring, blocking and 'auto' (conv_chain 1, conv2d_direct
+   5) classifying the 1024 images of phase 4, equal to the single-card
+   engine (classes exactly, logits within rtol=atol=1e-5), with no plain
+   call; then in a world of two ranks sharing the card over gloo, meshes
+   (1, 2) and (2, 1) on CNV-W1A1 and LFC-W1A1, both engines, every arm, each
+   rank's launches and collectives counted, and a BatchingServer on rank 0
+   answering 68 requests while rank 1 follows, with the parameters swapped
+   live after 64. Each configuration's ms per forward is printed beside
+   the card's name and power limit; two ranks on one card, whose gloo
+   collectives go through the host, give no scaling figure. A world past
+   its deadline (PARALLEL_DEADLINE_S) fails the run; phase 17.0 also holds
+   the three kernels against their plain versions at the row counts that
+   path gives them (batch 1024, and 512 a rank on (2, 1)).
+
+    python3 chip_smoke.py --spread  # a host with two or more cards
+
+runs, after phase 1, only a gloo world of two ranks a card over every
+card, mesh (2, cards): each rank computes on the card make_mesh gave it
+(its current device too, which the launchers use), and TPInferenceEngine
+'vpu' and OverlapTPEngine ring and blocking on CNV-W1A1 equal the
+single-card engine on that card.
 
 Beside each kernel's time stands its bound: the least time the card could
 take for the same work, the larger of operations / peak rate and bytes /
@@ -1376,8 +1403,481 @@ def _training_phase(torch, counters):
               f"{lines[0]}; {json.dumps(ev)}")
 
 
-def main() -> int:
+# -- phase 17: tensor-parallel inference ------------------------------------
+
+# what the ranks of phase 17 may take: a world past it fails the run
+PARALLEL_DEADLINE_S = 300
+
+
+def _shard_shape_cases(torch, device):
+    """Phase 17.0: packed_matmul, conv2d_direct (int32 out) and conv_chain
+    (one layer on the raw image) against their plain versions at the shard
+    shapes the parallel engines give them, widths no earlier phase held:
+    output shards N/m of CNV at m = 2, 4, 8 and of the mini nets
+    (tests/test_finnthesizer.py) at m = 2, 4, 8; input-channel shards Cs =
+    2-128 on the ring's conv2d_direct. Exact, or the phase raises."""
+    from bnn_pynq_tpu_torch.models.params import weight_matrix
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, matmul
+    from bnn_pynq_tpu_torch.ops.packing import pack_bits, pack_codes2
+
+    rng = np.random.default_rng(17)
+    n_cases = 0
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def thr_for(k, n, nthr):
+        return dev(np.sort(rng.integers(-k // 3, k // 3 + 1,
+                                        size=(nthr, n)), axis=0)
+                   .astype(np.int32))
+
+    # packed_matmul: (K, N/m) of CNV-W1A1 m=2 (conv1 64->32 ... dense 256)
+    # and the shards at m=4, 8 and of the mini nets
+    for k, n in ((576, 32), (576, 64), (1152, 64), (1152, 128), (2304, 128),
+                 (256, 256), (512, 256), (576, 16), (1152, 32), (576, 8),
+                 (144, 16), (144, 8), (144, 4), (128, 12), (128, 6),
+                 (24, 3), (16, 2), (784, 512), (1024, 256), (1024, 128)):
+        for bits, route in ((1, "vpu"), (1, "mxu"), (2, "mxu")):
+            vals = rng.integers(0, 2 if bits == 1 else 4, size=(1000, k))
+            wv = rng.integers(0, 2 if bits == 1 else 4, size=(k, n))
+            pack = pack_bits if bits == 1 else pack_codes2
+            a = pack(dev(vals.astype(np.int8)), axis=-1)
+            w = pack(dev(wv.astype(np.int8)), axis=0).contiguous()
+            thr = thr_for(k, n, 1 if bits == 1 else 3)
+            for t in (thr, None):
+                got = matmul.packed_matmul(a, w, t, k=k, bits=bits,
+                                           route=route)
+                want = matmul.packed_matmul_plain(a, w, t, k=k, bits=bits,
+                                                  route=route)
+                assert torch.equal(got, want), \
+                    f"packed_matmul {route} K={k} N={n} shard != plain"
+                n_cases += 1
+
+    # conv2d_direct, int32 epilogue, on C-shards (the ring's step) and
+    # thresholded on whole C (the blocking arm); (H, Cs, N/m)
+    for hw, cs, n, abits in ((30, 32, 32, 1), (14, 32, 64, 1),
+                             (12, 64, 64, 1), (5, 64, 128, 1),
+                             (3, 128, 128, 1), (28, 16, 16, 1),
+                             (12, 32, 32, 1), (8, 8, 16, 1), (4, 4, 8, 1),
+                             (4, 2, 4, 1), (4, 8, 16, 2), (4, 2, 4, 2),
+                             (12, 32, 64, 2)):
+        x = dev(rng.integers(0, 2 ** abits, size=(16, hw, hw, cs))
+                .astype(np.int8))
+        levels = rng.choice([-1, 1], size=(9 * cs, n)).astype(np.int8)
+        w = weight_matrix(dev(levels))
+        for t in (None, thr_for(9 * cs, n, 2 ** abits - 1)):
+            got = conv_direct.conv2d_direct(x, w, t, kernel=3, abits=abits)
+            want = conv_direct.conv2d_direct_plain(x, w, t, kernel=3,
+                                                   abits=abits)
+            assert torch.equal(got, want), \
+                f"conv2d_direct H={hw} Cs={cs} N={n} shard != plain"
+            n_cases += 1
+
+    # conv_chain, one layer on the raw image, the first conv's column shard
+    for shape, n, abits in (((16, 32, 32, 3), 32, 1), ((16, 32, 32, 3), 16, 1),
+                            ((16, 32, 32, 3), 8, 2), ((8, 10, 10, 3), 8, 1),
+                            ((8, 10, 10, 3), 4, 1), ((8, 10, 10, 3), 2, 2)):
+        x = dev(rng.integers(-128, 128, size=shape).astype(np.int8))
+        w = weight_matrix(dev(rng.choice([-1, 1], size=(27, n))
+                              .astype(np.int8)))
+        t = thr_for(27 * 128, n, 2 ** abits - 1)
+        got = conv_stack.conv_chain(x, [w], [t], kernel=3, abits=abits,
+                                    input_levels=True)
+        want = conv_stack.conv_chain_plain(x, [w], [t], kernel=3,
+                                           abits=abits, input_levels=True)
+        assert torch.equal(got, want), \
+            f"conv_chain first layer N={n} shard != plain"
+        n_cases += 1
+    return n_cases
+
+
+def _path_row_cases(torch, device):
+    """Phase 17.0, second part: the same kernels at the row counts the
+    path of phase 17b gives them (batch 1024 on mesh (1, 2), 512 a rank on
+    (2, 1)), whose launchers pick their plans by M: every packed_matmul of
+    TPInferenceEngine 'vpu' on CNV-W1A1 and LFC-W1A1 (the epilogue the
+    layer has), and on CNV-W1A1 OverlapTPEngine's first conv (conv_chain)
+    and its conv2d_direct calls, the ring's int32 step on a C-shard and
+    the thresholded call on whole C. Seeded inputs on the card; exact, or
+    the phase raises."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.network import make_plan
+    from bnn_pynq_tpu_torch.models.params import weight_matrix
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, matmul
+    from bnn_pynq_tpu_torch.ops.packing import pack_bits
+
+    gen = torch.Generator(device=device).manual_seed(171)
+    done = set()
+
+    def rand(shape, lo, hi, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=dtype)
+
+    def thr_for(n, sd):
+        return rand((1, n), -sd, sd + 1, torch.int32)
+
+    def check(key, got_fn, want_fn):
+        if key in done:
+            return
+        done.add(key)
+        assert torch.equal(got_fn(), want_fn()), f"{key} != plain"
+
+    for name, meshes in (("cnv-w1a1", ((1, 2), (2, 1))),
+                         ("lfc-w1a1", ((1, 2),))):
+        config = load_artifact(_artifact(name)).config
+        for data, model in meshes:
+            b = BATCH // data
+            h, w, _ = config.input_shape
+            for lp in make_plan(config):
+                if lp.kind == "pool":
+                    h, w = h // lp.window, w // lp.window
+                    continue
+                n = lp.n if lp.last else lp.n // model
+                levels = rand((lp.k, n), 0, 2) * 2 - 1
+                thr = None if lp.last else thr_for(n, int(lp.k ** .5))
+                if lp.kind == "conv_int8":      # OverlapTPEngine's conv 0
+                    x = rand((b, h, w, lp.k // lp.kernel ** 2), -128, 128)
+                    wm, thr0 = weight_matrix(levels), [thr_for(n, 74 * 6)]
+                    check(("conv_chain", tuple(x.shape), n),
+                          lambda: conv_stack.conv_chain(
+                              x, [wm], thr0, kernel=lp.kernel, abits=1,
+                              input_levels=True),
+                          lambda: conv_stack.conv_chain_plain(
+                              x, [wm], thr0, kernel=lp.kernel, abits=1,
+                              input_levels=True))
+                elif lp.kind == "conv":
+                    c = lp.k // lp.kernel ** 2
+                    ring = [(c // model, None)] if model > 1 else []
+                    for cs, t in ring + [(c, thr)]:
+                        x = rand((b, h, w, cs), 0, 2)
+                        wm = weight_matrix(levels[:lp.kernel ** 2 * cs])
+                        check(("conv2d_direct", tuple(x.shape), n, t is None),
+                              lambda: conv_direct.conv2d_direct(
+                                  x, wm, t, kernel=lp.kernel, abits=1),
+                              lambda: conv_direct.conv2d_direct_plain(
+                                  x, wm, t, kernel=lp.kernel, abits=1))
+                if lp.kind != "conv_int8":      # TPInferenceEngine 'vpu'
+                    h2 = (h - lp.kernel) // lp.stride + 1 if lp.kernel else 1
+                    w2 = (w - lp.kernel) // lp.stride + 1 if lp.kernel else 1
+                    a = pack_bits(rand((b * h2 * w2, lp.k), 0, 2), axis=-1)
+                    wp = pack_bits(levels.clamp(min=0), axis=0).contiguous()
+                    check(("packed_matmul", a.shape[0], lp.k, n, thr is None),
+                          lambda: matmul.packed_matmul(
+                              a, wp, thr, k=lp.k, bits=1, route="vpu"),
+                          lambda: matmul.packed_matmul_plain(
+                              a, wp, thr, k=lp.k, bits=1, route="vpu"))
+                if lp.kernel:
+                    h = (h - lp.kernel) // lp.stride + 1
+                    w = (w - lp.kernel) // lp.stride + 1
+    return len(done)
+
+
+def _count_plain():
+    """In a rank: count every call of the path's plain versions (a CUDA
+    tensor must never reach one)."""
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, matmul
+    calls = []
+    for mod, name in ((matmul, "packed_matmul_plain"),
+                      (conv_direct, "conv2d_direct_plain"),
+                      (conv_stack, "conv_chain_plain")):
+        fn = getattr(mod, name)
+        setattr(mod, name, lambda *a, _fn=fn, _name=name, **kw:
+                calls.append(_name) or _fn(*a, **kw))
+    return calls
+
+
+def _path_launches():
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, matmul
+    out = {f"packed_matmul[{r}]": c.value
+           for r, c in matmul.packed_matmul.launches.items()}
+    out["conv_chain"] = conv_stack.conv_chain.launches.value
+    out["conv2d_direct"] = conv_direct.conv2d_direct.launches.value
+    return out
+
+
+def _reset_path_launches():
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, matmul
+    for c in matmul.packed_matmul.launches.values():
+        c.reset()
+    conv_stack.conv_chain.launches.reset()
+    conv_direct.conv2d_direct.launches.reset()
+
+
+def _held(torch, label, eng, x, want_logits, want_cls):
+    """Classify x (uint8) on a parallel engine with the launches and the
+    collectives counted around it, then logits; both against the
+    single-card engine's. Returns the row of this configuration."""
+    from bnn_pynq_tpu_torch.parallel import comm
+    from bnn_pynq_tpu_torch.parallel.overlap import elapsed_s
+    _reset_path_launches()
+    comm.reset_counts()
+    got_cls = eng.classify(x, prepared=False)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _path_launches().items() if v}
+    counts = {k: v for k, v in comm.counts().items() if v}
+    got = eng.logits(x, prepared=False)
+    assert np.array_equal(got_cls, want_cls), f"{label}: classes differ"
+    np.testing.assert_allclose(got, want_logits, **TOL, err_msg=label)
+    xd = eng.upload(eng._pad_to_bucket(eng.prepare(x))[0])
+    eng.launch_prepared(xd)
+    ms = elapsed_s(lambda: eng.launch_prepared(xd), 3, eng.device) * 1e3
+    return {"label": label, "launches": launches, "collectives": counts,
+            "max_abs_err": float(np.abs(got - want_logits).max()),
+            "ms": ms}
+
+
+def _parallel_one_rank(images):
+    """Phase 17a, in a world of one rank on NCCL: mesh (1, 1), every
+    engine at the published widths of CNV-W1A1 against the single-card
+    engine on the same route."""
     import torch
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    from bnn_pynq_tpu_torch.parallel.tp import TPInferenceEngine
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+
+    plain = _count_plain()
+    mesh = make_mesh(data=1, model=1)
+    assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+    compiled = load_artifact(_artifact("cnv-w1a1"))
+    rows = []
+    for route in ("vpu", "mxu"):
+        single = InferenceEngine(compiled, device="cuda", route=route)
+        row = _held(torch, f"cnv-w1a1 TPInferenceEngine {route} (1,1)",
+                    TPInferenceEngine(compiled, mesh, route=route), images,
+                    single.logits(images), single.classify(images))
+        assert row["launches"] == {f"packed_matmul[{route}]": 8}, row
+        rows.append(row)
+    mega = InferenceEngine(compiled, device="cuda")
+    want = mega.logits(images), mega.classify(images)
+    for arm in ("ring", "blocking", "auto"):
+        eng = OverlapTPEngine(compiled, mesh, arm=arm)
+        row = _held(torch, f"cnv-w1a1 OverlapTPEngine {eng.arm} (1,1)"
+                    + (" auto" if arm == "auto" else ""), eng, images, *want)
+        assert row["launches"] == {"conv_chain": 1, "conv2d_direct": 5}, row
+        if arm == "auto":
+            row["arm_reason"] = eng.arm_reason
+        rows.append(row)
+    assert not plain, f"plain versions called: {sorted(set(plain))}"
+    return {"rows": rows, "backend": mesh.backend, "device": str(mesh.device)}
+
+
+def _parallel_two_ranks(images, mnist):
+    """Phase 17b, in a world of two ranks sharing one card over gloo:
+    meshes (1, 2) and (2, 1), both engines, both arms and 'auto', against
+    the single-card engine; then a BatchingServer on rank 0 with rank 1
+    following, and a hot swap mid-serve."""
+    import torch
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    from bnn_pynq_tpu_torch.parallel.tp import TPInferenceEngine
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+
+    plain = _count_plain()
+    mesh12 = make_mesh(data=1, model=2)
+    mesh21 = make_mesh(data=2, model=1)
+    assert mesh12.backend == "gloo" and mesh12.device == torch.device(
+        "cuda", 0)
+    rows = []
+    for name, x in (("cnv-w1a1", images), ("lfc-w1a1", mnist)):
+        compiled = load_artifact(_artifact(name))
+        single = InferenceEngine(compiled, device="cuda")
+        want = single.logits(x), single.classify(x)
+        for shape, mesh in (("(1,2)", mesh12), ("(2,1)", mesh21)):
+            if name == "lfc-w1a1" and shape == "(2,1)":
+                continue
+            engines = [("TPInferenceEngine vpu",
+                        TPInferenceEngine(compiled, mesh, route="vpu"))]
+            engines += [(f"OverlapTPEngine {arm}",
+                         OverlapTPEngine(compiled, mesh, arm=arm))
+                        for arm in (("ring", "blocking", "auto")
+                                    if shape == "(1,2)" else ("ring",))]
+            for label, eng in engines:
+                row = _held(torch, f"{name} {label} {shape}", eng, x, *want)
+                if label.startswith("TP"):
+                    assert row["launches"] == {"packed_matmul[vpu]": 8
+                                               if name == "cnv-w1a1" else 4}
+                elif name == "cnv-w1a1":
+                    m = mesh.shape["model"]
+                    steps = m if getattr(eng, "arm", "") == "ring" else 1
+                    assert row["launches"] == {
+                        "conv_chain": 1, "conv2d_direct": 5 * steps}, row
+                if label.endswith("auto"):
+                    row["arm"], row["arm_reason"] = eng.arm, eng.arm_reason
+                rows.append(row)
+    served = _serve_following(mesh12, images)
+    assert not plain, f"plain versions called: {sorted(set(plain))}"
+    return {"rows": rows, "served": served, "backend": mesh12.backend,
+            "device": str(mesh12.device)}
+
+
+def _parallel_spread(images):
+    """--spread, in each rank of a gloo world of two ranks a card over
+    every card: the rank's current device is its mesh device, and both
+    engines on mesh (2, cards) equal the single-card engine there."""
+    import torch
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    from bnn_pynq_tpu_torch.parallel.tp import TPInferenceEngine
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+
+    plain = _count_plain()
+    mesh = make_mesh(data=2)
+    assert mesh.backend == "gloo", mesh.backend
+    current = torch.cuda.current_device()
+    assert current == mesh.device.index, \
+        f"current device cuda:{current}, mesh device {mesh.device}"
+    compiled = load_artifact(_artifact("cnv-w1a1"))
+    single = InferenceEngine(compiled, device=mesh.device)
+    want = single.logits(images), single.classify(images)
+    shape = f"({mesh.shape['data']},{mesh.shape['model']})"
+    rows = [_held(torch, f"cnv-w1a1 {label} {shape}", eng, images, *want)
+            for label, eng in (
+                ("TPInferenceEngine vpu",
+                 TPInferenceEngine(compiled, mesh, route="vpu")),
+                ("OverlapTPEngine ring", OverlapTPEngine(compiled, mesh)),
+                ("OverlapTPEngine blocking",
+                 OverlapTPEngine(compiled, mesh, arm="blocking")))]
+    assert not plain, f"plain versions called: {sorted(set(plain))}"
+    return {"rows": rows, "device": str(mesh.device)}
+
+
+def _spread_phase(torch, smi):
+    """--spread: the world of `_parallel_spread` over every card."""
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"--spread needs two cards or more, have {cards}")
+    images = np.random.default_rng(1).integers(
+        0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    res = run_world(_parallel_spread, 2 * cards, args=(images,),
+                    device="cuda", timeout=PARALLEL_DEADLINE_S)
+    devices = [r["device"] for r in res]
+    assert devices == [f"cuda:{r % cards}" for r in range(2 * cards)], devices
+    print(f"parallel spread: a gloo world of {2 * cards} ranks over "
+          f"{cards} cards (two a card) in {time.perf_counter() - t0:.1f} s; "
+          f"rank devices {devices}")
+    for rank, out in enumerate(res):
+        for row in out["rows"]:
+            print(f"  [rank {rank}, {out['device']}] {row['label']}: logits "
+                  f"== single-card engine (max |diff| "
+                  f"{row['max_abs_err']:.3g}), classes equal; launches per "
+                  f"classify {row['launches']}; collectives "
+                  f"{row['collectives']}; {row['ms']:.3f} ms per forward at "
+                  f"batch {BATCH} ({smi}; ranks share cards and gloo goes "
+                  f"through the host: no scaling figure)")
+
+
+def _serve_following(mesh, images):
+    """68 requests (64 single, 4 of 16) through a BatchingServer on the
+    driving rank over an OverlapTPEngine (ring), the other rank following;
+    the parameters are swapped live between the singles and the groups."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
+                                                       load_artifact)
+    from bnn_pynq_tpu_torch.models.network import init_random_params
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
+
+    ca = load_artifact(_artifact("cnv-w1a1"))
+    cb = CompiledNetwork(ca.config, init_random_params(ca.config, seed=99),
+                         np.ones(10, np.float32), np.zeros(10, np.float32))
+    eng = OverlapTPEngine(ca, mesh)
+    if not eng.is_leader:
+        eng.follow()
+        return {"followed_to_version": eng.version}
+    prepared = eng.prepare(images[:128])
+    want_a = InferenceEngine(ca, device="cuda").classify(prepared,
+                                                          prepared=True)
+    want_b = InferenceEngine(cb, device="cuda").classify(prepared,
+                                                          prepared=True)
+    eng.lead()
+    server = BatchingServer(eng, max_batch=256, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    try:
+        singles = [server.submit(prepared[i]) for i in range(64)]
+        got_single = np.array([f.result(timeout=120) for f in singles])
+        eng.load_parameters(cb)                 # live hot swap
+        groups = [server.submit_many(prepared[64 + 16 * j:80 + 16 * j])
+                  for j in range(4)]
+        got_many = np.concatenate([f.result(timeout=120) for f in groups])
+    finally:
+        server.stop()
+        eng.close()
+    wall = time.perf_counter() - t0
+    assert (got_single == want_a[:64]).all(), "served answers before the swap"
+    assert (got_many == want_b[64:]).all(), "served answers after the swap"
+    return {"requests": 68, "version": eng.version, "wall_s": wall,
+            "pipeline_depth": server.pipeline_depth,
+            "stats": server.stats.summary()}
+
+
+def _parallel_phase(torch, smi):
+    """Phase 17: tensor-parallel inference (bnn_pynq_tpu_torch/parallel/)
+    on the card."""
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    n = _shard_shape_cases(torch, device)
+    n_rows = _path_row_cases(torch, device)
+    torch.cuda.synchronize()
+    print(f"parallel: {n} shard-shape cases and {n_rows} cases at the path's "
+          f"row counts of packed_matmul, conv2d_direct and conv_chain equal "
+          f"their plain versions ({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(1)          # phase 4's draws
+    images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    mnist = rng.integers(0, 256, size=(BATCH, 28, 28), dtype=np.uint8)
+    t0 = time.perf_counter()
+    one = run_world(_parallel_one_rank, 1, args=(images,), device="cuda",
+                    timeout=PARALLEL_DEADLINE_S)[0]
+    t1 = time.perf_counter()
+    two = run_world(_parallel_two_ranks, 2, args=(images, mnist),
+                    device="cuda", timeout=PARALLEL_DEADLINE_S)
+    assert two[0]["backend"] == "gloo", "two ranks on one card: gloo"
+    t2 = time.perf_counter()
+    print(f"parallel: a world of 1 rank ({one['backend']}, "
+          f"{one['device']}) in {t1 - t0:.1f} s and a world of 2 ranks "
+          f"({two[0]['backend']}, both on {two[0]['device']}) in "
+          f"{t2 - t1:.1f} s, spawn and kernel load included")
+    print(f"parallel: the 2 ranks share one card ({smi}) and gloo moves "
+          f"every collective's CUDA tensor through the host "
+          f"(comm.host_copies): the times below are of this arrangement, "
+          f"no scaling or interconnect figure")
+    for rank, res in enumerate([one] + two):
+        world = "1-rank nccl" if rank == 0 else f"2-rank gloo, rank {rank - 1}"
+        for row in res["rows"]:
+            extra = f"; arm {row['arm']}: {row['arm_reason']}" \
+                if "arm" in row else (f"; {row['arm_reason']}"
+                                      if "arm_reason" in row else "")
+            print(f"  [{world}] {row['label']}: logits == single-card "
+                  f"engine (max |diff| {row['max_abs_err']:.3g}), classes "
+                  f"equal; launches per classify {row['launches']}; "
+                  f"collectives {row['collectives']}; {row['ms']:.3f} ms "
+                  f"per forward at batch {BATCH} ({smi}){extra}")
+    served, follower = two[0]["served"], two[1]["served"]
+    assert follower["followed_to_version"] == served["version"] == 1
+    print(f"parallel serving: a BatchingServer on rank 0 over "
+          f"OverlapTPEngine ring (1,2) answered {served['requests']} "
+          f"requests (pipeline depth {served['pipeline_depth']}) in "
+          f"{served['wall_s']:.2f} s, the parameters swapped live after 64 "
+          f"of them, every answer equal to the single-card engine of its "
+          f"parameters; rank 1 followed to version "
+          f"{follower['followed_to_version']}; stats "
+          f"{json.dumps(served['stats'])}")
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--spread", action="store_true",
+                    help="only the gloo world over every card (2+ cards)")
+    spread = ap.parse_args(argv).spread
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1397,6 +1897,12 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {kind}, count {torch.cuda.device_count()}")
+    if spread:
+        _spread_phase(torch, smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1654,6 +2160,9 @@ def main() -> int:
 
     # -- 16. training on the card, served by the kernels --------------------
     _training_phase(torch, counters)
+
+    # -- 17. tensor-parallel inference ---------------------------------------
+    _parallel_phase(torch, smi)
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
