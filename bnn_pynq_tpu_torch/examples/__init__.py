@@ -1,0 +1,1 @@
+"""Walkthroughs of the port's entry points (run with `python -m`)."""

@@ -14,6 +14,23 @@ Counterparts of the JAX package's `lax` collectives inside `shard_map`:
 - `broadcast(t, src, group)` and `broadcast_object`: the serving header,
   batch and swapped artifact from the driving rank (parallel/spmd.py).
 
+Sharded training (parallel/train_sharded.py) differentiates through three
+more, Megatron's split of the collectives between forward and backward,
+each a `torch.autograd.Function`:
+- `gather_model(t, group, axis)`: all-gather forward; the backward takes
+  this member's slice of the incoming gradient, which every member holds
+  whole and equal (its consumer is either replicated, or column-parallel
+  behind `copy_to_model`, whose backward made it whole);
+- `copy_to_model(t, group)`: identity forward; the backward sums the
+  input's gradient over the group, since each member's columns give only
+  their part of it;
+- `mean_over_data(t, group)`: the mean over the members forward and
+  backward (the BatchNorm statistics of the global batch).
+`torch.distributed.nn.functional.all_gather` sums the gradient over the
+group in its backward instead, which is m times too large wherever the
+consumer is replicated. The backward sums go through the same staged
+all-reduce as `psum`, on NCCL and gloo alike.
+
 Each function counts its calls in `<function>.calls` (a LaunchCounter),
 also on a group of one member, where it moves nothing. The tests hold the
 ring arm to "no `all_gather` between hidden layers" with these counts.
@@ -72,14 +89,74 @@ def gather_batch(t: torch.Tensor, group) -> torch.Tensor:
     return _gather(t, group, 0)
 
 
-def psum(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum over the members (a new tensor; `t` is left as it was)."""
-    psum.calls.add()
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return t
     buf = _to_wire(t, group).clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device)
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the members (a new tensor; `t` is left as it was)."""
+    psum.calls.add()
+    return _sum(t, group)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, axis):
+        gather_model.calls.add()
+        ctx.group, ctx.axis, ctx.width = group, axis, t.shape[axis]
+        return _gather(t, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.axis, me * ctx.width, ctx.width), None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        copy_to_model.calls.add()
+        return _sum(g, ctx.group), None
+
+
+class _MeanOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        mean_over_data.calls.add()
+        ctx.group = group
+        return _sum(t, group) / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        mean_over_data.calls.add()
+        return _sum(g, ctx.group) / dist.get_world_size(ctx.group), None
+
+
+def gather_model(t: torch.Tensor, group, axis: int = 1) -> torch.Tensor:
+    """Members' column shards concatenated along `axis`; its gradient is
+    this member's slice (counted once a forward)."""
+    return _GatherModel.apply(t, group, axis)
+
+
+def copy_to_model(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` itself; its gradient is summed over the group (counted once a
+    backward)."""
+    return _CopyToModel.apply(t, group)
+
+
+def mean_over_data(t: torch.Tensor, group) -> torch.Tensor:
+    """The members' mean of `t`, and of its gradient (counted in both
+    directions)."""
+    return _MeanOverData.apply(t, group)
 
 
 class _Pending:
@@ -129,11 +206,12 @@ def broadcast_object(obj, src: int, group, device: torch.device):
     return box[0]
 
 
-for _fn in (all_gather, gather_batch, psum, ppermute_start, broadcast):
-    _fn.calls = LaunchCounter()
-
 COUNTED = {"all_gather": all_gather, "gather_batch": gather_batch,
-           "psum": psum, "ppermute": ppermute_start, "broadcast": broadcast}
+           "psum": psum, "ppermute": ppermute_start, "broadcast": broadcast,
+           "gather_model": gather_model, "copy_to_model": copy_to_model,
+           "mean_over_data": mean_over_data}
+for _fn in COUNTED.values():
+    _fn.calls = LaunchCounter()
 
 
 def counts() -> Dict[str, int]:

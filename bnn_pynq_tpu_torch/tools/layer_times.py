@@ -55,6 +55,7 @@ from bnn_pynq_tpu_torch.models.params import weight_matrix
 from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
                                     fused_mlp, matmul)
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+from bnn_pynq_tpu_torch.utils.profiling import graph_stats
 
 BATCH = 1024
 # (label, input H = W, C, N): the chain layers of CNV (3×3, stride 1)
@@ -300,29 +301,9 @@ int main() {
 
 
 def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
-    """Device ms per call with the host out of the way: `calls` calls
-    captured in one CUDA graph, median over `reps` replays. Below ~0.1 ms
-    a reading between CUDA events is the wrapper's host enqueue; this is
-    not."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
+    """Device ms per call under CUDA graph replay (median of `reps`
+    replays of `calls` captured calls; `utils/profiling.py::graph_stats`)."""
+    return graph_stats(fn, calls, reps)[0]
 
 
 def layer_times(device: torch.device) -> None:

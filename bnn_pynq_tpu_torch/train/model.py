@@ -129,11 +129,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
+    def batch_moments(self, x):
+        """E[x] and E[x²] per channel over the batch (and the map)."""
+        axes = [d for d in range(x.ndim) if d != 1]
+        return x.mean(axes), torch.square(x).mean(axes)
+
     def forward(self, x, train: bool = False):
         if train:
-            axes = [d for d in range(x.ndim) if d != 1]
-            mean = x.mean(axes)
-            mean2 = torch.square(x).mean(axes)
+            mean, mean2 = self.batch_moments(x)
             var = torch.maximum(mean2 - torch.square(mean),
                                 mean2.new_zeros(()))
             with torch.no_grad():

@@ -109,7 +109,34 @@ Phases (every check raises, so any failure exits non-zero):
    collectives go through the host, give no scaling figure. A world past
    its deadline (PARALLEL_DEADLINE_S) fails the run; phase 17.0 also holds
    the three kernels against their plain versions at the row counts that
-   path gives them (batch 1024, and 512 a rank on (2, 1)).
+   path gives them (batch 1024, and 512 a rank on (2, 1));
+18. sharded (dp x tp) training (parallel/train_sharded.py) on CNV-W1A1 at
+   its published widths, the preset batch of 50 of the synthetic CIFAR-10
+   set, init_sharded(seed=0): in a world of one rank on NCCL, mesh (1, 1),
+   and in a world of two ranks sharing the card over gloo, meshes (1, 2)
+   (every layer sharded, the classes-wide last one too) and (2, 1): three
+   steps after a first one timed by CUDA events with their collectives
+   counted, then, with
+   cuDNN's deterministic algorithms, three make_sharded_train_step steps
+   against make_train_step on the same card from the same state with the
+   same constant-rate, no-Glorot Adam (loss
+   within SHARDED_LOSS_TOL, the gathered parameters and statistics within
+   SHARDED_PARAM_TOL), a three-step make_sharded_epoch_fn equal to the
+   steps (SHARDED_EPOCH_TOL), every block equal bit for bit on the ranks
+   that hold it; the gathered variables compiled and served on `mega`
+   (counted launches, no plain call, logits == ref, argmax against the
+   float model as phase 16) and by TPInferenceEngine 'vpu' on the mesh
+   (== the single-card engine, 8 packed_matmul launches), with the ms per
+   step by CUDA events and the collectives per step by kind;
+19. the perf tools and the examples (bnn_pynq_tpu_torch/tools/,
+   examples/): perf_suite --verify --quick on every route of CNV-W1A1,
+   CNV-W2A2 and LFC-W1A1 (each route's int32 accumulators, logits and
+   argmax equal to runtime="ref" on the card), layer_table on CNV-W1A1 at
+   batch 1024 beside phase 3's kernel times, batch1_latency on `mega`,
+   serving_bench at half its measured capacity for 2.5 s; then
+   train_compile_serve sfc-w1a1 --epochs 1, workload_demo mnist and
+   cifar10, classify and serving_pipeline as subprocesses side by side,
+   each exiting 0; every tool's rows printed.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -117,7 +144,9 @@ runs, after phase 1, only a gloo world of two ranks a card over every
 card, mesh (2, cards): each rank computes on the card make_mesh gave it
 (its current device too, which the launchers use), and TPInferenceEngine
 'vpu' and OverlapTPEngine ring and blocking on CNV-W1A1 equal the
-single-card engine on that card.
+single-card engine on that card; then phase 18's job in an NCCL world of
+one rank a card, mesh (cards / 2, 2): the only run where NCCL carries a
+model axis above 1.
 
 Beside each kernel's time stands its bound: the least time the card could
 take for the same work, the larger of operations / peak rate and bytes /
@@ -141,6 +170,7 @@ last line is {"ok": true, "device": {...}}.
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -1746,7 +1776,9 @@ def _parallel_spread(images):
 
 
 def _spread_phase(torch, smi):
-    """--spread: the world of `_parallel_spread` over every card."""
+    """--spread: the world of `_parallel_spread` over every card, then
+    phase 18's job in an NCCL world of one rank a card, mesh
+    (cards / 2, 2)."""
     from bnn_pynq_tpu_torch.parallel.launch import run_world
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -1770,6 +1802,15 @@ def _spread_phase(torch, smi):
                   f"{row['collectives']}; {row['ms']:.3f} ms per forward at "
                   f"batch {BATCH} ({smi}; ranks share cards and gloo goes "
                   f"through the host: no scaling figure)")
+    xs, ys, images = _sharded_inputs()
+    t0 = time.perf_counter()
+    res = run_world(_sharded_rank, cards,
+                    args=([(cards // 2, 2)], xs, ys, images), device="cuda",
+                    timeout=PARALLEL_DEADLINE_S)
+    assert res[0][0]["backend"] == "nccl", res[0][0]["backend"]
+    print(f"sharded training spread: an nccl world of {cards} ranks, one a "
+          f"card, in {time.perf_counter() - t0:.1f} s")
+    _check_sharded(res, smi, f"{cards}-rank nccl, one rank a card")
 
 
 def _serve_following(mesh, images):
@@ -1868,6 +1909,324 @@ def _parallel_phase(torch, smi):
           f"parameters; rank 1 followed to version "
           f"{follower['followed_to_version']}; stats "
           f"{json.dumps(served['stats'])}")
+
+
+# -- phase 18: sharded (dp x tp) training ---------------------------------
+
+# tests/test_sharding.py:106-141: the loss; the parameters after Adam's
+# first steps (about -lr.sign(g) each, so a gradient of rounding noise
+# moves a weight by lr either way); the epoch against its steps
+SHARDED_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+SHARDED_PARAM_TOL = dict(rtol=5e-2, atol=2e-3)
+SHARDED_EPOCH_TOL = dict(rtol=1e-5, atol=1e-6)
+SHARDED_STEPS = 3
+SHARDED_LR = 1e-3
+
+
+def _tree_worst(got, want):
+    """Largest |got - want| over the leaves of two flax-layout trees, and
+    whether every leaf is within SHARDED_PARAM_TOL."""
+    worst, ok = 0.0, True
+    for kind in want:
+        for layer, leaves in want[kind].items():
+            for leaf, w in leaves.items():
+                g = got[kind][layer][leaf]
+                assert g.shape == w.shape, (kind, layer, leaf)
+                worst = max(worst, float(np.abs(g - w).max()))
+                ok = ok and np.allclose(g, w, **SHARDED_PARAM_TOL)
+    return worst, ok
+
+
+def _sharded_rank(shapes, xs, ys, images):
+    """Phase 18, in each rank: per mesh shape, CNV-W1A1 from
+    init_sharded(seed=0): SHARDED_STEPS steps timed after a first one, with
+    their collectives counted; then, under cuDNN's deterministic
+    algorithms, SHARDED_STEPS steps by make_sharded_train_step and, anew,
+    by make_sharded_epoch_fn, and the same steps of make_train_step on
+    this rank's card from the same state and the same constant-rate,
+    no-Glorot Adam; the stepwise result gathered, compiled and served by
+    TPInferenceEngine ('vpu') on the mesh and, on rank 0, by the mega
+    kernels against the float model."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from bnn_pynq_tpu_torch.compiler import compile_network
+    from bnn_pynq_tpu_torch.models.config import get_config
+    from bnn_pynq_tpu_torch.ops import conv_stack, fused_mlp
+    from bnn_pynq_tpu_torch.parallel import (comm, gather_variables,
+                                             init_sharded, make_mesh,
+                                             make_sharded_epoch_fn,
+                                             make_sharded_train_step)
+    from bnn_pynq_tpu_torch.parallel.tp import TPInferenceEngine
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.train.model import QuantNet
+    from bnn_pynq_tpu_torch.train.trainer import Adam, make_train_step
+
+    cfg = get_config("cnv-w1a1")
+    out = []
+    for data, model in shapes:
+        mesh = make_mesh(data=data, model=model)
+        dev = mesh.device
+        # timed with cuDNN's default algorithms, as the trainer runs, after
+        # a step that sets them up
+        net, tx = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
+        step = make_sharded_train_step(cfg, mesh, net, tx)
+        step(xs[0], ys[0])
+        comm.reset_counts()
+        ms = []
+        for i in range(SHARDED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(xs[i], ys[i])
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        counts = comm.counts()
+        # compared with cuDNN's deterministic algorithms: its default
+        # weight gradients sum in an order that changes from run to run
+        # (two runs of the same three steps came out up to 3.7e-5 apart)
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref = QuantNet(cfg, generator=torch.Generator().manual_seed(
+                0)).to(dev)
+            rstep = make_train_step(cfg, ref, Adam(
+                ref, 1, SHARDED_LR, SHARDED_LR, glorot_lr_scale=False))
+            ref_losses = [float(rstep(torch.from_numpy(xs[i]).to(dev),
+                                      torch.from_numpy(ys[i]).to(dev)))
+                          for i in range(SHARDED_STEPS)]
+            net, tx = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
+            step = make_sharded_train_step(cfg, mesh, net, tx)
+            losses = [float(step(xs[i], ys[i]))
+                      for i in range(SHARDED_STEPS)]
+            local = net.variables()
+            stepwise = gather_variables(net, mesh)
+            net2, tx2 = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
+            epoch_losses = make_sharded_epoch_fn(cfg, mesh, net2, tx2)(
+                xs, ys)
+            epoch_vars = gather_variables(net2, mesh)
+        finally:
+            torch.backends.cudnn.deterministic = False
+
+        compiled = compile_network(cfg, stepwise["params"],
+                                   stepwise["batch_stats"])
+        row = {"mesh": (data, model), "coords": mesh.coords,
+               "backend": mesh.backend, "device": str(dev),
+               "sharded": sorted(net.sharded), "ref_losses": ref_losses,
+               "losses": losses, "step_ms": ms, "counts": counts,
+               "local": local, "stepwise": stepwise,
+               "ref": ref.variables(), "epoch_losses": epoch_losses,
+               "epoch": epoch_vars}
+        if dist.get_rank() == 0:
+            counters = {"fused_mlp": fused_mlp.fused_mlp_forward.launches,
+                        "dense_block": conv_stack.dense_block.launches,
+                        "conv_chain": conv_stack.conv_chain.launches}
+            pred, row["mega_launches"], row["mega_err"] = _serve_trained(
+                torch, compiled, images, counters,
+                ("conv_chain", "dense_block", "fused_mlp"))
+            fpred = _float_predictions(
+                torch, cfg, types.SimpleNamespace(
+                    params=stepwise["params"],
+                    batch_stats=stepwise["batch_stats"]), images)
+            row["float_engine_differ"] = int((fpred != pred).sum())
+        single = InferenceEngine(compiled, device=dev, route="vpu")
+        plain = _count_plain()
+        row["tp"] = _held(torch, f"TPInferenceEngine vpu ({data},{model})",
+                          TPInferenceEngine(compiled, mesh, route="vpu"),
+                          images, single.logits(images),
+                          single.classify(images))
+        assert not plain, f"plain versions called: {sorted(set(plain))}"
+        out.append(row)
+    return out
+
+
+def _check_sharded(res, smi, world):
+    """Phase 18's checks on the rows of every rank of one world."""
+    by_mesh = {}
+    for rank, rows in enumerate(res):
+        for row in rows:
+            by_mesh.setdefault(row["mesh"], []).append((rank, row))
+    for (data, model), rows in by_mesh.items():
+        label = f"{world}, mesh ({data},{model})"
+        for rank, row in rows:
+            np.testing.assert_allclose(row["losses"], row["ref_losses"],
+                                       err_msg=label, **SHARDED_LOSS_TOL)
+            worst, ok = _tree_worst(row["stepwise"], row["ref"])
+            assert ok, f"{label}: parameters off the single-card step " \
+                       f"by {worst}"
+            np.testing.assert_allclose(row["epoch_losses"], row["losses"],
+                                       err_msg=label, **SHARDED_EPOCH_TOL)
+            for kind in row["stepwise"]:
+                for layer, leaves in row["stepwise"][kind].items():
+                    for leaf, v in leaves.items():
+                        np.testing.assert_allclose(
+                            row["epoch"][kind][layer][leaf], v,
+                            err_msg=f"{label} epoch {layer}/{leaf}",
+                            **SHARDED_EPOCH_TOL)
+        # the ranks that hold one block hold it bit for bit: every leaf
+        # across 'data', the replicated ones across 'model' too
+        n_same = 0
+        for (ra, a), (rb, b) in itertools.combinations(rows, 2):
+            for kind in a["local"]:
+                for layer, leaves in a["local"][kind].items():
+                    whole = int(layer.split("_")[1]) not in a["sharded"]
+                    if a["coords"][1] == b["coords"][1] or whole:
+                        for leaf, v in leaves.items():
+                            assert np.array_equal(
+                                v, b["local"][kind][layer][leaf]), \
+                                f"{label}: {layer}/{leaf} differs between " \
+                                f"ranks {ra} and {rb}"
+                            n_same += 1
+        rank0 = rows[0][1]
+        worst = _tree_worst(rank0["stepwise"], rank0["ref"])[0]
+        assert rank0["mega_launches"] and rank0["float_engine_differ"] <= \
+            FLOAT_ENGINE_DIFFER, rank0["float_engine_differ"]
+        for rank, row in rows:
+            assert row["tp"]["launches"] == {"packed_matmul[vpu]": 8}, row
+        steps = SHARDED_STEPS
+        per_step = {k: v / steps for k, v in rank0["counts"].items() if v}
+        print(f"sharded training [{label}, {rank0['backend']}, "
+              f"{rank0['device']}]: CNV-W1A1 at batch 50, "
+              f"layers sharded {rank0['sharded']}; losses "
+              f"{[round(v, 6) for v in rank0['losses']]} against the "
+              f"single-card step's {[round(v, 6) for v in rank0['ref_losses']]}"
+              f"; gathered parameters within {worst:.3g} of it; epoch == "
+              f"steps; {n_same} leaves equal bit for bit "
+              f"across ranks; ms per step (CUDA events) "
+              f"{[round(v, 3) for v in rank0['step_ms']]} ({smi}); "
+              f"collectives per step {json.dumps(per_step)}")
+        print(f"  served: mega launches {rank0['mega_launches']}, logits == "
+              f"ref (max |diff| {rank0['mega_err']:.3g}), float model and "
+              f"engine argmax differ on {rank0['float_engine_differ']} of "
+              f"{BATCH}; TPInferenceEngine vpu on the mesh == single-card "
+              f"engine (max |diff| {rank0['tp']['max_abs_err']:.3g}), "
+              f"launches {rank0['tp']['launches']}, collectives "
+              f"{rank0['tp']['collectives']}, {rank0['tp']['ms']:.3f} ms "
+              f"per forward")
+
+
+def _sharded_inputs():
+    """Three batches of 50 synthetic CIFAR-10 training images as the
+    trainer takes them, and phase 4's 1,024 seeded images."""
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    ds = data_mod.load("cifar10")
+    n = SHARDED_STEPS * 50
+    xs = data_mod.train_inputs("cifar10", ds.x_train[:n], "int8").reshape(
+        (SHARDED_STEPS, 50, 32, 32, 3))
+    ys = ds.y_train[:n].astype(np.int64).reshape(SHARDED_STEPS, 50)
+    images = np.random.default_rng(1).integers(
+        0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    return xs, ys, images
+
+
+def _sharded_training_phase(torch, smi):
+    """Phase 18: sharded training on the card, a 1-rank NCCL world and a
+    2-rank gloo world sharing the card."""
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    xs, ys, images = _sharded_inputs()
+    t0 = time.perf_counter()
+    one = run_world(_sharded_rank, 1, args=([(1, 1)], xs, ys, images),
+                    device="cuda", timeout=PARALLEL_DEADLINE_S)
+    assert one[0][0]["backend"] == "nccl"
+    t1 = time.perf_counter()
+    two = run_world(_sharded_rank, 2,
+                    args=([(1, 2), (2, 1)], xs, ys, images), device="cuda",
+                    timeout=PARALLEL_DEADLINE_S)
+    assert two[0][0]["backend"] == "gloo"
+    t2 = time.perf_counter()
+    print(f"sharded training: a world of 1 rank (nccl) in {t1 - t0:.1f} s "
+          f"and of 2 ranks sharing the card (gloo, every collective's CUDA "
+          f"tensor through the host: no scaling figure) in {t2 - t1:.1f} s")
+    _check_sharded(one, smi, "1-rank nccl")
+    _check_sharded(two, smi, "2-rank gloo")
+
+
+# -- phase 19: the perf tools and the examples --------------------------------
+
+def _tool_rows(main, argv, out):
+    """Run a tool's main with --out `out`; its rows."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = main(argv + ["--out", out])
+    assert rc == 0, f"{main.__module__} exited {rc}: {log.getvalue()[-2000:]}"
+    with open(out) as f:
+        return [json.loads(line) for line in f]
+
+
+def _tools_phase(torch, smi, results):
+    """Phase 19: perf_suite --verify, layer_table, batch1_latency and
+    serving_bench in this process, then the four examples as subprocesses
+    side by side."""
+    import tempfile
+
+    from bnn_pynq_tpu_torch.tools import (batch1_latency, layer_table,
+                                          perf_suite, serving_bench)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = _tool_rows(perf_suite.main, [
+            "--verify", "--quick", "--nets", "cnv-w1a1,cnv-w2a2,lfc-w1a1",
+            "--batches", "1024,4096"], os.path.join(tmp, "perf.jsonl"))
+        bad = [r for r in rows if not r["verify_ok"]]
+        assert not bad, f"perf_suite --verify: {bad}"
+        routes = {(r["network"], r["route"]) for r in rows}
+        print(f"tools: perf_suite --verify, {len(rows)} cases: every route "
+              f"of cnv-w1a1, cnv-w2a2 and lfc-w1a1 ({len(routes)}) equal to "
+              f"runtime='ref' on the card (int32 accumulators, logits, "
+              f"argmax) ({smi}):")
+        for r in rows:
+            print(f"  {json.dumps(r)}")
+        rows = _tool_rows(layer_table.main, [
+            "--net", "cnv-w1a1", "--batch", str(BATCH), "--iters", "20"],
+            os.path.join(tmp, "layers.jsonl"))
+        chain_ms = sum(r["ms"] for r in rows
+                       if str(r.get("stage", "")).startswith("chain"))
+        print(f"tools: layer_table cnv-w1a1 at batch {BATCH}, a stage at a "
+              f"time under graph replay ({smi}); the chain stages "
+              f"{chain_ms:.4f} ms beside phase 3's conv_chain "
+              f"{results['conv_chain']['graph_ms']:.4f} (dense_block "
+              f"{results['dense_block']['graph_ms']:.4f}, fused_mlp "
+              f"{results['fused_mlp']['graph_ms']:.4f}), graph replay:")
+        for r in rows:
+            print(f"  {json.dumps(r)}")
+        for main, argv, name in (
+                (batch1_latency.main, ["--routes", "mega"], "batch1_latency"),
+                (serving_bench.main, ["--loads", "0.5", "--duration", "2.5",
+                                      "--capacity-seconds", "1"],
+                 "serving_bench")):
+            rows = _tool_rows(main, argv, os.path.join(tmp, f"{name}.jsonl"))
+            print(f"tools: {name} ({smi}):")
+            for r in rows:
+                print(f"  {json.dumps(r)}")
+        t1 = time.perf_counter()
+
+        examples = [
+            ["train_compile_serve", "sfc-w1a1", "--epochs", "1", "--out",
+             os.path.join(tmp, "artifacts")],
+            ["workload_demo", "mnist"], ["workload_demo", "cifar10"],
+            ["classify"], ["serving_pipeline"]]
+        procs = [(ex, subprocess.Popen(
+            [sys.executable, "-m", f"bnn_pynq_tpu_torch.examples.{ex[0]}",
+             *ex[1:]], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for ex in examples]
+        try:
+            outs = [p.communicate(timeout=300) for _, p in procs]
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for (ex, p), (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, \
+            f"example {' '.join(ex)} exited {p.returncode}: {stderr[-3000:]}"
+        tail = stdout.strip().splitlines()[-3:]
+        if ex[0] == "workload_demo":
+            report = json.loads(stdout)
+            assert report["hw_vs_sw_mismatches"] == 0, report
+            tail = [json.dumps(report)]
+        print(f"example {' '.join(ex)}: exit 0; {' | '.join(tail)}")
+    print(f"tools and examples: {t1 - t0:.1f} s for the tools, "
+          f"{time.perf_counter() - t1:.1f} s for the examples side by side")
 
 
 def main(argv=None) -> int:
@@ -2163,6 +2522,12 @@ def main(argv=None) -> int:
 
     # -- 17. tensor-parallel inference ---------------------------------------
     _parallel_phase(torch, smi)
+
+    # -- 18. sharded training -------------------------------------------------
+    _sharded_training_phase(torch, smi)
+
+    # -- 19. the perf tools and the examples -----------------------------------
+    _tools_phase(torch, smi, results)
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
