@@ -98,47 +98,6 @@ __host__ __device__ __forceinline__ int n_passes(const MlpLayer& L) {
   return (L.n + kWarps * L.cw - 1) / (kWarps * L.cw);
 }
 
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of copies to come.
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from device to
-// shared memory; the barrier counts them off as they land.
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Up to four k32 steps of a warp's item on one ring tile. a0 / a1: the
 // lane's ldmatrix addresses of the two m16 blocks at the tile's first step;
 // brow[jp]: the address of the lane's weight row of pair jp in the tile;

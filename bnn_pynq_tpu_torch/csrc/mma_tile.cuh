@@ -1,19 +1,21 @@
 // Shared device code of the tensor-core kernels (conv_tile.cuh under
 // conv_chain.cu and conv_direct.cu, dense_block.cu, dense_chain.cu,
-// packed_matmul.cu): int8 × int8 → int32 warp tiles on
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with both operands read
-// from shared memory by ldmatrix, cp.async staging, and the MultiThreshold
-// epilogue run on the accumulator fragments. (packed_matmul.cu's popcount
-// arm runs the same item on the 1-bit m16n8k256, whose fragments are these
-// counted in bytes; it and the decode arm read A from packed words.)
+// packed_matmul.cu, mosaic_probes.cu's shifted-row dot): int8 × int8 →
+// int32 warp tiles on mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with
+// both operands read from shared memory by ldmatrix, cp.async staging, and
+// the MultiThreshold epilogue run on the accumulator fragments.
+// (packed_matmul.cu's popcount arm runs the same item on the 1-bit
+// m16n8k256, whose fragments are these counted in bytes; it and the decode
+// arm read A from packed words.)
 //
 // Under the ports of bnn_pynq_tpu/ops/conv_stack.py::conv_chain_vmem and
 // ::dense_block, ops/conv_direct.py::conv2d_direct and ::conv_chain_direct,
-// ops/fused_mlp.py::fused_mlp_forward and ops/matmul.py::packed_matmul. All
-// are bound by operations or bytes far below what the CUDA cores reach (the
-// main-path bounds stand in the .cu files), so the dots run on the tensor
-// cores and every operand byte is fetched from L2 once per block tile, not
-// once per thread.
+// ops/fused_mlp.py::fused_mlp_forward, ops/matmul.py::packed_matmul, and
+// tools/mosaic_probes.py::probe_lane_concat and ::probe_scratch_lane_store.
+// All are bound by operations or bytes far below what the CUDA cores reach
+// (the bounds stand in the .cu files), so the dots run on the tensor cores
+// and every operand byte is fetched from L2 once per block tile, not once
+// per thread.
 //
 // mma.sync alone reaches 1,260 TOP/s on an NVIDIA H100 80GB HBM3 at 700.00 W
 // (tools/layer_times.py), 64 % of the published 1,979: the ceiling of these
@@ -80,6 +82,49 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers and bulk copies (cp.async.bulk, completion counted in bytes on
+// an mbarrier).
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of copies to come.
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from device to
+// shared memory; the barrier counts them off as they land.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {

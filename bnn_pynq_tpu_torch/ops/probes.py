@@ -6,12 +6,17 @@ Port of the probe functions `probe_lane_concat`, `probe_scratch_lane_store`,
 one-primitive Pallas kernel that checked whether the Mosaic compiler lowers
 that primitive; here each computes the same function with its own CUDA
 kernel (`csrc/mosaic_probes.cu`, entries `bnn_probe_<name>`), and each has
-a plain PyTorch version, `<name>_plain`.
+a plain PyTorch version, `<name>_plain`. The two dot probes run on the int8
+tensor cores, through one kernel whose shared memory `dot_smem_bytes`
+sizes.
 
 With no inputs a probe makes JAX's: `ones` of the probe's shape and dtype
 (M = 1024, C = 64, O = 64, K = 9), and for the pool `arange(m·C)` cast to
-int8, which wraps. A CPU tensor runs the plain version; a CUDA tensor
-launches the kernel, whose launches each wrapper counts in `.launches`.
+int8, which wraps, on `device`: the card by default, as JAX's probes run on
+its default backend; with no CUDA that raises (pass `device="cpu"` for the
+plain versions). A tensor passed in decides the device: a CPU tensor runs
+the plain version, a CUDA tensor launches the kernel, whose launches each
+wrapper counts in `.launches`.
 """
 
 from __future__ import annotations
@@ -27,6 +32,59 @@ M, C, O = 1024, 64, 64
 K = 9
 POOL_BB, POOL_H, POOL_W = 4, 16, 16
 LANE_LO, LANE_HI = 64, 128
+
+# the dot kernel's shared memory (csrc/mma_tile.cuh, csrc/common.cuh,
+# csrc/mosaic_probes.cu::launch_shifted_dot)
+MMA_K, ITEM_ROWS, ITEM_COLS, PITCH_PAD = 32, 32, 64, 16
+RAW_PITCH = ITEM_COLS + 16                  # a row of the raw weight tile
+TILE_BYTES = ITEM_ROWS * (ITEM_COLS + 8) * 4  # the int32 output tile
+MAX_SMEM = 227 * 1024                       # the H100's opt-in limit
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _padded_pitch(nbytes: int) -> int:
+    """The smallest pitch >= nbytes that is ≡ 16 (mod 32)."""
+    return _round_up(nbytes, MMA_K) + PITCH_PAD
+
+
+def dot_smem_bytes(c: int, taps: int, concat: bool) -> int:
+    """Shared bytes of a block of the dot kernel: the A tile (lane_concat:
+    32 + taps - 1 x rows padded to Cp = round_up(C, 32); scratch_lane_store:
+    32 patch rows of Kp = round_up(taps·C, 32)), 64 weight columns of the
+    staged K (taps·Cp, or Kp), the raw tile they are transposed from
+    (taps·C rows of 80 bytes), the int32 output tile the warps add their
+    partial sums into, and the A tile's mbarrier."""
+    if concat:
+        cp = _round_up(c, MMA_K)
+        a_bytes = (ITEM_ROWS + taps - 1) * _padded_pitch(cp)
+        kp = taps * cp
+    else:
+        kp = _round_up(taps * c, MMA_K)
+        a_bytes = ITEM_ROWS * _padded_pitch(kp)
+    return (a_bytes + ITEM_COLS * _padded_pitch(kp) + taps * c * RAW_PITCH
+            + TILE_BYTES + 16)
+
+
+def _check_smem(c: int, taps: int, concat: bool) -> None:
+    need = dot_smem_bytes(c, taps, concat)
+    if need > MAX_SMEM:
+        raise ValueError(f"C = {c}, taps = {taps} need {need} bytes of "
+                         f"shared memory a block, above the card's "
+                         f"{MAX_SMEM}")
+
+
+def _device(device) -> torch.device:
+    """Where a probe with no input tensor makes JAX's inputs."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but CUDA is not available; pass "
+                           "device='cpu' to run the plain version")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def _contiguous_copy(t: torch.Tensor) -> torch.Tensor:
@@ -60,9 +118,9 @@ def _launch(entry: str, out: torch.Tensor, *inputs: torch.Tensor,
 # -- lane_concat and scratch_lane_store: the shifted-row dot ----------------
 
 def _dot_inputs(x, w, m: int, device):
-    device = x.device if x is not None else torch.device(device)
     if x is None:
-        x = torch.ones((M + 128, C), dtype=torch.int8, device=device)
+        x = torch.ones((M + 128, C), dtype=torch.int8,
+                       device=_device(device))
     if w is None:
         w = torch.ones((K * C, O), dtype=torch.int8, device=x.device)
     _check(x, torch.int8)
@@ -86,12 +144,13 @@ def probe_lane_concat_plain(x, w, *, m: int = M) -> torch.Tensor:
 
 def probe_lane_concat(x: Optional[torch.Tensor] = None,
                       w: Optional[torch.Tensor] = None, *, m: int = M,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """out[r, o] = Σ_i Σ_c x[r+i, c] · w[i·C + c, o] for r < m: int8 x
     [>= m + taps - 1, C], int8 w [taps·C, O] → int32 [m, O]."""
     x, w, taps = _dot_inputs(x, w, m, device)
     if x.device.type == "cpu":
         return probe_lane_concat_plain(x, w, m=m)
+    _check_smem(x.shape[1], taps, concat=True)
     out = torch.empty((m, w.shape[1]), dtype=torch.int32, device=x.device)
     _launch("bnn_probe_lane_concat", out, x, w,
             args=(x.data_ptr(), m, x.shape[1], w.data_ptr(), taps,
@@ -113,15 +172,14 @@ def probe_scratch_lane_store_plain(x, w, *, m: int = M) -> torch.Tensor:
 
 def probe_scratch_lane_store(x: Optional[torch.Tensor] = None,
                              w: Optional[torch.Tensor] = None, *,
-                             m: int = M, device="cpu") -> torch.Tensor:
+                             m: int = M, device="cuda") -> torch.Tensor:
     """`probe_lane_concat`'s function through a shared-memory patch tile;
-    taps·C may not exceed 48 KB on the card."""
+    on the card, its block's shared memory (`dot_smem_bytes`) may not
+    exceed 227 KB."""
     x, w, taps = _dot_inputs(x, w, m, device)
     if x.device.type == "cpu":
         return probe_scratch_lane_store_plain(x, w, m=m)
-    if taps * x.shape[1] > 48 * 1024:
-        raise ValueError(f"a patch row of {taps * x.shape[1]} bytes does "
-                         "not fit the kernel's 48 KB tile")
+    _check_smem(x.shape[1], taps, concat=False)
     out = torch.empty((m, w.shape[1]), dtype=torch.int32, device=x.device)
     _launch("bnn_probe_scratch_lane_store", out, x, w,
             args=(x.data_ptr(), m, x.shape[1], w.data_ptr(), taps,
@@ -134,7 +192,7 @@ def probe_scratch_lane_store(x: Optional[torch.Tensor] = None,
 
 def _ones(x, shape, dtype, device):
     if x is None:
-        return torch.ones(shape, dtype=dtype, device=torch.device(device))
+        return torch.ones(shape, dtype=dtype, device=_device(device))
     return x
 
 
@@ -145,7 +203,7 @@ def probe_mid_dim_index_plain(x) -> torch.Tensor:
 
 
 def probe_mid_dim_index(x: Optional[torch.Tensor] = None, *,
-                        device="cpu") -> torch.Tensor:
+                        device="cuda") -> torch.Tensor:
     """The even rows of int8 [R, C] (R even) → [R/2, C]."""
     x = _ones(x, (M, C), torch.int8, device)
     _check(x, torch.int8)
@@ -161,12 +219,12 @@ def probe_mid_dim_index(x: Optional[torch.Tensor] = None, *,
 
 
 def pool_input(bb: int = POOL_BB, h: int = POOL_H, w: int = POOL_W,
-               c: int = C, device="cpu") -> torch.Tensor:
+               c: int = C, device="cuda") -> torch.Tensor:
     """JAX's pool probe input: arange(bb·h·w·C) as int32, cast to int8
     (wrapping), as [bb·h·w, C]."""
     n = bb * h * w
     return torch.arange(n * c, dtype=torch.int32,
-                        device=torch.device(device)).to(torch.int8) \
+                        device=_device(device)).to(torch.int8) \
         .reshape(n, c)
 
 
@@ -184,7 +242,7 @@ def probe_pool_reshape_max_plain(x, *, bb: int = POOL_BB, h: int = POOL_H,
 
 def probe_pool_reshape_max(x: Optional[torch.Tensor] = None, *,
                            bb: int = POOL_BB, h: int = POOL_H,
-                           w: int = POOL_W, device="cpu") -> torch.Tensor:
+                           w: int = POOL_W, device="cuda") -> torch.Tensor:
     """2×2 max pool of int8 rows [bb·h·w, C] (pixels of [bb, h, w], h and
     w even) → [bb·(h/2)·(w/2), C]."""
     if x is None:
@@ -210,7 +268,7 @@ def probe_strided_row_slice_plain(x, *, stride: int = 2) -> torch.Tensor:
 
 
 def probe_strided_row_slice(x: Optional[torch.Tensor] = None, *,
-                            stride: int = 2, device="cpu") -> torch.Tensor:
+                            stride: int = 2, device="cuda") -> torch.Tensor:
     """Rows 0, stride, ... of int8 [R, C] → [ceil(R/stride), C]."""
     x = _ones(x, (M, C), torch.int8, device)
     _check(x, torch.int8)
@@ -233,7 +291,7 @@ def probe_lane_slice_64_plain(x) -> torch.Tensor:
 
 
 def probe_lane_slice_64(x: Optional[torch.Tensor] = None, *,
-                        device="cpu") -> torch.Tensor:
+                        device="cuda") -> torch.Tensor:
     """The lane window x[:, 64:128] of int8 [M, N >= 128] → [M, 64]."""
     x = _ones(x, (M, 256), torch.int8, device)
     _check(x, torch.int8)
@@ -257,7 +315,7 @@ def probe_int32_acc_reshape_plain(x) -> torch.Tensor:
 
 
 def probe_int32_acc_reshape(x: Optional[torch.Tensor] = None, *,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
     """Max over each group of 4 rows of int32 [R, C] (R % 4 == 0) →
     [R/4, C]."""
     x = _ones(x, (M, C), torch.int32, device)

@@ -3,8 +3,8 @@ card.
 
     python -m bnn_pynq_tpu_torch.tools.layer_times [--only SECTION ...]
 
-Needs one CUDA card and nvcc. Without options it prints all four sections
-(`layers`, `packed`, `rates`, `profiles`), at batch 1024:
+Needs one CUDA card and nvcc. Without options it prints all five sections
+(`layers`, `packed`, `rates`, `profiles`, `probes`), at batch 1024:
 
 1. for CNV-W1A1's four `conv_chain` layers and its `dense_block` (block6) on
    seeded inputs and random weights: the device ms per call under CUDA graph
@@ -33,7 +33,13 @@ Needs one CUDA card and nvcc. Without options it prints all four sections
    CNV-W2A2 on `direct`): its device ms under graph replay, the host ms to
    enqueue it and to prepare its 1024 images, and from one `torch.profiler`
    trace of 20 forwards the device ms per forward of every kernel in it, by
-   name.
+   name;
+5. `probes`: where the two dot probes' time goes (`csrc/mosaic_probes.cu`,
+   `shifted_dot_kernel`, at JAX's shape): a copy of the source whose kernel
+   returns after a phase chosen at run time (at entry, after staging the A
+   tile and the weights, after the k32 steps), built on its own, each cut
+   timed under graph replay beside the whole kernel and the launch floor
+   (one one-element `torch.add_`).
 
 The last line names the card and its power limit as `nvidia-smi` gives them.
 """
@@ -520,7 +526,84 @@ def forward_profile(device: torch.device, name: str, route: str,
     print(f"  {sum(by_name.values()):.4f} all kernels")
 
 
-SECTIONS = ("layers", "packed", "rates", "profiles")
+# shifted_dot_kernel cut short: (the source line it follows, the cut);
+# phase 3 keeps the accumulators alive so the k32 steps are not dropped
+PHASE_CUTS = (
+    ("  const unsigned bar = smem_addr(smem + p.bar_off);\n",
+     "  if (bnn_phase == 1) return;\n"),
+    ("    stage_weights_t<true>(p, w_s, raw, nc0);\n"
+     "    __syncthreads();\n  }\n",
+     "  if (bnn_phase == 2) return;\n"),
+    ("    item_mma(acc, a_addr, b_addr, end - s, cols);\n    s = end;\n  }\n",
+     "  if (bnn_phase == 3) {\n    int keep = 0;\n#pragma unroll\n"
+     "    for (int i = 0; i < 64; ++i) keep += (&acc.c[0][0][0])[i];\n"
+     "    if (keep == 0x7fffffff) p.out[0] = keep;\n    return;\n  }\n"),
+)
+PHASES = ("entry", "staged", "k32 steps")
+
+
+def phase_source(source: str) -> str:
+    """csrc/mosaic_probes.cu with shifted_dot_kernel cut after the phase in
+    `bnn_phase` (0: whole), set by the exported `bnn_set_phase`."""
+    head = source.index("shifted_dot_kernel(const DotArgs p) {")
+    body = source[head:]
+    for anchor, cut in PHASE_CUTS:
+        if body.count(anchor) != 1:
+            raise ValueError(f"shifted_dot_kernel has no single {anchor!r}")
+        body = body.replace(anchor, anchor + cut)
+    return ("__device__ int bnn_phase;\n" + source[:head] + body +
+            '\nextern "C" int bnn_set_phase(int phase) {\n'
+            "  return cudaMemcpyToSymbol(bnn_phase, &phase, sizeof(int));\n"
+            "}\n")
+
+
+def probe_phases(device: torch.device) -> None:
+    """Build the cut copy of the probes' source and time the two dots at
+    JAX's shape, phase by phase."""
+    import ctypes
+    source = (_build.CSRC_DIR / "mosaic_probes.cu").read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe_phases.cu")
+        lib_path = os.path.join(tmp, "libprobe_phases.so")
+        with open(src, "w") as f:
+            f.write(phase_source(source))
+        subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, "-shared",
+                        "-I", str(_build.CSRC_DIR), "-o", lib_path, src],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(lib_path)
+    x = torch.ones((1024 + 128, 64), dtype=torch.int8, device=device)
+    w = torch.ones((9 * 64, 64), dtype=torch.int8, device=device)
+    out = torch.empty((1024, 64), dtype=torch.int32, device=device)
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    print(f"probes: launch floor (one-element add_) "
+          f"{graph_ms(lambda: one.add_(1)):.5f} ms, graph replay")
+    for name in ("bnn_probe_lane_concat", "bnn_probe_scratch_lane_store"):
+        entry = getattr(lib, name)
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p]
+
+        def call():
+            rc = entry(x.data_ptr(), 1024, 64, w.data_ptr(), 9, 64,
+                       out.data_ptr(),
+                       torch.cuda.current_stream(device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        cuts = []
+        for phase in (1, 2, 3, 0):
+            if lib.bnn_set_phase(phase) != 0:
+                raise RuntimeError("bnn_set_phase failed")
+            cuts.append(graph_ms(call))
+        shares = [cuts[0]] + [b - a for a, b in zip(cuts, cuts[1:])]
+        print(f"  {name[10:]} 1024x576x64: whole {cuts[-1]:.5f} ms; up to "
+              + ", ".join(f"{p} {c:.5f}" for p, c in zip(PHASES, cuts))
+              + "; each phase " + ", ".join(
+                  f"{p} {d:.5f}" for p, d in
+                  zip(PHASES + ("epilogue",), shares)))
+
+
+SECTIONS = ("layers", "packed", "rates", "profiles", "probes")
 
 
 def main(argv=None) -> int:
@@ -542,6 +625,8 @@ def main(argv=None) -> int:
                         ("cnv-w2a2", "direct"), ("cnv-w1a1", "vpu")):
         if "profiles" in only:
             forward_profile(device, name, route)
+    if "probes" in only:
+        probe_phases(device)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -64,12 +64,15 @@ Phases (every check raises, so any failure exits non-zero):
    1024 at a time, with images/s beside the 1024 figure;
 13. a BatchingServer over the cnv-w1a1 "direct" engine answering 68
    requests;
-14. the seven Mosaic probes (csrc/mosaic_probes.cu) against their plain
+14. the launch floor (one one-element `torch.add_` under graph replay);
+   the seven Mosaic probes (csrc/mosaic_probes.cu) against their plain
    versions, exactly, at JAX's inputs, at seeded random ones (int8 over
    its full range, int32 over ±2^30) and at ragged random shapes (the
-   kernels' scalar paths); then their entry point,
-   `bnn_pynq_tpu_torch.tools.mosaic_probes --device cuda`: 7 PASS lines,
-   every probe kernel launched, no plain call;
+   kernels' scalar paths), the two dots (on the int8 tensor cores) also at
+   C = 48 with taps = 9 and m = 1000 and at n = 200, with `_int_mm` on the
+   same M × K × N by events and under graph replay; then their entry
+   point, `bnn_pynq_tpu_torch.tools.mosaic_probes --device cuda`: 7 PASS
+   lines, every probe kernel launched, no plain call;
 15. the serving entry points on cnv-w1a1: `http_server.serve` on the card
    (POST /classify of 128 images == engine.classify, /healthz, /stats,
    /reload 200 with the same artifact and 409 with lfc-w1a1, the HTTP
@@ -161,7 +164,9 @@ is an integer dot plus thresholds or shifted rows, and PyTorch has no int8
 matmul with an epilogue nor an int8 convolution on CUDA), so theirs is
 null; for them `int_mm_ms` is `torch._int_mm` on the same M × K × N (for
 the convs on patches never built): the dot only, no im2col, no thresholds,
-a yardstick that the port never calls.
+a yardstick that the port never calls (for the two dot probes also under
+graph replay, `int_mm_graph_ms`). `launch_floor_ms`, the same in every
+row, is the graph-replay time of a launch that does nothing to speak of.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -224,16 +229,19 @@ def _kn(weights):
     return [w.kn for w in weights]
 
 
-def _int_mm_ms(torch, device, gemms):
+def _int_mm_ms(torch, device, gemms, graph=False):
     """torch._int_mm on int8 operands of each (M, K, N), K and N rounded up
-    to 8 as it demands: the dot only. Summed over the gemms."""
+    to 8 as it demands: the dot only. Summed over the gemms; by CUDA events,
+    or with `graph` under CUDA graph replay."""
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
     total = 0.0
     for m, k, n in gemms:
         a = torch.ones((max(m, 32), -(-k // 8) * 8), dtype=torch.int8,
                        device=device)
         b = torch.ones((a.shape[1], -(-n // 8) * 8), dtype=torch.int8,
                        device=device)
-        total += _time_ms(torch, lambda: torch._int_mm(a, b))
+        call = functools.partial(torch._int_mm, a, b)
+        total += graph_ms(call) if graph else _time_ms(torch, call)
         del a, b
     return total
 
@@ -241,7 +249,8 @@ def _int_mm_ms(torch, device, gemms):
 def _new_result():
     return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "ops_ms": 0.0, "bytes_ms": 0.0, "int_mm_ms": None,
-            "graph_ms": None, "library_ms": None, "library_graph_ms": None}
+            "int_mm_graph_ms": None, "graph_ms": None, "library_ms": None,
+            "library_graph_ms": None}
 
 
 def _bounds(work, out):
@@ -858,7 +867,10 @@ def _probe_cases(torch, device):
     """(probe name, label, inputs) for each probe: JAX's inputs (ones, and
     the wrapped arange for the pool), then seeded random ones of the same
     shapes and dtypes (int8 over its full range, int32 over ±2^30), then
-    random ones at ragged shapes."""
+    random ones at ragged shapes; for the two dots also C = 48 with taps = 9
+    and m = 1000 (k32 steps across taps, a partial row tile; x holds just
+    the m + taps - 1 rows read) and n = 200 (several column chunks, the
+    last of 8 columns)."""
     from bnn_pynq_tpu_torch.ops import probes
 
     rng = np.random.default_rng(4)
@@ -901,6 +913,14 @@ def _probe_cases(torch, device):
         cases.append((name, "ragged inputs",
                       {**{k: draw(s, dtype) for k, s in r_shapes.items()},
                        **opts}))
+        if "w" in arg_shapes:
+            cases.append((name, "C=48 taps=9 m=1000 inputs",
+                          {"x": draw((1000 + 8, 48), dtype),
+                           "w": draw((9 * 48, probes.O), dtype),
+                           "m": 1000}))
+            cases.append((name, "n=200 inputs",
+                          {"x": draw((m + 128, c), dtype),
+                           "w": draw((probes.K * c, 200), dtype)}))
     return cases
 
 
@@ -923,14 +943,20 @@ def _npz(x):
 
 
 def _probe_phase(torch, device, kind, results, launches):
-    """Phase 14: each probe kernel against its plain version and, where one
-    PyTorch call computes its function, against that call; then the probes'
-    entry point on the card with every plain version counted."""
+    """Phase 14: the launch floor; each probe kernel against its plain
+    version and, where one PyTorch call computes its function, against that
+    call (the dots: `_int_mm` on the same M x K x N, by events and under
+    graph replay); then the probes' entry point on the card with every
+    plain version counted. Returns the launch floor, ms."""
     from bnn_pynq_tpu_torch.ops import probes
     from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
     from bnn_pynq_tpu_torch.tools import mosaic_probes as probe_tool
     for fn in probes.PROBES:
         results[fn.__name__] = _new_result()
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    floor_ms = graph_ms(lambda: one.add_(1))
+    print(f"launch floor: one one-element torch.add_ under graph replay "
+          f"{floor_ms:.5f} ms")
     for name, label, inputs in _probe_cases(torch, device):
         kern = functools.partial(getattr(probes, name), **inputs)
         plain = functools.partial(getattr(probes, name + "_plain"), **inputs)
@@ -960,6 +986,11 @@ def _probe_phase(torch, device, kind, results, launches):
             r["graph_ms"] = graph_ms(kern)
             beside = (f" (graph replay {r['graph_ms']:.5f} ms), bound "
                       f"{bound:.5f} ms")
+            if work["gemms"]:
+                r["int_mm_graph_ms"] = _int_mm_ms(torch, device,
+                                                  work["gemms"], graph=True)
+                beside += (f", _int_mm {r['int_mm_ms']:.4f} ms (graph "
+                           f"replay {r['int_mm_graph_ms']:.5f} ms)")
             if library:
                 r["library_ms"] = _time_ms(torch, library)
                 r["library_graph_ms"] = graph_ms(library)
@@ -999,6 +1030,7 @@ def _probe_phase(torch, device, kind, results, launches):
     print(f"probe path: 7 PASS, launches "
           f"{ {fn.__name__: launches[fn.__name__] for fn in probes.PROBES} }"
           f", plain calls {len(probe_plain)}")
+    return floor_ms
 
 
 def _serving_entry_points(torch, images, counters):
@@ -2512,7 +2544,7 @@ def main(argv=None) -> int:
     _big_batch_check(torch, rng)
 
     # -- 14. the Mosaic probes --------------------------------------------
-    _probe_phase(torch, device, kind, results, launches)
+    floor_ms = _probe_phase(torch, device, kind, results, launches)
 
     # -- 15. the serving entry points on the card -------------------------
     _serving_entry_points(torch, images, counters)
@@ -2550,7 +2582,7 @@ def main(argv=None) -> int:
           "that path's calls at batch 1024; library: the one PyTorch call "
           "that computes the same function, where there is one; int_mm: "
           "torch._int_mm on the same M x K x N, dot only, no im2col, no "
-          "thresholds):")
+          f"thresholds; launch floor {floor_ms:.5f} ms):")
     for k in src:
         r = results[k]
         row = {"name": k, "route": "cuda", "source": src[k][0],
@@ -2560,11 +2592,15 @@ def main(argv=None) -> int:
                "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"]
                else "bytes",
                "library_ms": r["library_ms"], "int_mm_ms": r["int_mm_ms"],
+               "int_mm_graph_ms": r["int_mm_graph_ms"],
                "graph_ms": r["graph_ms"],
-               "library_graph_ms": r["library_graph_ms"]}
+               "library_graph_ms": r["library_graph_ms"],
+               "launch_floor_ms": floor_ms}
         kernels.append(row)
         int_mm = "none" if row["int_mm_ms"] is None \
             else f"{row['int_mm_ms']:.4f}"
+        if row["int_mm_graph_ms"] is not None:
+            int_mm += f" (graph replay {row['int_mm_graph_ms']:.5f})"
         graph = "" if row["graph_ms"] is None \
             else f" (graph replay {row['graph_ms']:.5f})"
         lib = "none" if row["library_ms"] is None else \

@@ -102,7 +102,7 @@ def _port_inputs(name, made):
 @pytest.mark.parametrize("name", NAMES)
 def test_probe_matches_jax_at_default_inputs(name, monkeypatch):
     want = _run_jax(monkeypatch, name)
-    got = getattr(probes, name)()
+    got = getattr(probes, name)(device="cpu")
     assert got.numpy().dtype == want.dtype
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -136,7 +136,7 @@ def test_plain_slices_are_contiguous_copies():
 
 
 def test_default_pool_input_wraps_like_jax():
-    got = probes.pool_input().numpy()
+    got = probes.pool_input(device="cpu").numpy()
     want = np.asarray(jnp.arange(1024 * 64, dtype=jnp.int32)
                       .astype(jnp.int8).reshape(1024, 64))
     np.testing.assert_array_equal(got, want)
@@ -162,8 +162,24 @@ def test_probes_reject_bad_shapes():
 def test_cpu_runs_no_kernel():
     before = [f.launches.value for f in probes.PROBES]
     for f in probes.PROBES:
-        f()
+        f(device="cpu")
     assert [f.launches.value for f in probes.PROBES] == before
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_default_device_is_the_card(name, monkeypatch):
+    """With no tensor and no device a probe makes its inputs on the card,
+    as JAX's probes run on the default backend: with no CUDA it raises,
+    naming device="cpu", and runs no plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plain = []
+    monkeypatch.setattr(probes, name + "_plain",
+                        lambda *a, **kw: plain.append(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(probes, name)()
+    assert not plain
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probes.pool_input()
 
 
 def test_tool_on_cpu_prints_seven_pass(capsys):
