@@ -42,13 +42,39 @@ any result is fetched, so the host prepares a chunk while the device runs
 the one before. An MLP runs one forward on the batch padded to a multiple
 of the largest bucket (its one kernel takes any number of rows).
 
+Captured programs, the port's form of the JAX engine's one jitted
+program per batch bucket: a 'kernels' engine runs each forward as a
+program, one per (input shape, variant); a variant is logits, argmax,
+words-logits or words-argmax. A program holds a fixed input buffer, the
+forward and a fixed output buffer. `launch_prepared` copies the batch
+into the input, runs the forward and returns a clone of the output, so
+batches in flight never share an output. On a card the forward is a CUDA
+graph: captured at a shape's first use (or in `warmup`) after one eager
+run that builds the kernels, then replayed, one graph launch a forward.
+On the CPU the same program runs the eager forward into the same
+buffers. runtime='ref' runs the eager forward on either device. The
+graphs of one parameter set share one memory pool; `load_parameters`
+captures every program again on the new parameters before it publishes
+them. A capture that fails raises, naming the shape and the variant; the
+engine never falls back to the eager forward on a card.
+
+Captures and replays hold the engine's lock, and a replay runs on the
+caller's current stream (every caller in the port uses the default one),
+so the copy in, the replay and the clone of two launches never
+interleave. A capture records the kernels in the thread-local capture
+mode on the engine's own stream, so other threads may go on issuing CUDA
+work meanwhile (the server's uploader and collector); what they run is
+not recorded. The HTTP server warms every bucket it can dispatch before
+it accepts traffic, so it never captures under load.
+
 A CUDA engine never runs on the CPU: `device="cuda"` without CUDA raises.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +88,8 @@ from bnn_pynq_tpu_torch.models.network import (forward, forward_direct,
                                                forward_mega, forward_ref,
                                                input_shape)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
+from bnn_pynq_tpu_torch.ops import _build, conv_direct, conv_stack, matmul
+from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
 
@@ -88,6 +116,83 @@ def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
     if x.dtype == np.uint8:
         return (x.astype(np.int32) - 128).astype(np.int8)
     return x.astype(np.int8)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Every kernel wrapper's launch count (process-wide), by kernel."""
+    out = {"fused_mlp": fused_mlp_forward.launches.value,
+           "conv_chain": conv_stack.conv_chain.launches.value,
+           "dense_block": conv_stack.dense_block.launches.value,
+           "conv2d_direct": conv_direct.conv2d_direct.launches.value,
+           "conv_chain_direct": conv_direct.conv_chain_direct.launches.value}
+    out.update({f"packed_matmul[{r}]": c.value
+                for r, c in matmul.packed_matmul.launches.items()})
+    return out
+
+
+class Program:
+    """One forward at one input shape and variant on fixed buffers: `x`
+    (the input), `out` (the output) and, on a card, the CUDA graph that
+    reads the one and writes the other. `launches`: the kernel launches
+    its capture counted (a replay goes through no wrapper, so it counts
+    none); `replays`: how many times the graph ran."""
+
+    def __init__(self, body, x: torch.Tensor, label: str):
+        self.body = body                    # x → output, the eager forward
+        self.label = label
+        self.x = torch.zeros_like(x)
+        self.out: Optional[torch.Tensor] = None
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.replays = _build.LaunchCounter()
+
+    def capture(self, stream, pool) -> None:
+        """One eager run on `stream` (it builds the kernels), then the
+        forward captured on it into `pool`; raises, naming the shape and
+        the variant, if the capture fails."""
+        try:
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                self.body(self.x)
+                before = kernel_launches()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = self.body(self.x)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream().wait_stream(stream)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of {self.label} "
+                               f"failed: {e}") from e
+        self.launches = {k: n - before[k]
+                         for k, n in kernel_launches().items()
+                         if n != before[k]}
+        self.graph, self.out = graph, out
+
+    def __call__(self, xd: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(xd)
+        if self.graph is None:              # the CPU: the eager forward
+            out = self.body(self.x)
+            if self.out is None:
+                self.out = out
+            else:
+                self.out.copy_(out)
+        else:
+            self.graph.replay()
+            self.replays.add()
+        return self.out.clone()
+
+
+class _State(NamedTuple):
+    """What the engine publishes as one unit: the parameters and the
+    programs that run on them (`pool`: their graphs' memory pool)."""
+    layers: list
+    out_scale: torch.Tensor
+    out_bias: torch.Tensor
+    programs: Dict[tuple, Program]
+    pool: object
 
 
 class InferenceEngine:
@@ -124,25 +229,40 @@ class InferenceEngine:
         self.route = route
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.usecPerImage: Optional[float] = None
-        # (layers, out_scale, out_bias), published and read as one unit
-        self._state: Params = params_from_numpy(
+        self._lock = threading.Lock()       # captures and replays
+        self._stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+        self._state = self._new_state(compiled)
+
+    def _new_state(self, compiled: CompiledNetwork) -> _State:
+        pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        return _State(*params_from_numpy(
             self.config, compiled.layers, compiled.out_scale,
-            compiled.out_bias, device)
+            compiled.out_bias, self.device), {}, pool)
 
     def load_parameters(self, compiled: CompiledNetwork):
-        """Hot-swap parameters of the same topology. The new parameters
-        are published by one assignment, and every launch reads that
-        tuple once, so a batch never mixes old and new parameters."""
+        """Hot-swap parameters of the same topology. Every program already
+        captured is captured again on the new parameters, then the
+        parameters and programs are published by one assignment under the
+        engine's lock; every launch reads that unit once, so a batch never
+        mixes old and new parameters. The old graphs are released after
+        the device has run their last replay."""
         if compiled.config.layers != self.config.layers or \
                 compiled.config.wbits != self.config.wbits or \
                 compiled.config.abits != self.config.abits:
             raise ValueError("parameter topology mismatch; build a new "
                              "engine for a different network")
-        state = params_from_numpy(self.config, compiled.layers,
-                                  compiled.out_scale, compiled.out_bias,
-                                  self.device)
-        self._state = state
-        self.compiled = compiled
+        state = self._new_state(compiled)
+        with self._lock:
+            old = self._state
+            for key, prog in old.programs.items():
+                self._add_program(state, key, prog.x)
+            self._state = state
+            self.compiled = compiled
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        del old
         return self
 
     # -- input preparation ------------------------------------------------
@@ -176,14 +296,13 @@ class InferenceEngine:
             t = torch.from_numpy(np.require(x, requirements=("C", "W")))
         return t.to(self.device)
 
-    def launch_prepared(self, xd: torch.Tensor, *, argmax: bool = False,
-                        words: bool = False) -> torch.Tensor:
-        """Run on a device-resident, padded batch; returns the device
-        output without waiting for it. words=True: xd holds host-packed
-        sign words, unpacked to ±1 on the device first (any route)."""
+    def _forward(self, params: Params, xd: torch.Tensor, argmax: bool,
+                 words: bool) -> torch.Tensor:
+        """The eager forward on `params` (layers, out_scale, out_bias):
+        what a program captures, and what runtime='ref' runs."""
+        layers, out_scale, out_bias = params
         if words:
             xd = unpack_bits(xd, int(np.prod(self.config.input_shape)))
-        layers, out_scale, out_bias = self._state
         if self.runtime == "kernels" and self.route in MEGA_ROUTES:
             out = forward_mega(self.config, layers, xd, out_scale, out_bias)
         else:
@@ -198,6 +317,42 @@ class InferenceEngine:
         if argmax:
             out = out.argmax(dim=-1).to(torch.int32)
         return out
+
+    def _add_program(self, state: _State, key: tuple,
+                     xd: torch.Tensor) -> Program:
+        """A new program for `key` on `state` (captured on a card)."""
+        shape, dtype, argmax, words = key
+        params = state[:3]                  # not the state: no cycle
+        prog = Program(
+            lambda x: self._forward(params, x, argmax, words), xd,
+            f"bucket {shape[0]} (input {tuple(shape)} {dtype}), variant "
+            f"{'words-' if words else ''}{'argmax' if argmax else 'logits'}")
+        if self.device.type == "cuda":
+            prog.capture(self._stream, state.pool)
+        state.programs[key] = prog
+        return prog
+
+    @property
+    def programs(self) -> Dict[tuple, Program]:
+        """The published programs by (input shape, dtype, argmax, words)."""
+        return self._state.programs
+
+    def launch_prepared(self, xd: torch.Tensor, *, argmax: bool = False,
+                        words: bool = False) -> torch.Tensor:
+        """Run on a device-resident, padded batch; returns the device
+        output without waiting for it. words=True: xd holds host-packed
+        sign words, unpacked to ±1 on the device first (any route). The
+        'kernels' runtime runs the program of xd's shape and the variant,
+        captured here at its first use."""
+        if self.runtime == "ref":
+            return self._forward(self._state[:3], xd, argmax, words)
+        key = (tuple(xd.shape), xd.dtype, argmax, words)
+        with self._lock:
+            state = self._state
+            prog = state.programs.get(key)
+            if prog is None:
+                prog = self._add_program(state, key, xd)
+            return prog(xd)
 
     def fetch(self, dev_out: torch.Tensor) -> np.ndarray:
         """Device output → numpy (waits for the device)."""

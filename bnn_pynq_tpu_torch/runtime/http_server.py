@@ -111,8 +111,10 @@ def serve(artifact: str, host: str = "127.0.0.1", port: int = 8476, *,
           max_wait_ms: float = 3.0, batch_buckets=None):
     """Serve `artifact` over HTTP. block=False returns (httpd, batcher)
     with the server running on a daemon thread (port=0: an ephemeral port,
-    `httpd.server_address[1]`); the caller stops both. warmup runs every
-    bucket up to max_batch once before the server accepts traffic."""
+    `httpd.server_address[1]`); the caller stops both. warmup runs, before
+    the server accepts traffic, every bucket a batch can pad to: each one
+    up to max_batch and the one a full batch of max_batch pads to (a
+    'kernels' engine captures its programs there, never under load)."""
     clf = Classifier.from_artifact(
         artifact, device=device, runtime=runtime, route=route,
         batch_buckets=tuple(batch_buckets or DEFAULT_BATCH_BUCKETS))
@@ -120,9 +122,11 @@ def serve(artifact: str, host: str = "127.0.0.1", port: int = 8476, *,
                              max_wait_ms=max_wait_ms)
     try:
         if warmup:
-            for b in clf.engine.batch_buckets:
-                if b <= batcher.max_batch:
-                    clf.engine.warmup(b)
+            eng = clf.engine
+            full = eng._bucket(batcher.max_batch)
+            for b in sorted({b for b in eng.batch_buckets
+                             if b <= batcher.max_batch} | {full}):
+                eng.warmup(b)
         httpd = ThreadingHTTPServer((host, port), make_handler(clf, batcher))
     except BaseException:
         batcher.stop()

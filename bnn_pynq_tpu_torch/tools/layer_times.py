@@ -31,8 +31,9 @@ Needs one CUDA card and nvcc. Without options it prints all five sections
 4. `profiles`: one forward of the pretrained CNV-W1A1 engine on a
    device-resident batch on the `mega`, `direct` and `vpu` routes (and
    CNV-W2A2 on `direct`): its device ms under graph replay, the host ms to
-   enqueue it and to prepare its 1024 images, and from one `torch.profiler`
-   trace of 20 forwards the device ms per forward of every kernel in it, by
+   enqueue it (the engine's captured program, and the eager forward) and
+   to prepare its 1024 images, and from one `torch.profiler` trace of 20
+   eager forwards the device ms per forward of every kernel in it, by
    name;
 5. `probes`: where the two dot probes' time goes (`csrc/mosaic_probes.cu`,
    `shifted_dot_kernel`, at JAX's shape): a copy of the source whose kernel
@@ -474,8 +475,10 @@ def mma_rate() -> None:
 def forward_profile(device: torch.device, name: str, route: str,
                     forwards: int = 20) -> None:
     """One forward of a pretrained net on a route (device-resident batch in,
-    class indices on the device out): graph-replay ms, host ms, and the
-    device ms per forward of each kernel in a `torch.profiler` trace."""
+    class indices on the device out): graph-replay ms of the eager
+    forward, the host's enqueue of the engine's captured program and of
+    the eager forward, and the device ms per forward of each kernel in a
+    `torch.profiler` trace of the eager forward."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -493,23 +496,31 @@ def forward_profile(device: torch.device, name: str, route: str,
     def forward():
         return eng.launch_prepared(xd, argmax=True)
 
-    replay = graph_ms(forward)
-    enqueue = []
-    for _ in range(forwards):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        forward()
-        enqueue.append((time.perf_counter() - t0) * 1e3)
+    def eager():
+        return eng._forward(eng._state[:3], xd, True, False)
+
+    replay = graph_ms(eager)
+    enqueue = {}
+    for label, fn in (("program", forward), ("eager", eager)):
+        fn()
+        times = []
+        for _ in range(forwards):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        enqueue[label] = float(np.median(times))
     torch.cuda.synchronize()
     print(f"{route} forward, {name}, batch {BATCH}: {replay:.4f} ms on the "
-          f"device under graph replay; host: enqueue "
-          f"{np.median(enqueue):.4f} ms, prepare {np.median(host):.3f} ms "
+          f"device under graph replay; host: enqueue of the captured "
+          f"program {enqueue['program']:.4f} ms, of the eager forward "
+          f"{enqueue['eager']:.4f} ms, prepare {np.median(host):.3f} ms "
           f"(medians of {forwards} and 5, host clock)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(forwards):
-            forward()
+            eager()
         torch.cuda.synchronize()
     by_name = collections.Counter()
     count = collections.Counter()

@@ -15,6 +15,19 @@ Device: `train(..., device="cuda")` by default; without CUDA it raises
 shuffled there by `randperm` from an explicit generator, and the losses
 are fetched once an epoch, so no step waits for the host.
 
+Captured step, the port's form of the reference's jitted step and its
+`lax.scan` epoch: on a card, `make_train_step` runs its first
+WARMUP_STEPS steps eagerly on its own stream (real steps of the run),
+then captures one step (forward, gradients, Adam, clip) in a CUDA graph
+on fixed input, label and loss buffers and replays it: a step costs two
+copies and one graph launch. Adam reads its learning rate and bias
+corrections from a float32 table on the device, indexed by a step
+counter the step itself advances, so the captured step is the eager
+one. The graph holds the addresses of the parameters, statistics and
+moments: they are updated in place and never rebound (`load_variables`
+copies); a replay raises if one was. A capture that fails raises; on the
+CPU the same step object runs the eager body.
+
 Precision: float32 throughout, with TF32 off for the trainer's
 convolutions and products (`model.full_fp32`, around every forward and
 backward pass here). cuDNN's TF32 default would round the 2-bit levels
@@ -26,6 +39,7 @@ float model's argmax agrees with the integer engine's.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from dataclasses import dataclass, field
@@ -130,7 +144,11 @@ class Adam:
     lr_end/lr_start)), per-leaf scale) for a QuantNet's parameters, then
     the clip of the quantized kernels: updates in place. The scalars
     (learning rate, bias corrections) are computed on the host in float32
-    as optax computes them, so a step never waits for the device."""
+    as optax computes them, once for every step, into a table on the
+    parameters' device (`table`: rows of −lr, 1 − b1^t, 1 − b2^t by step);
+    a step reads its row through the device counter `step`, so no step
+    waits for the host and a captured step replays the schedule. `count`
+    is the same counter on the host."""
 
     def __init__(self, model: QuantNet, total_steps: int, lr_start: float,
                  lr_end: float, glorot_lr_scale: bool = True):
@@ -150,6 +168,10 @@ class Adam:
         self.count = 0
         self.total_steps = total_steps
         self.lr_start, self.lr_end = lr_start, lr_end
+        device = self.params[0].device
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.table = torch.empty((0, 3), dtype=torch.float32, device=device)
+        self.reserve(total_steps)
 
     def learning_rate(self, count: int) -> float:
         """optax.exponential_decay in float32; lr_start at count 0."""
@@ -159,13 +181,32 @@ class Adam:
         rate = np.float32(self.lr_end / self.lr_start)
         return float(np.float32(self.lr_start) * np.power(rate, p))
 
+    def _row(self, count: int):
+        """(−lr, bias correction 1, bias correction 2) of the update that
+        takes the count from `count` to `count + 1`."""
+        t = np.float32(count + 1)
+        return (-self.learning_rate(count),
+                float(np.float32(1) - np.float32(ADAM_B1) ** t),
+                float(np.float32(1) - np.float32(ADAM_B2) ** t))
+
+    def reserve(self, steps: int) -> None:
+        """Make the table cover the first `steps` updates (a new table:
+        never after a step that reads it was captured)."""
+        have = self.table.shape[0]
+        if steps > have:
+            rows = torch.tensor([self._row(c) for c in range(have, steps)],
+                                dtype=torch.float32)
+            self.table = torch.cat([self.table, rows.to(self.table.device)])
+
     @torch.no_grad()
-    def update(self, grads) -> None:
+    def apply(self, grads) -> None:
+        """One update on the device from the table row of `step`, which it
+        advances; reads nothing on the host (a graph can capture it).
+        `count` is the caller's to advance."""
         b1, b2 = ADAM_B1, ADAM_B2
-        lr = self.learning_rate(self.count)
-        self.count += 1
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
+        row = self.table.index_select(0, self.step)[0]
+        neg_lr, bc1, bc2 = row[0], row[1], row[2]
+        self.step.add_(1)
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(self.nu, b2)
@@ -174,24 +215,122 @@ class Adam:
         den = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(den, ADAM_EPS)
         upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
-        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, neg_lr)
         torch._foreach_mul_(upd, self.scales)
         torch._foreach_add_(self.params, upd)
         for p in self.clipped:
             p.clamp_(-1.0, 1.0)
 
+    def update(self, grads) -> None:
+        """One update (eager): the table grown if the run goes past
+        `total_steps`, then `apply`."""
+        self.reserve(self.count + 1)
+        self.apply(grads)
+        self.count += 1
 
-def make_train_step(config: NetworkConfig, model: QuantNet, tx: Adam):
+
+# eager steps a captured step runs (on its stream) before it captures
+WARMUP_STEPS = 2
+
+
+class TrainStep:
     """step(x, y) → the batch's loss (a device scalar); updates the model's
-    parameters and running statistics in place."""
-    def step(x, y):
+    parameters and running statistics in place. On a card the first
+    WARMUP_STEPS calls run the eager step on the step's own stream, the
+    next captures it (cuDNN's benchmark off, the trainer's float32 settings
+    in force) and every call from then on copies the batch into the fixed
+    buffers and replays the graph (`replays` counts them). On the CPU it
+    runs the eager step."""
+
+    def __init__(self, config: NetworkConfig, model: QuantNet, tx: Adam):
+        self.config, self.model, self.tx = config, model, tx
+        self.cuda = tx.params[0].device.type == "cuda"
+        self.stream = torch.cuda.Stream(tx.params[0].device) \
+            if self.cuda else None
+        self.graph = None
+        self.x = self.y = self.loss = None
+        self.addresses = ()
+        self.warm = 0
+        self.replays = 0
+
+    def _loss_and_grads(self, x, y):
         with full_fp32():
-            loss = squared_hinge_loss(model(x, train=True), y,
-                                      config.num_classes)
-            grads = torch.autograd.grad(loss, tx.params)
-        tx.update(grads)
-        return loss.detach()
-    return step
+            loss = squared_hinge_loss(self.model(x, train=True), y,
+                                      self.config.num_classes)
+            grads = torch.autograd.grad(loss, self.tx.params)
+        return loss.detach(), grads
+
+    def eager(self, x, y):
+        """The eager step: forward, loss, gradients, `tx.update`."""
+        loss, grads = self._loss_and_grads(x, y)
+        self.tx.update(grads)
+        return loss
+
+    def _addresses(self):
+        tx = self.tx
+        return tuple(t.data_ptr() for t in itertools.chain(
+            self.model.parameters(), self.model.buffers(), tx.params,
+            tx.mu, tx.nu, (tx.table, tx.step)))
+
+    def _capture(self, x, y) -> None:
+        self.x, self.y = torch.empty_like(x), torch.empty_like(y)
+        self.tx.reserve(max(self.tx.total_steps, self.tx.count + 1))
+        graph = torch.cuda.CUDAGraph()
+        benchmark = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        try:
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.graph(graph, stream=self.stream):
+                loss, grads = self._loss_and_grads(self.x, self.y)
+                self.tx.apply(grads)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of the training step "
+                               f"(batch {tuple(x.shape)}) failed: {e}") \
+                from e
+        finally:
+            torch.backends.cudnn.benchmark = benchmark
+        self.graph, self.loss = graph, loss
+        self.addresses = self._addresses()
+
+    def run(self, x, y, check: bool = True):
+        """One step; on a card after the warm-up the loss is the fixed
+        buffer, which the next step overwrites. check: hold the captured
+        addresses against the live tensors first."""
+        if not self.cuda:
+            return self.eager(x, y)
+        if self.graph is None and self.warm < WARMUP_STEPS:
+            self.warm += 1
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                loss = self.eager(x, y)
+            torch.cuda.current_stream().wait_stream(self.stream)
+            return loss
+        if self.graph is None:
+            self._capture(x, y)
+        elif check and self._addresses() != self.addresses:
+            raise RuntimeError("a parameter, statistic or Adam buffer was "
+                               "rebound after the training step was "
+                               "captured; update it in place")
+        if self.tx.count >= self.tx.table.shape[0]:
+            raise RuntimeError(f"the captured step ran past the schedule's "
+                               f"{self.tx.table.shape[0]} steps")
+        self.x.copy_(x)
+        self.y.copy_(y)
+        self.graph.replay()
+        self.replays += 1
+        self.tx.count += 1
+        return self.loss
+
+    def __call__(self, x, y):
+        loss = self.run(x, y)
+        return loss.clone() if loss is self.loss else loss
+
+
+def make_train_step(config: NetworkConfig, model: QuantNet,
+                    tx: Adam) -> TrainStep:
+    """step(x, y) → the batch's loss (a device scalar); updates the model's
+    parameters and running statistics in place (TrainStep)."""
+    return TrainStep(config, model, tx)
 
 
 def make_epoch_fn(config: NetworkConfig, model: QuantNet, tx: Adam,
@@ -199,7 +338,8 @@ def make_epoch_fn(config: NetworkConfig, model: QuantNet, tx: Adam,
     """epoch(x_all, y_all, generator) → the epoch's step losses (a device
     tensor). The data stays where it lies; the shuffle is a `randperm` on
     its device from `generator`, and `steps_per_epoch·batch_size` images
-    of it are used, as the reference's scan uses them."""
+    of it are used, as the reference's scan uses them. Each step's loss
+    is written into one [steps] tensor. `epoch.step` is the TrainStep."""
     step = make_train_step(config, model, tx)
     n_scan = steps_per_epoch * batch_size
 
@@ -207,10 +347,15 @@ def make_epoch_fn(config: NetworkConfig, model: QuantNet, tx: Adam,
         perm = torch.randperm(x_all.shape[0], generator=generator,
                               device=x_all.device)[:n_scan]
         xs, ys = x_all[perm], y_all[perm]
-        losses = [step(xs[i:i + batch_size], ys[i:i + batch_size])
-                  for i in range(0, n_scan, batch_size)]
-        return torch.stack(losses)
+        losses = torch.empty(steps_per_epoch, dtype=torch.float32,
+                             device=x_all.device)
+        for i in range(steps_per_epoch):
+            lo = i * batch_size
+            losses[i] = step.run(xs[lo:lo + batch_size],
+                                 ys[lo:lo + batch_size], check=i == 0)
+        return losses
 
+    epoch.step = step
     return epoch
 
 

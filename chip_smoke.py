@@ -139,7 +139,28 @@ Phases (every check raises, so any failure exits non-zero):
    serving_bench at half its measured capacity for 2.5 s; then
    train_compile_serve sfc-w1a1 --epochs 1, workload_demo mnist and
    cifar10, classify and serving_pipeline as subprocesses side by side,
-   each exiting 0; every tool's rows printed.
+   each exiting 0; every tool's rows printed;
+20. the captured programs (runtime/engine.py) and the captured training
+   step (train/trainer.py): every route of CNV-W1A1 and LFC-W1A1 at batch
+   1024 and 1, in every variant the engine dispatches (logits, argmax and
+   for LFC the packed-words pair), the program's output equal to the eager
+   forward bit for bit at its first use and at a replay, in distinct
+   buffers, its capture's kernel launches equal to the eager forward's,
+   logits within rtol=atol=1e-5 of runtime="ref" and argmax equal; then,
+   captured against eager in the same run, classify images/s, the host's
+   enqueue of a forward, device ms per forward (and the eager forward
+   under graph replay, at 1024 and at 1) and batch-1 µs chained,
+   synchronised and host to host (CNV-W1A1 mega, direct, vpu; LFC-W1A1 mega); two launches of one
+   bucket in flight and a load_parameters between two launches (old, then
+   new, never mixed); the memory of one engine's programs; 20 CNV-W1A1
+   training steps at batch 50 captured against eager under cuDNN's
+   deterministic algorithms, losses, parameters, statistics and moments
+   equal bit for bit, with ms a step and the card's busy share; and
+   tools/train_cnv_synth at CNV-W1A1's full width for 2 epochs, seconds
+   an epoch. Where an engine's forward runs as a program, a wrapper counts
+   its launches at the eager run before the capture and at the capture,
+   and the program counts its replays: phases 4, 12 and 15 hold both
+   (capture launches == the eager forward's, replays > 0).
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -559,7 +580,7 @@ def _packed_cases(torch, device):
             .to(device)
 
     def odd(label, bits, m, k, n, nthr, w_binary=False, ends=False,
-            timed=False):
+            timed=False, sliced=False):
         if bits == 1:
             a = words(rng.choice([-1, 1], size=(m, k)), 1, -1)
             wp = words(rng.choice([-1, 1], size=(k, n)), 1, 0)
@@ -581,11 +602,15 @@ def _packed_cases(torch, device):
                 thr[:, 9] = THR_NEVER
                 thr[:, 11] = THR_ALWAYS
             thr = torch.from_numpy(thr).to(device)
+        kind = "small" if timed else "sliced" if sliced else "odd"
         for route in (("vpu", "mxu", "mxu_rm") if bits == 1
                       else ("mxu", "mxu_rm")):
-            add(f"{'small' if timed else 'odd'}: {label} {route} M={m} K={k} "
-                f"N={n} bits={bits}{'' if nthr else ' int32'}", route, a, wp,
-                dict(thr=thr, k=k, bits=bits))
+            work = _work([(m, k, n)], a, wp, *([thr] if nthr else []),
+                         peak=PEAK_B1 if route == "vpu" else PEAK_INT8) \
+                if sliced else None
+            add(f"{kind}: {label} {route} M={m} K={k} N={n} bits={bits}"
+                f"{'' if nthr else ' int32'}", route, a, wp,
+                dict(thr=thr, k=k, bits=bits), work)
 
     odd("batch-1 dense", 1, 1, 512, 512, 1, timed=True)
     odd("batch-1 conv5", 1, 1, 2304, 256, 1, timed=True)
@@ -601,9 +626,12 @@ def _packed_cases(torch, device):
     odd("W2A2 K=27 (K tail), N=100", 2, 1023, 27, 100, 3)
     odd("W2A2 N=10 int32, K=200", 2, 64, 200, 10, 0)
     # K beyond what a block holds whole rows of: walked in slices
-    odd("K=30,000 in slices", 1, 300, 30000, 72, 1)
-    odd("K=30,000 in slices, N=10 int32, one row", 1, 1, 30000, 10, 0)
-    odd("W2A2 K=12,000 in slices, N=300", 2, 77, 12000, 300, 3)
+    # sliced_kernel's three cases: timed, with their bounds
+    odd("K=30,000 in slices", 1, 300, 30000, 72, 1, sliced=True)
+    odd("K=30,000 in slices, N=10 int32, one row", 1, 1, 30000, 10, 0,
+        sliced=True)
+    odd("W2A2 K=12,000 in slices, N=300", 2, 77, 12000, 300, 3,
+        sliced=True)
     odd("thresholds at the ends", 1, 70, 150, 48, 3, ends=True)
     odd("thresholds at the ends, W2A2", 2, 70, 150, 48, 3, ends=True)
     return cases
@@ -1037,7 +1065,6 @@ def _serving_entry_points(torch, images, counters):
     """Phase 15: the HTTP server, /reload, a Frontend over a 'mega' and a
     'direct' backend, `cli bench` and the upload stage, all on the card."""
     from bnn_pynq_tpu_torch import cli
-    from bnn_pynq_tpu_torch.ops import conv_direct
     from bnn_pynq_tpu_torch.runtime import http_server
     from bnn_pynq_tpu_torch.runtime.frontend import (BackendHandle,
                                                      Frontend, HttpBackend)
@@ -1056,6 +1083,10 @@ def _serving_entry_points(torch, images, counters):
         eng = batcher.engine
         x = images[:128]
         want = eng.classify(x)
+        # serve() warmed every bucket: the POST replays the program of the
+        # 256 bucket (argmax), captured there
+        key = ((256, 32, 32, 3), torch.int8, True, False)
+        replays = eng.programs[key].replays.value
         for c in counters.values():
             c.reset()
         code, body = _http(url + "/classify", _npz(x))
@@ -1063,8 +1094,13 @@ def _serving_entry_points(torch, images, counters):
         assert code == 200, (code, body[:200])
         got = json.loads(body)["classes"]
         assert got == want.tolist(), "HTTP /classify != engine.classify"
-        http_launches = {k: c.value for k, c in counters.items()}
-        assert all(n > 0 for n in http_launches.values()), http_launches
+        assert not any(c.value for c in counters.values()), \
+            "a warmed server captured or ran eagerly under traffic"
+        prog = _hold_program(torch, eng, key, "http")
+        assert prog.replays.value > replays, "the POST replayed no program"
+        http_launches = prog.launches
+        assert all(http_launches.get(k, 0) > 0 for k in counters), \
+            http_launches
         assert _http(url + "/healthz") == (200, b"ok")
         code, body = _http(url + "/stats")
         stats = json.loads(body)
@@ -1099,16 +1135,24 @@ def _serving_entry_points(torch, images, counters):
         fe = Frontend([BackendHandle(r, hb, probe=hb.probe)
                        for r, hb in zip(("mega", "direct"), backends)],
                       heartbeat_s=1.0)
-        direct = conv_direct.conv2d_direct.launches
-        direct.reset()
+        deng = servers[1][1].engine
+        before = {k: p.replays.value for k, p in deng.programs.items()}
         futs = [fe.submit(images[i]) for i in range(64)]
         got = np.array([f.result(timeout=120) for f in futs])
         torch.cuda.synchronize()
         assert (got == want[:64]).all(), "Frontend answers != classify"
-        assert direct.value > 0, "the direct backend ran no conv2d_direct"
+        ran = {k: p.replays.value - before.get(k, 0)
+               for k, p in deng.programs.items()
+               if p.replays.value > before.get(k, 0)}
+        assert ran, "the direct backend replayed no program"
+        for k in ran:
+            assert _hold_program(torch, deng, k, "frontend direct").launches[
+                "conv2d_direct"] == 5, "the direct backend's conv2d_direct"
         assert fe.healthy_backends() == ["mega", "direct"]
         print(f"frontend: 64 requests over a mega and a direct HTTP backend "
-              f"== engine.classify (conv2d_direct launches {direct.value})")
+              f"== engine.classify (direct backend: replays "
+              f"{sorted(ran.values())} of programs whose capture launched "
+              f"conv2d_direct 5 times)")
     finally:
         if fe is not None:
             fe.stop()
@@ -1190,7 +1234,9 @@ def _card_vs_cpu(torch, cfg, ds):
         m = tmodel.QuantNet(cfg).to("cpu" if dev == "check" else dev)
         m.load_variables(start["params"], start["batch_stats"])
         tx = KeepGrads(m, 81, 1e-3, 1e-6)
-        sides[dev] = (m, tx, trainer.make_train_step(cfg, m, tx))
+        # the eager step: KeepGrads sees every update (a captured step
+        # replays Adam without calling it; phase 20 holds the two equal)
+        sides[dev] = (m, tx, trainer.make_train_step(cfg, m, tx).eager)
     (mc, txc, step_c), (m0, tx0, step_0) = sides["cuda"], sides["cpu"]
     mk, txk, _ = sides["check"]
     names = [n for n, _ in m0.named_parameters()]
@@ -1296,7 +1342,8 @@ def _float_predictions(torch, cfg, result, x_uint8):
 
 def _step_profile(torch, step, x, y, wall_ms, steps=10):
     """Device time of one train step by kernel (torch.profiler over
-    `steps` steps), and its share of the step's wall time `wall_ms`."""
+    `steps` steps), and its share of the step's wall time `wall_ms`;
+    returns the device ms a step."""
     import collections
 
     from torch.autograd import DeviceType
@@ -1323,6 +1370,7 @@ def _step_profile(torch, step, x, y, wall_ms, steps=10):
           f"per step in {launches / steps:g} launches, "
           f"{100 * device_ms / wall_ms:.1f} % of the {wall_ms:.3f} ms wall "
           f"step; top kernels (ms per step): {top}")
+    return device_ms
 
 
 def _training_phase(torch, counters):
@@ -1373,19 +1421,25 @@ def _training_phase(torch, counters):
         x_dev = torch.from_numpy(data_mod.train_inputs(
             cfg.dataset, ds.x_train, cfg.input_kind)).cuda()
         y_dev = torch.from_numpy(ds.y_train.astype(np.int64)).cuda()
-        tx = trainer.Adam(model, steps, preset["lr_start"], preset["lr_end"])
+        tx = trainer.Adam(model, 2 * steps, preset["lr_start"],
+                          preset["lr_end"])
         epoch = trainer.make_epoch_fn(cfg, model, tx, steps, bs)
         gen = torch.Generator(device="cuda").manual_seed(7)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        timed = epoch(x_dev, y_dev, gen).cpu().numpy()
-        dt = time.perf_counter() - t0
-        assert np.isfinite(timed).all()
-        print(f"train cnv-w1a1 on the card, a second epoch timed alone: "
+        dts = []
+        for _ in range(2):      # the first with the step's capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed = epoch(x_dev, y_dev, gen).cpu().numpy()
+            dts.append(time.perf_counter() - t0)
+            assert np.isfinite(timed).all()
+        dt = dts[1]
+        assert epoch.step.replays == 2 * steps - trainer.WARMUP_STEPS
+        print(f"train cnv-w1a1 on the card, two more epochs timed alone "
+              f"(captured step): {dts[0]:.3f} s with the capture, then "
               f"{dt:.3f} s, {steps / dt:.1f} steps/s, "
               f"{steps * bs / dt:.1f} images/s (host clock, ends in the "
               f"loss fetch)")
-        _step_profile(torch, trainer.make_train_step(cfg, model, tx),
+        _step_profile(torch, trainer.make_train_step(cfg, model, tx).eager,
                       x_dev[:bs], y_dev[:bs], dt / steps * 1e3)
         del x_dev, y_dev, tx, epoch
 
@@ -2261,6 +2315,347 @@ def _tools_phase(torch, smi, results):
           f"{time.perf_counter() - t1:.1f} s for the examples side by side")
 
 
+# -- phase 20: the captured programs and the captured training step ----------
+
+# every route of each net whose programs phase 20 holds to the eager forward
+PROGRAM_ROUTES = {"cnv-w1a1": ("mega", "s2d", "xla", "xlaconv", "vpu", "mxu",
+                               "mxu_rm", "direct"),
+                  "lfc-w1a1": ("mega", "fused", "vpu", "mxu", "mxu_rm",
+                               "direct")}
+# the route and net each eager-against-captured timing runs
+PROGRAM_TIMINGS = (("cnv-w1a1", "mega"), ("cnv-w1a1", "direct"),
+                   ("cnv-w1a1", "vpu"), ("lfc-w1a1", "mega"))
+TRAIN_STEPS = 20          # captured against eager, bit for bit
+
+
+def _eager(eng, xd, argmax=False, words=False):
+    """The engine's eager forward on its published parameters: what its
+    programs capture."""
+    return eng._forward(eng._state[:3], xd, argmax, words)
+
+
+def _key(xd, argmax, words=False):
+    return (tuple(xd.shape), xd.dtype, argmax, words)
+
+
+def _launch_delta(before):
+    from bnn_pynq_tpu_torch.runtime.engine import kernel_launches
+    return {k: n - before[k] for k, n in kernel_launches().items()
+            if n != before[k]}
+
+
+def _hold_program(torch, eng, key, label):
+    """The program of `key`: captured (a CUDA graph), its capture counted
+    the same kernel launches as one eager forward, and it replayed."""
+    from bnn_pynq_tpu_torch.runtime.engine import kernel_launches
+    prog = eng.programs[key]
+    assert prog.graph is not None, f"{label}: not captured"
+    before = kernel_launches()
+    _eager(eng, prog.x, key[2], key[3])
+    torch.cuda.synchronize()
+    eager = _launch_delta(before)
+    assert prog.launches == eager, \
+        f"{label}: capture launches {prog.launches} != eager {eager}"
+    assert prog.replays.value > 0, f"{label}: never replayed"
+    return prog
+
+
+def _programs_held(torch, images, mnist):
+    """20.1: every route of CNV-W1A1 and LFC-W1A1 at batch 1024 and 1, in
+    each variant the engine dispatches: the program's output equal to the
+    eager forward bit for bit (first use and a replay), its capture's
+    launches equal to the eager forward's, logits against runtime="ref"."""
+    from bnn_pynq_tpu_torch import native
+    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
+                                                   kernel_launches)
+    n_programs = 0
+    for name, routes in PROGRAM_ROUTES.items():
+        x_all = images if name.startswith("cnv") else mnist
+        ref = InferenceEngine.from_artifact(_artifact(name), device="cuda",
+                                            runtime="ref")
+        for route in routes:
+            eng = InferenceEngine.from_artifact(_artifact(name),
+                                                device="cuda", route=route)
+            seen = {}
+            for batch in (BATCH, 1):
+                xd = eng.upload(eng.prepare(x_all[:batch]))
+                inputs = {False: xd}
+                if eng.config.input_kind == "bipolar":
+                    inputs[True] = eng.upload(
+                        native.binarize_pack(x_all[:batch]))
+                for words, inp in inputs.items():
+                    for argmax in (False, True):
+                        label = (f"{name} {route} batch {batch} "
+                                 f"{'words-' if words else ''}"
+                                 f"{'argmax' if argmax else 'logits'}")
+                        before = kernel_launches()
+                        want = _eager(eng, inp, argmax, words)
+                        eager = _launch_delta(before)
+                        got = eng.launch_prepared(inp, argmax=argmax,
+                                                  words=words)
+                        again = eng.launch_prepared(inp, argmax=argmax,
+                                                    words=words)
+                        torch.cuda.synchronize()
+                        assert got.data_ptr() != again.data_ptr(), label
+                        assert torch.equal(got, want) and \
+                            torch.equal(again, want), \
+                            f"{label}: program != eager forward"
+                        prog = eng.programs[_key(inp, argmax, words)]
+                        assert prog.graph is not None, label
+                        assert prog.launches == eager, \
+                            f"{label}: capture {prog.launches} != eager {eager}"
+                        assert prog.replays.value == 2, label
+                        if name != "lfc-w1a1" or route != "direct":
+                            assert eager, f"{label}: no kernel launched"
+                        seen[label.split(" ", 2)[2]] = eager
+                        n_programs += 1
+                logits = eng.fetch(eng.launch_prepared(xd))
+                want = ref.logits(eng.prepare(x_all[:batch]), prepared=True)
+                np.testing.assert_allclose(logits, want, **TOL)
+                assert (logits.argmax(1) == want.argmax(1)).all(), \
+                    f"{name} {route} batch {batch}: argmax != ref"
+            print(f"programs {name} {route}: {len(eng.programs)} captured "
+                  f"(batch 1024 and 1), each == the eager forward bit for "
+                  f"bit, capture launches == eager "
+                  f"{seen[f'batch {BATCH} logits']}, logits == ref")
+    return n_programs
+
+
+def _eager_engine(eng):
+    """`eng` with launch_prepared running the eager forward (no program):
+    the engine as it ran before the programs, for the timings."""
+    eng.launch_prepared = lambda xd, argmax=False, words=False: \
+        _eager(eng, xd, argmax, words)
+    return eng
+
+
+def _program_timings(torch, images, mnist, smi):
+    """20.2: classify images/s, the host's enqueue of one forward, device
+    ms per forward and batch-1 µs, captured against eager in this run."""
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.tools.batch1_latency import chained_us, sync_us
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    device = torch.device("cuda", 0)
+    rows = []
+    for name, route in PROGRAM_TIMINGS:
+        x_all = images if name.startswith("cnv") else mnist
+        row = {"net": name, "route": route, "device": smi}
+        for kind in ("captured", "eager", "eager_again", "captured_again"):
+            mode = kind.split("_")[0]
+            eng = InferenceEngine.from_artifact(_artifact(name),
+                                                device="cuda", route=route)
+            if mode == "eager":
+                _eager_engine(eng)
+            eng.classify(x_all)
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                eng.classify(x_all)
+                walls.append(time.perf_counter() - t0)
+            xd = eng.upload(eng.prepare(x_all))
+            eng.fetch(eng.launch_prepared(xd, argmax=True))
+            enqueue = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.launch_prepared(xd, argmax=True)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            one = InferenceEngine.from_artifact(
+                _artifact(name), device="cuda", route=route,
+                batch_buckets=(1,))
+            if mode == "eager":
+                _eager_engine(one)
+            x1 = eng.prepare(x_all[:1])
+            xd1 = one.upload(x1)
+            one.fetch(one.launch_prepared(xd1))
+            got = {"images_per_s": len(x_all) / float(np.median(walls)),
+                   "enqueue_ms": float(np.median(enqueue)),
+                   "chained_ms": _time_ms(
+                       torch, lambda: eng.launch_prepared(xd, argmax=True)),
+                   "b1_chained_us": chained_us(
+                       lambda: one.launch_prepared(xd1), 200),
+                   "b1_sync_us": sync_us(lambda: one.launch_prepared(xd1),
+                                         50, device),
+                   "b1_host_us": sync_us(
+                       lambda: one.logits(x1, prepared=True), 50, device)}
+            if kind == "eager":         # the device time of a forward
+                got["graph_ms"] = graph_ms(lambda: _eager(eng, xd, True))
+                got["b1_graph_us"] = 1e3 * graph_ms(
+                    lambda: _eager(one, xd1))
+            for k, v in got.items():
+                row.setdefault(k, {})[kind] = v
+        rows.append(row)
+        print(f"programs timing {json.dumps(row)}")
+    return rows
+
+
+def _swap_between_replays(torch, images):
+    """20.3: two launches of one bucket in flight without a fetch give
+    distinct, right outputs; a load_parameters between two launches
+    gives the old parameters' logits, then the new ones', never mixed."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda")
+    x1 = eng.upload(eng.prepare(images))
+    x2 = eng.upload(eng.prepare(images[::-1].copy()))
+    want1, want2 = _eager(eng, x1), _eager(eng, x2)
+    a, b = eng.launch_prepared(x1), eng.launch_prepared(x2)
+    old_graph = eng.programs[_key(x1, False)].graph
+    swapped = load_artifact(_artifact("cnv-w1a1"))
+    swapped.out_bias = swapped.out_bias + 1.0
+    c = eng.launch_prepared(x1)
+    eng.load_parameters(swapped)
+    d = eng.launch_prepared(x1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want1) and torch.equal(b, want2), \
+        "two launches in flight: outputs overwritten"
+    assert not torch.equal(want1, want2)
+    assert torch.equal(c, want1), "the launch before the swap: not old"
+    torch.testing.assert_close(d, want1 + 1.0, **TOL)
+    assert torch.equal(d, _eager(eng, x1)), "after the swap: != eager"
+    prog = eng.programs[_key(x1, False)]
+    assert prog.graph is not old_graph and prog.replays.value == 1
+    print("programs swap: cnv-w1a1 mega batch 1024, two launches in flight "
+          "without a fetch == their eager forwards; load_parameters "
+          "(out_bias + 1) between two launches: old, then new (captured "
+          "again), never mixed")
+
+
+def _graph_pool_bytes(torch):
+    """20.4: the memory of one CNV-W1A1 `mega` engine's programs, every
+    bucket in both serving variants (one shared pool): the growth of the
+    allocator's reserved bytes over the captures, and the pool's own
+    segments where the allocator's snapshot names their pool."""
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda")
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    for b in eng.batch_buckets:
+        eng.warmup(b)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_reserved() - reserved0
+    pool = tuple(eng._state.pool)
+    segs = torch.cuda.memory._snapshot()["segments"]
+    in_pool = [s["total_size"] for s in segs
+               if tuple(s.get("segment_pool_id") or ()) == pool]
+    print(f"programs memory: cnv-w1a1 mega, {len(eng.programs)} programs "
+          f"(buckets {list(eng.batch_buckets)}, logits and argmax), reserved "
+          f"bytes grew {grown} over the captures; the shared pool's segments "
+          f"{sum(in_pool)} bytes in {len(in_pool)}")
+
+
+def _captured_training(torch, smi):
+    """20.5: TRAIN_STEPS CNV-W1A1 steps at batch 50 on the captured step
+    against the eager step from the same state, under cuDNN's
+    deterministic algorithms: losses, parameters and statistics equal bit
+    for bit; ms a step of each and the card's busy share."""
+    from bnn_pynq_tpu_torch.models.config import get_config
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    from bnn_pynq_tpu_torch.train import model as tmodel
+    from bnn_pynq_tpu_torch.train import trainer
+
+    cfg = get_config("cnv-w1a1")
+    ds = data_mod.load(cfg.dataset)
+    bs = 50
+    n = 2 * TRAIN_STEPS * bs
+    x = torch.from_numpy(data_mod.train_inputs(
+        cfg.dataset, ds.x_train[:n], cfg.input_kind)).cuda()
+    y = torch.from_numpy(ds.y_train[:n].astype(np.int64)).cuda()
+    start = tmodel.QuantNet(cfg).variables()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sides = {}
+        for kind in ("captured", "eager"):
+            m = tmodel.QuantNet(cfg).cuda()
+            m.load_variables(start["params"], start["batch_stats"])
+            tx = trainer.Adam(m, 2 * TRAIN_STEPS, 1e-3, 1e-6)
+            step = trainer.make_train_step(cfg, m, tx)
+            sides[kind] = (m, tx, step, step if kind == "captured"
+                           else step.eager)
+        losses = {}
+        for kind, (m, tx, step, call) in sides.items():
+            losses[kind] = torch.stack(
+                [call(x[i * bs:(i + 1) * bs], y[i * bs:(i + 1) * bs])
+                 for i in range(TRAIN_STEPS)]).cpu()
+        (mc, txc, stepc, _), (me, txe, _, _) = sides["captured"], \
+            sides["eager"]
+        assert stepc.graph is not None and \
+            stepc.replays == TRAIN_STEPS - trainer.WARMUP_STEPS
+        assert torch.equal(losses["captured"], losses["eager"]), \
+            (losses["captured"], losses["eager"])
+        for (k, a), b in zip(mc.state_dict().items(),
+                             me.state_dict().values()):
+            assert torch.equal(a, b), f"captured != eager: {k}"
+        for a, b in zip(txc.mu + txc.nu, txe.mu + txe.nu):
+            assert torch.equal(a, b), "Adam's moments differ"
+        assert txc.count == txe.count == TRAIN_STEPS
+        # ms a step over the next TRAIN_STEPS batches, host clock
+        times = {}
+        for kind, (m, tx, step, call) in sides.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TRAIN_STEPS, 2 * TRAIN_STEPS):
+                call(x[i * bs:(i + 1) * bs], y[i * bs:(i + 1) * bs])
+            torch.cuda.synchronize()
+            times[kind] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    device_ms = _step_profile(torch, sides["eager"][2].eager, x[:bs], y[:bs],
+                              times["eager"])
+    print(f"captured training step: cnv-w1a1 batch {bs}, {TRAIN_STEPS} "
+          f"steps ({trainer.WARMUP_STEPS} eager, then captured) == the eager "
+          f"steps bit for bit (losses, parameters, statistics, moments; "
+          f"cudnn.deterministic); ms a step (host clock, {TRAIN_STEPS} steps "
+          f"ending in a synchronise): captured {times['captured']:.3f}, "
+          f"eager {times['eager']:.3f}; device {device_ms:.4f} ms a step "
+          f"(the eager step's profile): busy {100 * device_ms / times['captured']:.1f} "
+          f"% captured, {100 * device_ms / times['eager']:.1f} % eager ({smi})")
+
+
+def _train_cnv_synth(torch, smi):
+    """20.6: the train_cnv_synth tool at CNV-W1A1's full width, cut to 2
+    epochs: the loss falls, the engine twin agrees with the float model."""
+    import tempfile
+
+    from bnn_pynq_tpu_torch.tools import train_cnv_synth
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "curve.jsonl")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = train_cnv_synth.main(["--epochs", "2", "--out", out])
+        assert rc == 0, log.getvalue()[-2000:]
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+    *epochs, summ = rows
+    assert summ["loss_decreased"] and summ["device"] == "cuda"
+    assert summ["engine_images"] - summ["engine_float_agree"] <= \
+        FLOAT_ENGINE_DIFFER, summ
+    secs = [round(r["seconds"], 3) for r in epochs]
+    print(f"train_cnv_synth --epochs 2 (cnv-w1a1 full width, 16384 "
+          f"synthetic images, batch 64, 256 steps an epoch): seconds an "
+          f"epoch {secs} (the first with the capture), loss "
+          f"{[round(r['loss'], 4) for r in epochs]}; {json.dumps(summ)} "
+          f"({smi})")
+
+
+def _programs_phase(torch, smi):
+    """Phase 20: the engine's captured programs and the trainer's captured
+    step on the card."""
+    rng = np.random.default_rng(1)          # phase 4's draws
+    images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    mnist = rng.integers(0, 256, size=(BATCH, 28, 28), dtype=np.uint8)
+    t0 = time.perf_counter()
+    n = _programs_held(torch, images, mnist)
+    print(f"programs: {n} held in {time.perf_counter() - t0:.1f} s")
+    _program_timings(torch, images, mnist, smi)
+    _swap_between_replays(torch, images)
+    _graph_pool_bytes(torch)
+    _captured_training(torch, smi)
+    _train_cnv_synth(torch, smi)
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2348,9 +2743,17 @@ def main(argv=None) -> int:
     pred = eng.classify(images)
     torch.cuda.synchronize()
     launches = {k: c.value for k, c in counters.items()}
-    print(f"main path: cnv-w1a1 classify batch {BATCH}, launches {launches}")
+    # the forward's first use: one eager run, the capture, one replay
+    prog = _hold_program(torch, eng, ((BATCH, 32, 32, 3), torch.int8, True,
+                                      False), "main path")
+    print(f"main path: cnv-w1a1 classify batch {BATCH}, launches {launches} "
+          f"(the eager run before the capture and the capture); the "
+          f"program's capture {prog.launches} == the eager forward's, "
+          f"replays {prog.replays.value}")
     for k, n in launches.items():
         assert n > 0, f"main path never launched {k}"
+        assert n == 2 * prog.launches[k], (k, n, prog.launches)
+    assert prog.replays.value == 1
     assert pred.shape == (BATCH,) and pred.min() >= 0 and pred.max() < 10
     eng = _engine_check(torch, "cnv-w1a1", images, "cnv-w1a1")
     assert (eng.classify(images) == pred).all()
@@ -2367,6 +2770,7 @@ def main(argv=None) -> int:
     packed = _new_result()            # 'vpu', the kernel's row
     packed_mxu = _new_result()        # the decode arm at the same layers
     vpu_bound_int8 = 0.0              # 'vpu' held to the int8 rate, as before
+    sliced_rows = []                  # sliced_kernel: the long-K cases
     for label, route, kern, plain, work, total in \
             _packed_cases(torch, device):
         got, want = kern(), plain()
@@ -2390,6 +2794,14 @@ def main(argv=None) -> int:
             beside = f" (graph replay {replay_ms:.4f} ms), bound {bound:.4f} ms"
         elif label.startswith("small:"):  # an event reading is the enqueue
             beside = f" (graph replay {graph_ms(kern):.4f} ms)"
+        elif label.startswith("sliced:"):     # sliced_kernel, with its bound
+            ops_ms, bytes_ms = _bounds(work, got)
+            replay_ms = graph_ms(kern)
+            sliced_rows.append((label, ms, replay_ms, max(ops_ms, bytes_ms),
+                                "operations" if ops_ms >= bytes_ms
+                                else "bytes", plain_ms))
+            beside = (f" (graph replay {replay_ms:.4f} ms), bound "
+                      f"{max(ops_ms, bytes_ms):.5f} ms ({sliced_rows[-1][4]})")
         print(f"packed_matmul {label}: max |kernel - plain| {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{beside}")
     print(f"packed_matmul decode arm, cnv-w1a1 'mxu', the 8 layers: kernel "
@@ -2522,7 +2934,13 @@ def main(argv=None) -> int:
               f"launches conv2d_direct {launches['conv2d_direct']}, "
               f"conv_chain_direct {launches['conv_chain_direct']} (no "
               f"route calls it, as in JAX), plain calls {len(direct_plain)}")
-        assert launches["conv2d_direct"] == 5, "direct path: 5 conv layers"
+        # the first use: the eager run before the capture, the capture
+        dprog = _hold_program(torch, deng, ((BATCH, 32, 32, 3), torch.int8,
+                                            True, False), "direct path")
+        assert dprog.launches["conv2d_direct"] == 5, \
+            "direct path: 5 conv layers a forward"
+        assert launches["conv2d_direct"] == 2 * 5 and \
+            dprog.replays.value == 1, "direct path: 5 conv layers"
         assert not direct_plain, "a CUDA route ran the plain version"
         assert dpred.shape == (BATCH,) and dpred.min() >= 0 \
             and dpred.max() < 10
@@ -2561,6 +2979,9 @@ def main(argv=None) -> int:
     # -- 19. the perf tools and the examples -----------------------------------
     _tools_phase(torch, smi, results)
 
+    # -- 20. the captured programs and the captured training step -------------
+    _programs_phase(torch, smi)
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
@@ -2578,7 +2999,9 @@ def main(argv=None) -> int:
                      f"tools/mosaic_probes.py:{line}")
     results["packed_matmul"] = packed
     kernels = []
-    print("kernel rows (launches on its path per forward; ms summed over "
+    print("kernel rows (launches: counted in the run of its path, phases "
+          "4, 8, 12 and 14; an engine's forward counts twice, the eager run "
+          "before its capture and the capture, then replays; ms summed over "
           "that path's calls at batch 1024; library: the one PyTorch call "
           "that computes the same function, where there is one; int_mm: "
           "torch._int_mm on the same M x K x N, dot only, no im2col, no "
@@ -2596,6 +3019,11 @@ def main(argv=None) -> int:
                "graph_ms": r["graph_ms"],
                "library_graph_ms": r["library_graph_ms"],
                "launch_floor_ms": floor_ms}
+        if k == "packed_matmul":    # sliced_kernel, the long-K arm
+            row["sliced"] = [
+                {"case": label, "ms": ms, "graph_ms": replay, "bound_ms": bd,
+                 "bound_by": by, "plain_ms": pm}
+                for label, ms, replay, bd, by, pm in sliced_rows]
         kernels.append(row)
         int_mm = "none" if row["int_mm_ms"] is None \
             else f"{row['int_mm_ms']:.4f}"
@@ -2606,7 +3034,7 @@ def main(argv=None) -> int:
         lib = "none" if row["library_ms"] is None else \
             (f"{row['library_ms']:.4f} (graph replay "
              f"{row['library_graph_ms']:.5f})")
-        print(f"  {k}: launches_per_forward {row['launches']}, bound_ms "
+        print(f"  {k}: launches {row['launches']}, bound_ms "
               f"{row['bound_ms']:.5f} ({row['bound_by']}), kernel_ms "
               f"{row['ms']:.4f}{graph}, plain_ms {row['plain_ms']:.4f}, "
               f"library_ms {lib}, int_mm_ms {int_mm}")

@@ -223,7 +223,118 @@ def test_no_jax_in_the_port():
                 "tools/perf_suite.py", "tools/layer_table.py",
                 "examples/classify.py", "examples/serving_pipeline.py",
                 "examples/train_compile_serve.py",
-                "examples/workload_demo.py"):
+                "examples/workload_demo.py", "tools/make_drill_dataset.py",
+                "tools/train_cnv_synth.py", "tools/make_pretrained.py"):
         assert f"bnn_pynq_tpu_torch/{new}" in names
     for p in files:
         assert not bad.search(p.read_text()), p
+
+
+# -- the workflow tools: make_drill_dataset, train_cnv_synth, make_pretrained --
+
+def _jax_tool(name):
+    """The JAX package's top-level tools/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"jax_tools_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tree(path):
+    return {str(p.relative_to(path)): p for p in sorted(path.rglob("*"))
+            if p.is_file()}
+
+
+@pytest.mark.parametrize("extra", [[], ["--calibrate-offset", "0.01"]])
+def test_make_drill_dataset_writes_jax_tools_bytes(tmp_path, monkeypatch,
+                                                   capsys, extra):
+    """The same arguments to JAX's tool and the port's give the same
+    files, byte for byte (IDX, CIFAR-10 batches, the GTSRB tree), the
+    same SVHN arrays (a .mat header holds the time it was written), and
+    the same provenance marker but for the tool's own path."""
+    from scipy.io import loadmat
+
+    from bnn_pynq_tpu_torch.tools import make_drill_dataset
+    argv = ["--datasets", "mnist,cifar10,svhn,gtsrb", "--n-train", "64",
+            "--n-test", "32", *extra]
+    monkeypatch.setattr(sys, "argv", ["make_drill_dataset.py", "--out",
+                                      str(tmp_path / "jax"), *argv])
+    _jax_tool("make_drill_dataset").main()
+    jax_out = capsys.readouterr().out
+    assert make_drill_dataset.main(["--out", str(tmp_path / "port"),
+                                    *argv]) == 0
+    assert capsys.readouterr().out.replace("port", "jax") == jax_out
+    jax, port = _tree(tmp_path / "jax"), _tree(tmp_path / "port")
+    assert set(jax) == set(port) and len(jax) > 64 + 32 + 10
+    for name, p in jax.items():
+        got, want = port[name].read_bytes(), p.read_bytes()
+        if name.endswith(".mat"):
+            a, b = loadmat(port[name]), loadmat(p)
+            for k in ("X", "y"):
+                np.testing.assert_array_equal(a[k], b[k])
+        elif name == "SYNTHETIC_DRILL.txt":
+            assert got == want.replace(
+                b"tools/make_drill_dataset.py",
+                b"bnn_pynq_tpu_torch/tools/make_drill_dataset.py")
+        else:
+            assert got == want, name
+
+
+def test_train_cnv_synth_tiny_run(tmp_path):
+    """Full-width CNV-W1A1, cut to 256 images and 2 epochs on the CPU: the
+    loss falls, the rows keep the JAX tool's keys, and the engine's
+    classes on the test images are the trained float model's."""
+    from bnn_pynq_tpu_torch.tools import train_cnv_synth
+    out = tmp_path / "curve.jsonl"
+    assert train_cnv_synth.main(["--epochs", "2", "--n-train", "256",
+                                 "--n-test", "64", "--batch-size", "64",
+                                 "--device", "cpu", "--out",
+                                 str(out)]) == 0
+    *epochs, summ = _rows(out)
+    assert [r["epoch"] for r in epochs] == [0, 1]
+    assert all({"net", "data", "loss", "val_acc"} <= set(r) for r in epochs)
+    assert summ["loss_decreased"] and summ["final_loss"] < epochs[0]["loss"]
+    assert summ["engine_images"] == 64
+    assert summ["engine_float_agree"] == summ["engine_images"], summ
+    assert {"engine_s2d_acc_256", "best_val_acc", "n_train"} <= set(summ)
+    with pytest.raises(SystemExit):         # --out has no default
+        train_cnv_synth.main(["--epochs", "1"])
+
+
+def test_make_pretrained_refuses_the_repos_artifacts(tmp_path,
+                                                     monkeypatch):
+    """--out has no default, and the repository's pretrained/ (or a
+    directory inside it) is refused before anything trains; elsewhere one
+    config trains, compiles and saves an artifact both packages load."""
+    from bnn_pynq_tpu.compiler.artifacts import load_artifact as jax_load
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.tools import make_pretrained
+    for out in (ROOT / "pretrained", ROOT / "pretrained" / "sub",
+                "pretrained"):
+        monkeypatch.chdir(ROOT)
+        with pytest.raises(SystemExit, match="pretrained"):
+            make_pretrained.main(["--out", str(out), "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        make_pretrained.main(["--device", "cpu"])
+    monkeypatch.setattr(make_pretrained, "AVAILABLE_CONFIGS",
+                        {"sfc-w1a1": None})
+    assert make_pretrained.main(["--out", str(tmp_path), "--epochs", "1",
+                                 "--device", "cpu"]) == 0
+    path = str(tmp_path / "sfc-w1a1.npz")
+    art, jart = load_artifact(path), jax_load(path)
+    assert art.config.name == jart.config.name == "sfc-w1a1"
+    assert art.meta["epochs"] == 1 and "val_acc" in art.meta
+    x = np.random.default_rng(0).integers(0, 256, size=(8, 28, 28),
+                                          dtype=np.uint8)
+    InferenceEngine(art, device="cpu").classify(x)
+
+
+@pytest.mark.parametrize("name", ["train_cnv_synth", "make_pretrained"])
+def test_workflow_tools_default_to_the_card(name, tmp_path, monkeypatch):
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tool = importlib.import_module(f"bnn_pynq_tpu_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tool.main(["--epochs", "1", "--out", str(tmp_path / "x")])

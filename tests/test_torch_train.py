@@ -28,6 +28,7 @@ packages' generators differ, so no test compares seeds). Tolerances:
   trained-like BatchNorms (see FORWARD_CASES).
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -554,6 +555,196 @@ def test_three_steps_match_optax(net, wbits, abits, glorot):
             for i, k in enumerate(paths):
                 ptx.mu[i].copy_(torch.from_numpy(np.array(mu[k])))
                 ptx.nu[i].copy_(torch.from_numpy(np.array(nu[k])))
+
+
+class _HostScalarAdam(pt.Adam):
+    """Adam as the port computed it before its table: the learning rate
+    and the bias corrections as host floats at each update (the same
+    numpy float32 arithmetic), the moments and the update as before."""
+
+    @torch.no_grad()
+    def update(self, grads):
+        b1, b2 = pt.ADAM_B1, pt.ADAM_B2
+        lr = self.learning_rate(self.count)
+        self.count += 1
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - b2))
+        den = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(den, pt.ADAM_EPS)
+        upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, self.scales)
+        torch._foreach_add_(self.params, upd)
+        for p in self.clipped:
+            p.clamp_(-1.0, 1.0)
+
+
+@pytest.mark.parametrize("total,lr0,lr1", [(20, 0.05, 1e-4), (7, 0.05, 1e-4),
+                                           (20, 3e-3, 3e-3)])
+def test_device_table_adam_equals_host_scalar_adam_and_optax(total, lr0,
+                                                             lr1):
+    """20 updates from the first, on the same gradients (zeros and values
+    far below eps among them), decaying (lr_end ≠ lr_start, past
+    total_steps where the table grows) or constant: the table-driven Adam
+    equals the host-scalar Adam bit for bit (parameters, moments, the
+    device and host counters), and optax's chain within float32 rounding
+    (rtol 1e-6, atol 1e-7; not bit for bit: XLA's pow rounds the learning
+    rate one ulp off numpy's at some steps, and its fused arithmetic
+    differs in the last bit on a few elements from the first step)."""
+    _, _, variables, _, pmodel = _pair("cnv", 1, 1)
+    ref_model = pm.QuantNet(tiny_cnv(pc))
+    ref_model.load_variables(variables["params"], variables["batch_stats"])
+    params = variables["params"]
+    scales = jt._glorot_scale_tree(params)
+    tx = optax.chain(optax.adam(optax.exponential_decay(lr0, total,
+                                                        lr1 / lr0)),
+                     jt._per_leaf_scale(scales))
+    state = tx.init(params)
+    ptx = pt.Adam(pmodel, total, lr0, lr1)
+    host = _HostScalarAdam(ref_model, total, lr0, lr1)
+    assert ptx.table.shape == (total, 3)
+    paths = [pt._path(n) for n, _ in pmodel.named_parameters()]
+    rng = np.random.default_rng(14)
+    flat = traverse_util.flatten_dict(dict(params))
+    for step in range(20):
+        g = {k: (rng.normal(size=v.shape) * 10.0 ** rng.integers(
+            -12, 0, size=v.shape) * (rng.random(v.shape) > 0.1))
+            .astype(np.float32) for k, v in flat.items()}
+        upd, state = tx.update(traverse_util.unflatten_dict(
+            {k: jnp.asarray(v) for k, v in g.items()}), state,
+            traverse_util.unflatten_dict(flat))
+        flat = traverse_util.flatten_dict(optax.apply_updates(
+            traverse_util.unflatten_dict(flat), upd))
+        flat = {k: (jnp.clip(v, -1.0, 1.0) if jt._is_quant_kernel(k)
+                    else v) for k, v in flat.items()}
+        ptx.update([torch.from_numpy(g[k]) for k in paths])
+        host.update([torch.from_numpy(g[k]) for k in paths])
+        assert ptx.count == host.count == int(ptx.step) == step + 1
+        for a, b in zip(ptx.params + ptx.mu + ptx.nu,
+                        host.params + host.mu + host.nu):
+            assert torch.equal(a, b), step
+        got = pmodel.variables()["params"]
+        for k in paths:
+            np.testing.assert_allclose(got[k[0]][k[1]], np.asarray(flat[k]),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{step} {k}")
+    assert ptx.table.shape[0] >= 20
+    adam = _adam_state(state)
+    mu = traverse_util.flatten_dict(dict(adam.mu))
+    for i, k in enumerate(paths):
+        np.testing.assert_allclose(ptx.mu[i].numpy(), np.asarray(mu[k]),
+                                   rtol=1e-6, atol=0, err_msg=str(k))
+
+
+@pytest.mark.parametrize("net,wbits,abits", [("mlp", 1, 1), ("cnv", 1, 1),
+                                             ("cnv", 2, 2), ("mlp", 1, 2)])
+def test_epoch_equals_its_steps_and_jax_epoch(net, wbits, abits):
+    """make_epoch_fn on JAX's permutation (the losses written into one
+    [steps] tensor, the step object's buffers) against the same batches
+    through the eager step, bit for bit, and against JAX's `lax.scan`
+    epoch (`make_epoch_fn`, two steps, no state shared between them):
+    losses within rtol 1e-6 and batch statistics within STAT_TOL, as a
+    step is held; the parameters within what Adam can make of a gradient
+    of rounding noise in either package, per step at most
+    lr·scale·(1 − b1)/sqrt(1 − b2) (Kingma & Ba, §2.1), and equal within
+    1e-6 for most elements (the median)."""
+    jcfg, jmodel, variables, pcfg, pmodel = _pair(net, wbits, abits,
+                                                  perturb=True)
+    steps, bs, total, lr0, lr1 = 2, 32, 2, 3e-3, 1e-5
+    params, stats = variables["params"], variables["batch_stats"]
+    scales = jt._glorot_scale_tree(params)
+    tx = optax.chain(optax.adam(optax.exponential_decay(lr0, total,
+                                                        lr1 / lr0)),
+                     jt._per_leaf_scale(scales))
+    x, y = _inputs(jcfg, np.random.default_rng(5), steps * bs + 7)
+    key = jax.random.PRNGKey(3)
+    perm = np.asarray(jax.random.permutation(key, x.shape[0]))
+    jparams, jstats, _, jlosses = jt.make_epoch_fn(
+        jcfg, jmodel, tx, steps, bs)(params, stats, tx.init(params), x, y,
+                                     key)
+
+    twin = pm.QuantNet(pcfg)
+    twin.load_variables(params, stats)
+    ttx = pt.Adam(twin, total, lr0, lr1)
+    tstep = pt.make_train_step(pcfg, twin, ttx)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
+    order = torch.from_numpy(perm.astype(np.int64))
+    want = torch.stack([tstep.eager(xt[order[i * bs:(i + 1) * bs]],
+                                    yt[order[i * bs:(i + 1) * bs]])
+                        for i in range(steps)])
+
+    ptx = pt.Adam(pmodel, total, lr0, lr1)
+    epoch = pt.make_epoch_fn(pcfg, pmodel, ptx, steps, bs)
+    real = torch.randperm
+
+    def jax_order(n, generator=None, device=None):
+        assert n == x.shape[0]
+        return order.clone()
+
+    torch.randperm = jax_order
+    try:
+        losses = epoch(xt, yt, torch.Generator())
+    finally:
+        torch.randperm = real
+    assert losses.shape == (steps,) and torch.equal(losses, want)
+    for a, b in zip(pmodel.state_dict().values(), twin.state_dict().values()):
+        assert torch.equal(a, b)
+    assert ptx.count == steps and epoch.step.replays == 0     # the CPU
+
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
+                               rtol=1e-6)
+    got = pmodel.variables()
+    _assert_tree_close(got["batch_stats"], _numpy_tree(jstats),
+                       "batch_stats", **STAT_TOL)
+    adam_max = (1 - pt.ADAM_B1) / np.sqrt(1 - pt.ADAM_B2)
+    lrs = sum(ptx.learning_rate(t) for t in range(steps))
+    flat_s = traverse_util.flatten_dict(scales)
+    flat_p = traverse_util.flatten_dict(_numpy_tree(jparams))
+    for k, want_p in flat_p.items():
+        d = np.abs(got["params"][k[0]][k[1]] - want_p)
+        assert (d <= 1e-6 + 2 * lrs * flat_s.get(k, 1.0) * adam_max).all(), k
+        assert np.median(d) <= 1e-6, (k, np.median(d))
+
+
+def test_no_parameter_is_rebound_after_the_step_is_built(tmp_path,
+                                                          monkeypatch):
+    """A captured step holds the addresses of the parameters, statistics
+    and Adam's buffers: `load_variables` copies in place, and
+    `train(resume_from=...)` loads before the step is built, so the
+    addresses the step records at its first call are the ones it sees at
+    the end of the run, on the model `train` returns."""
+    cfg = tiny_mlp(pc)
+    ds = tiny_dataset(port_data, 128, 64)
+    model = pm.QuantNet(cfg)
+    before = [t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                    model.buffers())]
+    v = pm.QuantNet(cfg, generator=torch.Generator().manual_seed(5)) \
+        .variables()
+    model.load_variables(v["params"], v["batch_stats"])
+    assert [t.data_ptr() for t in itertools.chain(
+        model.parameters(), model.buffers())] == before
+    path = str(tmp_path / "ck.npz")
+    pt.save_checkpoint(path, v["params"], v["batch_stats"])
+
+    made = []
+    real = pt.make_epoch_fn
+
+    def recording(*a, **kw):
+        epoch = real(*a, **kw)
+        made.append((epoch.step, epoch.step._addresses()))
+        return epoch
+
+    monkeypatch.setattr(pt, "make_epoch_fn", recording)
+    r = pt.train(cfg, ds, epochs=2, batch_size=32, resume_from=path,
+                 device="cpu")
+    (step, addresses), = made
+    assert step.model is r.model and step._addresses() == addresses
+    assert step.tx.count == 2 * (128 // 32)
 
 
 # -- train() -------------------------------------------------------------------
