@@ -5,8 +5,12 @@ Port of `bnn_pynq_tpu/parallel/benchmark.py`. For each rank count it spawns
 a world (parallel/launch.py), builds a TPInferenceEngine on a mesh of that
 size and times `iters` forwards of `batch_per_device` images a rank with
 CUDA events and a synchronise on the card (the host clock on the CPU,
-where every op is synchronous). It returns one row a count, images/s and
-efficiency against linear scaling from the first count:
+where every op is synchronous): through the engine's programs, as JAX
+times its jitted call (`images_per_sec`; a graph replay a forward under
+NCCL), and, beside them, the eager forward (`eager_images_per_sec`).
+`execution` says how the programs ran (parallel/spmd.py). It returns one
+row a count, images/s and efficiency (of the programs) against linear
+scaling from the first count:
 
     python -m bnn_pynq_tpu_torch.parallel.benchmark --network cnv-w1a1
 
@@ -33,7 +37,9 @@ WORLD_DEADLINE_S = 900
 
 
 def _time_world(compiled, data, model, batch, iters, device):
-    """Runs in every rank: seconds per forward, on this rank's clock."""
+    """Runs in every rank: seconds per forward through the programs and
+    per eager forward, on this rank's clock, and the engine's
+    execution."""
     import torch
     import torch.distributed as dist
     from bnn_pynq_tpu_torch.parallel.mesh import make_mesh
@@ -49,19 +55,27 @@ def _time_world(compiled, data, model, batch, iters, device):
     else:
         x = rng.integers(-128, 128,
                          size=(batch,) + cfg.input_shape).astype(np.int8)
-    engine.logits(x)                  # warm: kernels, NCCL communicators
+    engine.logits(x)          # warm: kernels, communicators, the capture
     xd = engine.upload(engine._pad_to_bucket(x)[0])
-    if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
-    dist.barrier(group=mesh.group)    # every rank starts its clock together
-    return elapsed_s(lambda: engine.launch_prepared(xd), iters, mesh.device)
+    params, xl = engine._state.params, engine._rows(xd)
+    timed = {}
+    for name, fn in (
+            ("programs", lambda: engine.launch_prepared(xd)),
+            ("eager", lambda: engine._eager(params, xl, False, False))):
+        fn()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        dist.barrier(group=mesh.group)    # every rank starts its clock
+        timed[name] = elapsed_s(fn, iters, mesh.device)
+    return timed["programs"], timed["eager"], engine.execution
 
 
 def measure_tp_scaling(compiled, device_counts: Optional[List[int]] = None,
                        batch_per_device: int = 256, iters: int = 10,
                        data_axis: bool = True, *, device: str = "cuda"):
     """Rows {"devices", "mesh", "batch", "images_per_sec",
-    "scaling_efficiency", "ranks_per_card"} for each rank count."""
+    "eager_images_per_sec", "execution", "scaling_efficiency",
+    "ranks_per_card"} for each rank count."""
     import torch
     cards = torch.cuda.device_count() if device == "cuda" else 0
     if device == "cuda" and not cards:
@@ -75,12 +89,13 @@ def measure_tp_scaling(compiled, device_counts: Optional[List[int]] = None,
         else:
             data, model = 1, nd
         batch = batch_per_device * nd
-        secs = run_world(_time_world, nd, timeout=WORLD_DEADLINE_S,
-                         device=device,
-                         args=(compiled, data, model, batch, iters,
-                               device))[0]
+        secs, eager, execution = run_world(
+            _time_world, nd, timeout=WORLD_DEADLINE_S, device=device,
+            args=(compiled, data, model, batch, iters, device))[0]
         results.append({"devices": nd, "mesh": f"{data}x{model}",
                         "batch": batch, "images_per_sec": batch / secs,
+                        "eager_images_per_sec": batch / eager,
+                        "execution": execution,
                         "ranks_per_card": -(-nd // cards) if cards
                         else None})
     base = results[0]["images_per_sec"]

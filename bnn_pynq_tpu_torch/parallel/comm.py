@@ -40,6 +40,14 @@ gloo every collective on a CUDA tensor therefore copies it to the host and
 the result back, here and nowhere else, and counts the round trip in
 `host_copies`; under NCCL a CUDA tensor never leaves the card. This is the
 transport of ranks that share one card (parallel/launch.py).
+
+CUDA graphs: under NCCL the collectives, the ring's send and receive
+included, are captured into a graph like any kernel (the engines'
+programs, the sharded training step); the counters move when the Python
+call runs, that is at an eager run and at a capture, never at a replay. A
+host copy cannot be captured, so a collective on a gloo group called
+while this thread's current stream is capturing raises at once, before
+anything is staged.
 """
 
 from __future__ import annotations
@@ -55,6 +63,20 @@ from bnn_pynq_tpu_torch.ops._build import LaunchCounter
 host_copies = LaunchCounter()
 
 
+def _capturing() -> bool:
+    """True while this thread's current CUDA stream is being captured."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def _check_capture(group) -> None:
+    if dist.get_backend(group) == "gloo" and _capturing():
+        raise RuntimeError(
+            "a gloo collective inside a CUDA graph capture: gloo stages "
+            "every CUDA tensor through the host, which no graph can hold; "
+            "under gloo the engines run their eager forward")
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     """True where gloo must see a host copy of `t`."""
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
@@ -68,6 +90,7 @@ def _to_wire(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _gather(t: torch.Tensor, group, axis: int) -> torch.Tensor:
+    _check_capture(group)
     n = dist.get_world_size(group)
     if n == 1:
         return t
@@ -90,6 +113,7 @@ def gather_batch(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    _check_capture(group)
     if dist.get_world_size(group) == 1:
         return t
     buf = _to_wire(t, group).clone()
@@ -174,6 +198,7 @@ class _Pending:
 def ppermute_start(t: torch.Tensor, group) -> _Pending:
     """Send `t` to the right neighbour in `group`, receive the left one's
     (same shape and dtype); returns at once."""
+    _check_capture(group)
     ppermute_start.calls.add()
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
@@ -189,6 +214,7 @@ def ppermute_start(t: torch.Tensor, group) -> _Pending:
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """`t` of global rank `src` on every member; returns the result (a
     new tensor where `t` had to go through the host)."""
+    _check_capture(group)
     broadcast.calls.add()
     wire = _to_wire(t, group)
     dist.broadcast(wire, src=src, group=group)

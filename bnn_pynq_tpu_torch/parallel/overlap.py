@@ -44,6 +44,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Tuple
@@ -64,6 +65,7 @@ from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
 from bnn_pynq_tpu_torch.parallel import comm
 from bnn_pynq_tpu_torch.parallel.spmd import (DEFAULT_BATCH_BUCKETS,
+                                              EXECUTIONS, Programs,
                                               SPMDEngine)
 
 ARMS = ("ring", "blocking", "auto")
@@ -316,8 +318,11 @@ class OverlapTPEngine(SPMDEngine):
     (they are collective programs) and checks that they agree within
     rtol=atol=1e-5; the rank at mesh position (0, 0) times them (CUDA
     events on the card) and broadcasts its choice, so every rank keeps the
-    same arm. The choice and its measurement are on `.arm`, `.arm_reason`
-    and in repr()."""
+    same arm. Each arm is timed as it will run: its program, captured once
+    at the calibration batch under NCCL (into a pool of its own, dropped
+    with it), as JAX times its compiled arms. The choice and its
+    measurement are on `.arm`, `.arm_reason` and in repr(), beside the
+    engine's `execution` (parallel/spmd.py)."""
 
     def __init__(self, compiled: CompiledNetwork, mesh, blocking: bool = False,
                  arm: str = None, calib_batch: int = None,
@@ -339,8 +344,8 @@ class OverlapTPEngine(SPMDEngine):
     def _shard(self, compiled):
         return shard_overlap_params(compiled, self.mesh)
 
-    def _forward(self, state, x_local):
-        return self._fn(*state, x_local)
+    def _forward(self, params, x_local):
+        return self._fn(*params, x_local)
 
     def _pick_arm(self, calib_batch, iters):
         dd = self._data_d
@@ -352,16 +357,21 @@ class OverlapTPEngine(SPMDEngine):
         else:
             x = rng.integers(-128, 128, size=(
                 batch,) + self.config.input_shape).astype(np.int8)
-        rows = batch // dd
-        xl = self.upload(x)[self.mesh.coords[0] * rows:][:rows]
-        state = self._state
+        xl = self._rows(self.upload(x))
+        params = self._state.params
+        # the calibration graphs go with this call: a pool of their own
+        calibration = Programs(self.execution, self._stream)
         times, fns, outs = [], {}, {}
         for name in ("ring", "blocking"):
             fn = make_overlap_tp_forward(self.config, self.mesh,
                                          blocking=(name == "blocking"))
-            outs[name] = fn(*state, xl).cpu().numpy()     # warm
-            times.append(elapsed_s(lambda: fn(*state, xl), iters,
-                                   self.device))
+            label = (f"OverlapTPEngine on mesh {dict(self.mesh.shape)}, "
+                     f"calibration batch {batch}, arm {name}")
+            run = functools.partial(calibration.run, name,
+                                    functools.partial(fn, *params), xl,
+                                    lambda label=label: label)
+            outs[name] = run().cpu().numpy()       # warm
+            times.append(elapsed_s(run, iters, self.device))
             fns[name] = fn
         np.testing.assert_allclose(outs["ring"], outs["blocking"],
                                    rtol=1e-5, atol=1e-5)
@@ -374,15 +384,17 @@ class OverlapTPEngine(SPMDEngine):
         name = ("ring", "blocking")[int(got[0])]
         clock = "CUDA events" if self.device.type == "cuda" else "host clock"
         reason = (f"measured ring {got[1] * 1e3:.2f} ms vs blocking "
-                  f"{got[2] * 1e3:.2f} ms at batch {batch} on mesh "
+                  f"{got[2] * 1e3:.2f} ms ({self.execution}) at batch "
+                  f"{batch} on mesh "
                   f"{dict(self.mesh.shape)} (rank {self.mesh.leader}'s "
                   f"{clock})")
         return fns[name], name, reason
 
     def __repr__(self):
         return (f"OverlapTPEngine({self.config.name!r}, "
-                f"mesh={dict(self.mesh.shape)}, arm={self.arm!r}; "
-                f"{self.arm_reason})")
+                f"mesh={dict(self.mesh.shape)}, arm={self.arm!r}, "
+                f"execution={self.execution!r}: "
+                f"{EXECUTIONS[self.execution]}; {self.arm_reason})")
 
     def words_device(self, words, *, argmax: bool = False):
         """Packed-transport twin of logits_device for bipolar nets: the

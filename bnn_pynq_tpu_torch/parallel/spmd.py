@@ -32,12 +32,35 @@ the new artifact from the leader when leading, and publishes the new
 shards with one assignment under the lock that every launch holds, so each
 rank switches at the same batch boundary, as the single-card engine does
 (runtime/engine.py).
+
+Programs, the port's form of JAX's one compiled program per shape: a
+launch runs this rank's rows of the padded batch through the program of
+their shape and variant (runtime/engine.py's `Program`: a fixed input, the
+forward, a fixed output, a clone out), made at the key's first use, on
+every rank alike. How a program runs is decided from the mesh, never by
+catching a failure (`execution`):
+- 'graphs', a card under NCCL: a CUDA graph, captured after one eager run
+  on the engine's stream (it creates the NCCL communicators, the ring's
+  pairs included) in thread-local mode into the engine's pool, then
+  replayed; the collectives are in the graph. A capture that fails
+  raises, naming the engine, the mesh, the bucket and the variant;
+- 'programs', the CPU: the same programs run the eager forward into their
+  fixed buffers (the tests' stand-in);
+- 'eager', a card under gloo: gloo stages every collective through the
+  host, which no graph can hold, so the engine runs its eager forward and
+  keeps no programs.
+Whether a rank warms, captures or replays depends only on the key and the
+parameter set, which every rank shares, so the ranks' collectives stay in
+step. A swap captures every program again on the new shards into a new
+pool, on every rank in sorted key order, before it publishes them; a
+follower does so on the leader's swap. The serving header and batch are
+broadcast outside the programs.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +70,7 @@ from bnn_pynq_tpu_torch.compiler.artifacts import CompiledNetwork
 from bnn_pynq_tpu_torch.ops.packing import unpack_bits, words_to_tensor
 from bnn_pynq_tpu_torch.parallel import comm
 from bnn_pynq_tpu_torch.parallel.mesh import Mesh
-from bnn_pynq_tpu_torch.runtime.engine import prepare_host
+from bnn_pynq_tpu_torch.runtime.engine import Program, prepare_host
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 
@@ -56,6 +79,65 @@ _DTYPES = (torch.int8, torch.int32)
 _MAX_NDIM = 5
 # op, version, argmax, words, dtype index, ndim, shape[_MAX_NDIM]
 _HEADER_LEN = 6 + _MAX_NDIM
+
+
+EXECUTIONS = {
+    "graphs": "a CUDA graph a program (NCCL)",
+    "programs": "programs on the CPU, eager into fixed buffers",
+    "eager": "eager: gloo stages every collective through the host, which "
+             "no graph can hold"}
+
+
+def execution_of(mesh: Mesh) -> str:
+    """How a rank of `mesh` runs a forward (see EXECUTIONS)."""
+    if mesh.device.type == "cpu":
+        return "programs"
+    return "graphs" if mesh.backend == "nccl" else "eager"
+
+
+class Programs(dict):
+    """One parameter set's programs by key, in one pool, and how a call
+    runs: through the key's program, made at the key's first use and
+    captured on `stream` under 'graphs'; under 'eager' the body itself,
+    with no program kept. The engines and make_gspmd_engine's `logits`
+    decide their launches here."""
+
+    def __init__(self, execution: str, stream):
+        super().__init__()
+        self.execution, self.stream = execution, stream
+        # a pool whose graphs have all been released takes no new capture
+        # (PyTorch's allocator asserts), so each set has its own
+        self.pool = torch.cuda.graph_pool_handle() \
+            if execution == "graphs" else None
+
+    def make(self, key, body, x: torch.Tensor, label) -> Program:
+        """The program of `key` (label() names it in a failed capture),
+        made at x's shape, its collectives counted, if there is none."""
+        prog = self.get(key)
+        if prog is None:
+            prog = Program(body, x, label(), collectives=comm.counts)
+            if self.execution == "graphs":
+                prog.capture(self.stream, self.pool)
+            self[key] = prog                # kept once it could capture
+        return prog
+
+    def run(self, key, body, x: torch.Tensor, label) -> torch.Tensor:
+        """body(x) through the program of `key`."""
+        if self.execution == "eager":
+            return body(x)
+        return self.make(key, body, x, label)(x)
+
+
+class _State(NamedTuple):
+    """What a rank publishes as one unit: its shards and the programs that
+    run on them."""
+    params: tuple
+    programs: Programs
+
+
+def _key_order(key):
+    shape, dtype, argmax, words = key
+    return shape, str(dtype), argmax, words
 
 
 def check_topology(old, new) -> None:
@@ -69,7 +151,7 @@ def check_topology(old, new) -> None:
 class SPMDEngine:
     """Base of TPInferenceEngine and OverlapTPEngine. A subclass provides
     `_shard(compiled)` (this rank's parameters, published as one unit)
-    and `_forward(state, x_local)` (float32 logits of the whole batch,
+    and `_forward(params, x_local)` (float32 logits of the whole batch,
     gathered over 'data', from this rank's rows of it)."""
 
     def __init__(self, compiled: CompiledNetwork, mesh: Mesh,
@@ -88,13 +170,25 @@ class SPMDEngine:
         self._lock = threading.RLock()
         self._leading = False
         self._version = 0
-        self._state = self._shard(compiled)
+        self.execution = execution_of(mesh)
+        self._stream = torch.cuda.Stream(self.device) \
+            if self.execution == "graphs" else None
+        self._state = self._new_state(compiled)
 
     def _shard(self, compiled: CompiledNetwork):
         raise NotImplementedError
 
-    def _forward(self, state, x_local: torch.Tensor) -> torch.Tensor:
+    def _forward(self, params, x_local: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _new_state(self, compiled: CompiledNetwork) -> _State:
+        return _State(self._shard(compiled),
+                      Programs(self.execution, self._stream))
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.config.name!r}, "
+                f"mesh={dict(self.mesh.shape)}, execution="
+                f"{self.execution!r}: {EXECUTIONS[self.execution]})")
 
     # -- parameters ---------------------------------------------------------
     def load_parameters(self, compiled: CompiledNetwork):
@@ -116,9 +210,18 @@ class SPMDEngine:
         return self._version
 
     def _publish(self, compiled: CompiledNetwork, version: int) -> None:
-        state = self._shard(compiled)
+        """Shard `compiled`, make every program of the old set on it, then
+        publish both in one assignment; the old graphs go once the device
+        has run their last replay."""
+        state = self._new_state(compiled)
+        old = self._state
+        for key in sorted(old.programs, key=_key_order):
+            self._program(state, key, old.programs[key].x, run=False)
         self._state = state
         self.compiled, self._version = compiled, version
+        if self._stream is not None:
+            torch.cuda.synchronize(self.device)
+        del old
 
     # -- input --------------------------------------------------------------
     def prepare(self, x):
@@ -162,18 +265,58 @@ class SPMDEngine:
         with self._lock:
             if self._leading:
                 self._send(OP_LAUNCH, self._version, xd, argmax, words)
-            return self._program(self._state, xd, argmax, words)
+            return self._run(self._state, xd, argmax, words)
 
-    def _program(self, state, x: torch.Tensor, argmax: bool,
-                 words: bool) -> torch.Tensor:
-        if words:
-            x = unpack_bits(x, int(np.prod(self.config.input_shape)))
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's 'data' rows of a padded batch (a view)."""
         rows = x.shape[0] // self._data_d
-        lo = self.mesh.coords[0] * rows
-        out = self._forward(state, x[lo:lo + rows])
+        return x[self.mesh.coords[0] * rows:][:rows]
+
+    def _eager(self, params, x_local: torch.Tensor, argmax: bool,
+               words: bool) -> torch.Tensor:
+        """The eager forward from this rank's rows: what a program runs."""
+        if words:
+            x_local = unpack_bits(x_local,
+                                  int(np.prod(self.config.input_shape)))
+        out = self._forward(params, x_local)
         if argmax:
             out = out.argmax(dim=-1).to(torch.int32)
         return out
+
+    def _program(self, state: _State, key: tuple, x_local: torch.Tensor,
+                 run: bool):
+        """The program of `key` on `state`'s shards: run on x_local, or
+        only made (a swap's re-capture)."""
+        shape, dtype, argmax, words = key
+        params = state.params               # not the state: no cycle
+
+        def body(x):
+            return self._eager(params, x, argmax, words)
+
+        def label():
+            return (f"{type(self).__name__} on mesh {dict(self.mesh.shape)} "
+                    f"(rank {dist.get_rank()}), bucket "
+                    f"{shape[0] * self._data_d} (local input {tuple(shape)} "
+                    f"{dtype}), variant {'words-' if words else ''}"
+                    f"{'argmax' if argmax else 'logits'}")
+        if run:
+            return state.programs.run(key, body, x_local, label)
+        return state.programs.make(key, body, x_local, label)
+
+    def _run(self, state: _State, x: torch.Tensor, argmax: bool,
+             words: bool) -> torch.Tensor:
+        """This rank's part of a launch on the padded batch x: its rows
+        through the program of their shape and variant, made here at the
+        key's first use (or the eager forward, see `execution`)."""
+        x_local = self._rows(x)
+        key = (tuple(x_local.shape), x_local.dtype, argmax, words)
+        return self._program(state, key, x_local, run=True)
+
+    @property
+    def programs(self) -> Programs:
+        """The published programs by (local input shape, dtype, argmax,
+        words); none under 'eager'."""
+        return self._state.programs
 
     def fetch(self, dev_out: torch.Tensor) -> np.ndarray:
         """Device output → numpy (waits for the device)."""
@@ -234,7 +377,7 @@ class SPMDEngine:
             if version != self._version:
                 raise RuntimeError(f"launch at parameter version {version}, "
                                    f"this rank holds {self._version}")
-            self._program(self._state, x, argmax, words)
+            self._run(self._state, x, argmax, words)
 
     def _send(self, op: int, version: int, x: Optional[torch.Tensor] = None,
               argmax: bool = False, words: bool = False) -> None:

@@ -17,7 +17,9 @@ JAX wraps the layer loop in `shard_map` because GSPMD cannot partition a
 `pallas_call`; here each rank runs it on its own shards and the
 collectives are explicit calls (parallel/comm.py). Every rank returns the
 logits of the whole batch, gathered over 'data', as JAX's call returns
-them. The engines' serving surface is parallel/spmd.py's.
+them. The engines' serving surface, and the programs they run in place of
+JAX's jitted calls (a CUDA graph a shape under NCCL), are
+parallel/spmd.py's.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bnn_pynq_tpu_torch.compiler.artifacts import CompiledNetwork
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
@@ -42,7 +45,8 @@ from bnn_pynq_tpu_torch.parallel import comm
 from bnn_pynq_tpu_torch.parallel.overlap import dense, first_conv, \
     layer_levels
 from bnn_pynq_tpu_torch.parallel.spmd import (DEFAULT_BATCH_BUCKETS,
-                                              SPMDEngine)
+                                              Programs, SPMDEngine,
+                                              execution_of)
 
 Spec = Tuple[Optional[str], ...]
 MODEL_COLS: Spec = (None, "model")
@@ -141,7 +145,11 @@ def make_tp_forward(config: NetworkConfig, mesh, *, route: str = "mxu"):
 
 def make_gspmd_engine(compiled: CompiledNetwork, mesh):
     """Tensor- and data-parallel inference on decoded integer levels;
-    returns `logits(x_prepared) -> np.ndarray`, called on every rank.
+    returns `logits(x_prepared) -> np.ndarray`, called on every rank. As
+    JAX jits it, `logits` runs one program per padded shape (its
+    `programs`, by this rank's input shape; parallel/spmd.py's
+    `execution`, kept on `logits.execution`); `logits.forward(x_local)` is
+    the eager forward the programs run.
 
     JAX's counterpart annotates shardings and lets GSPMD insert the
     collectives. Torch has no GSPMD: this keeps JAX's name and its rule (a
@@ -199,6 +207,10 @@ def make_gspmd_engine(compiled: CompiledNetwork, mesh):
         logits = act.to(torch.float32) * scale + bias
         return comm.gather_batch(logits, dg)
 
+    execution = execution_of(mesh)
+    programs = Programs(execution, torch.cuda.Stream(device)
+                        if execution == "graphs" else None)
+
     def logits(x_prepared):
         x = np.asarray(x_prepared, dtype=np.int8)
         b = x.shape[0]
@@ -208,9 +220,18 @@ def make_gspmd_engine(compiled: CompiledNetwork, mesh):
             x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
         rows = x.shape[0] // dd
         lo = mesh.coords[0] * rows
-        xl = torch.from_numpy(np.ascontiguousarray(x[lo:lo + rows]))
-        return local_forward(xl.to(device)).cpu().numpy()[:b]
+        xl = torch.from_numpy(np.ascontiguousarray(x[lo:lo + rows])) \
+            .to(device)
+        out = programs.run(
+            tuple(xl.shape), local_forward, xl,
+            lambda: f"make_gspmd_engine on mesh {dict(mesh.shape)} (rank "
+                    f"{dist.get_rank()}), bucket {x.shape[0]} (local input "
+                    f"{tuple(xl.shape)} int8), variant logits")
+        return out.cpu().numpy()[:b]
 
+    logits.programs = programs
+    logits.execution = execution
+    logits.forward = local_forward
     return logits
 
 
@@ -238,8 +259,8 @@ class TPInferenceEngine(SPMDEngine):
                        for v in (compiled.out_scale, compiled.out_bias))
         return params, scale, bias
 
-    def _forward(self, state, x_local):
-        return self._fn(*state, x_local)
+    def _forward(self, params, x_local):
+        return self._fn(*params, x_local)
 
     def launch_prepared(self, xd, *, argmax: bool = False,
                         words: bool = False):

@@ -28,6 +28,17 @@ Per step, then: per sharded layer one `gather_model` forward, one
 gradient) and one `mean_over_data` each way; per BatchNorm of a whole
 layer one `mean_over_data` each way; two `psum` (gradients, loss).
 
+The step is the trainer's `TrainStep` on the sharded body: on a card under
+NCCL its warm-up steps run eagerly (creating the communicators), then one
+step is captured, the backward's collectives on autograd's device thread
+included, and replayed, as JAX jits its step; the epoch replays it over
+the stacked batches and fetches the losses once, as JAX scans it. The
+captured step reads its learning rate and bias corrections from Adam's
+table on the device as the eager one does; the table of
+`init_sharded`'s `Adam(total_steps=1)` grows by doubling as the run goes
+on, each growth a new capture on every rank at the same step. Under
+gloo, or on the CPU, it runs the eager step.
+
 Specs are tuples of mesh axis names or None per dimension, as
 `parallel/tp.py::param_specs` writes them: `(None, None, None, "model")`
 is JAX's `P(None, None, None, "model")`, `()` its `P()`.
@@ -43,10 +54,11 @@ import torch.nn.functional as F
 
 from bnn_pynq_tpu_torch.models.config import ConvSpec, NetworkConfig, PoolSpec
 from bnn_pynq_tpu_torch.parallel import comm
+from bnn_pynq_tpu_torch.parallel.spmd import execution_of
 from bnn_pynq_tpu_torch.train.model import (BatchNorm, QuantNet, full_fp32)
 from bnn_pynq_tpu_torch.train.quant import quantize_activations
-from bnn_pynq_tpu_torch.train.trainer import (Adam, _flatten, _unflatten,
-                                              squared_hinge_loss)
+from bnn_pynq_tpu_torch.train.trainer import (Adam, TrainStep, _flatten,
+                                              _unflatten, squared_hinge_loss)
 
 Spec = Tuple[Optional[str], ...]
 
@@ -207,51 +219,66 @@ def gather_variables(model: ShardedQuantNet, mesh) -> dict:
 
 
 def _rows(t, mesh) -> torch.Tensor:
-    """This rank's 'data' rows of a global batch, on its device."""
+    """This rank's 'data' rows of a global batch: a view, on the batch's
+    device (a numpy batch as a CPU tensor on its memory)."""
     d, i = mesh.shape["data"], mesh.coords[0]
     if t.shape[0] % d:
         raise ValueError(f"batch {t.shape[0]} does not split over "
                          f"'data' = {d}")
     n = t.shape[0] // d
-    return torch.as_tensor(t[i * n:(i + 1) * n]).to(mesh.device)
+    return torch.as_tensor(t[i * n:(i + 1) * n])
 
 
 def make_sharded_train_step(config: NetworkConfig, mesh,
-                            model: ShardedQuantNet, tx: Adam):
+                            model: ShardedQuantNet, tx: Adam) -> TrainStep:
     """step(x, y) → the global batch's loss (a device scalar, equal on
     every rank); updates this rank's shard in place. Every rank passes the
     global batch (numpy or tensors; the batch must divide by 'data') and
     trains on its rows. The port's `make_train_step(config, model, tx)`
-    with the mesh; JAX's takes no model because flax's is stateless."""
+    with the mesh; JAX's takes no model because flax's is stateless.
+
+    A `TrainStep` on this body: this rank's rows through the forward (its
+    BatchNorm moments averaged over 'data'), `autograd.grad`, the
+    gradients averaged over 'data' in one flat `psum`, the loss likewise;
+    then `tx.apply`. On a card under NCCL it is captured after the
+    warm-up, collectives and all, and replayed; the rows are copied into
+    its fixed buffers; under gloo it stays eager (parallel/spmd.py's
+    `execution`)."""
     group = mesh.data_group
     d = mesh.shape["data"]
 
-    def step(x, y):
-        x, y = _rows(x, mesh), _rows(y, mesh)
+    def loss_and_grads(x, y):
         with full_fp32():
             loss = squared_hinge_loss(model(x, train=True), y,
                                       config.num_classes)
             grads = torch.autograd.grad(loss, tx.params)
         flat = comm.psum(torch.cat([g.reshape(-1) for g in grads]),
                          group) / d
-        tx.update([f.view_as(g) for f, g in zip(
-            flat.split([g.numel() for g in grads]), grads)])
-        return comm.psum(loss.detach(), group) / d
+        return comm.psum(loss.detach(), group) / d, [
+            f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
 
-    return step
+    return TrainStep(config, model, tx, loss_and_grads,
+                     lambda x, y: (_rows(x, mesh), _rows(y, mesh)),
+                     capture=execution_of(mesh) == "graphs")
 
 
 def make_sharded_epoch_fn(config: NetworkConfig, mesh,
                           model: ShardedQuantNet, tx: Adam):
     """run(xs, ys) → the step losses (numpy): the sharded step over
     pre-batched xs [steps, batch, ...], ys [steps, batch] in order, no
-    shuffle, the losses stacked on the device and fetched once."""
+    shuffle, each loss written into one device tensor fetched once (JAX's
+    `lax.scan`). On a card it replays the captured step (`run.step`)."""
     step = make_sharded_train_step(config, mesh, model, tx)
 
     def run(xs, ys):
-        return torch.stack([step(x, y) for x, y in zip(xs, ys)]).cpu() \
-            .numpy()
+        losses = torch.empty(len(xs), dtype=torch.float32,
+                             device=mesh.device)
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            losses[i] = step.run(x, y, check=i == 0)
+        return losses.cpu().numpy()
 
+    run.step = step
     return run
 
 

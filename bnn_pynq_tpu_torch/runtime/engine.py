@@ -130,20 +130,29 @@ def kernel_launches() -> Dict[str, int]:
     return out
 
 
+def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
 class Program:
     """One forward at one input shape and variant on fixed buffers: `x`
     (the input), `out` (the output) and, on a card, the CUDA graph that
     reads the one and writes the other. `launches`: the kernel launches
     its capture counted (a replay goes through no wrapper, so it counts
-    none); `replays`: how many times the graph ran."""
+    none); `collectives`: likewise the calls of `collectives()` (the
+    parallel engines pass `parallel/comm.py::counts`; none here);
+    `replays`: how many times the graph ran."""
 
-    def __init__(self, body, x: torch.Tensor, label: str):
+    def __init__(self, body, x: torch.Tensor, label: str,
+                 collectives=dict):
         self.body = body                    # x → output, the eager forward
         self.label = label
         self.x = torch.zeros_like(x)
         self.out: Optional[torch.Tensor] = None
         self.graph = None
         self.launches: Dict[str, int] = {}
+        self.collectives: Dict[str, int] = {}
+        self._count_collectives = collectives
         self.replays = _build.LaunchCounter()
 
     def capture(self, stream, pool) -> None:
@@ -155,6 +164,7 @@ class Program:
             with torch.cuda.stream(stream):
                 self.body(self.x)
                 before = kernel_launches()
+                before_calls = self._count_collectives()
                 graph = torch.cuda.CUDAGraph()
                 graph.capture_begin(pool=pool,
                                     capture_error_mode="thread_local")
@@ -166,9 +176,8 @@ class Program:
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.label} "
                                f"failed: {e}") from e
-        self.launches = {k: n - before[k]
-                         for k, n in kernel_launches().items()
-                         if n != before[k]}
+        self.launches = _moved(before, kernel_launches())
+        self.collectives = _moved(before_calls, self._count_collectives())
         self.graph, self.out = graph, out
 
     def __call__(self, xd: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ on fixed input, label and loss buffers and replays it: a step costs two
 copies and one graph launch. Adam reads its learning rate and bias
 corrections from a float32 table on the device, indexed by a step
 counter the step itself advances, so the captured step is the eager
-one. The graph holds the addresses of the parameters, statistics and
+one; a run that outlasts the table grows it to twice the steps taken
+and captures the step again on it. The graph holds the addresses of the parameters, statistics and
 moments: they are updated in place and never rebound (`load_variables`
 copies); a replay raises if one was. A capture that fails raises; on the
 CPU the same step object runs the eager body.
@@ -233,6 +234,10 @@ class Adam:
 WARMUP_STEPS = 2
 
 
+def _given(x, y):
+    return x, y
+
+
 class TrainStep:
     """step(x, y) → the batch's loss (a device scalar); updates the model's
     parameters and running statistics in place. On a card the first
@@ -240,20 +245,43 @@ class TrainStep:
     next captures it (cuDNN's benchmark off, the trainer's float32 settings
     in force) and every call from then on copies the batch into the fixed
     buffers and replays the graph (`replays` counts them). On the CPU it
-    runs the eager step."""
+    runs the eager step.
 
-    def __init__(self, config: NetworkConfig, model: QuantNet, tx: Adam):
+    loss_and_grads(x, y) → (loss, gradients of `tx.params`): the body
+    (default: the model's squared hinge loss and its autograd gradients;
+    the sharded step passes its own, with the collectives). inputs(x, y)
+    → the tensors the body takes (default: as given; the sharded step's
+    picks this rank's rows, as views, copied into the fixed buffers
+    without an allocation); the eager step moves them to the device.
+    capture=False runs the eager step on a card too (the sharded step
+    under gloo, whose collectives no graph can hold).
+
+    The captured step reads its row of Adam's table through the device
+    counter, so it may not outrun the table: at the table's end the table
+    grows to twice the steps taken and the step is captured again on it
+    (`captures` counts the captures). Every rank of a sharded step reaches
+    that count at the same step, so all capture alike."""
+
+    def __init__(self, config: NetworkConfig, model: QuantNet, tx: Adam,
+                 loss_and_grads=None, inputs=_given, capture: bool = True):
         self.config, self.model, self.tx = config, model, tx
-        self.cuda = tx.params[0].device.type == "cuda"
-        self.stream = torch.cuda.Stream(tx.params[0].device) \
-            if self.cuda else None
+        self._body = loss_and_grads         # None: the model's own
+        self.inputs = inputs
+        self.device = tx.params[0].device
+        self.graphs = capture and self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.graphs \
+            else None
         self.graph = None
         self.x = self.y = self.loss = None
         self.addresses = ()
         self.warm = 0
+        self.captures = 0
         self.replays = 0
 
-    def _loss_and_grads(self, x, y):
+    def loss_and_grads(self, x, y):
+        """(loss, gradients): the body given, else the model's."""
+        if self._body is not None:
+            return self._body(x, y)
         with full_fp32():
             loss = squared_hinge_loss(self.model(x, train=True), y,
                                       self.config.num_classes)
@@ -262,9 +290,18 @@ class TrainStep:
 
     def eager(self, x, y):
         """The eager step: forward, loss, gradients, `tx.update`."""
-        loss, grads = self._loss_and_grads(x, y)
+        x, y = (t.to(self.device) for t in self.inputs(x, y))
+        loss, grads = self.loss_and_grads(x, y)
         self.tx.update(grads)
         return loss
+
+    def _fit_table(self) -> None:
+        """Give Adam's table the row of the next step: at its end it grows
+        to twice the steps taken (a new tensor), and the graph captured on
+        the old one is dropped."""
+        if self.tx.count >= self.tx.table.shape[0]:
+            self.tx.reserve(2 * (self.tx.count + 1))
+            self.graph = None
 
     def _addresses(self):
         tx = self.tx
@@ -273,15 +310,15 @@ class TrainStep:
             tx.mu, tx.nu, (tx.table, tx.step)))
 
     def _capture(self, x, y) -> None:
-        self.x, self.y = torch.empty_like(x), torch.empty_like(y)
-        self.tx.reserve(max(self.tx.total_steps, self.tx.count + 1))
+        self.x = torch.empty(x.shape, dtype=x.dtype, device=self.device)
+        self.y = torch.empty(y.shape, dtype=y.dtype, device=self.device)
         graph = torch.cuda.CUDAGraph()
         benchmark = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = False
         try:
             self.stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.graph(graph, stream=self.stream):
-                loss, grads = self._loss_and_grads(self.x, self.y)
+                loss, grads = self.loss_and_grads(self.x, self.y)
                 self.tx.apply(grads)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the training step "
@@ -290,13 +327,14 @@ class TrainStep:
         finally:
             torch.backends.cudnn.benchmark = benchmark
         self.graph, self.loss = graph, loss
+        self.captures += 1
         self.addresses = self._addresses()
 
     def run(self, x, y, check: bool = True):
         """One step; on a card after the warm-up the loss is the fixed
         buffer, which the next step overwrites. check: hold the captured
         addresses against the live tensors first."""
-        if not self.cuda:
+        if not self.graphs:
             return self.eager(x, y)
         if self.graph is None and self.warm < WARMUP_STEPS:
             self.warm += 1
@@ -305,15 +343,15 @@ class TrainStep:
                 loss = self.eager(x, y)
             torch.cuda.current_stream().wait_stream(self.stream)
             return loss
-        if self.graph is None:
-            self._capture(x, y)
-        elif check and self._addresses() != self.addresses:
+        x, y = self.inputs(x, y)
+        if check and self.graph is not None and \
+                self._addresses() != self.addresses:
             raise RuntimeError("a parameter, statistic or Adam buffer was "
                                "rebound after the training step was "
                                "captured; update it in place")
-        if self.tx.count >= self.tx.table.shape[0]:
-            raise RuntimeError(f"the captured step ran past the schedule's "
-                               f"{self.tx.table.shape[0]} steps")
+        self._fit_table()
+        if self.graph is None:
+            self._capture(x, y)
         self.x.copy_(x)
         self.y.copy_(y)
         self.graph.replay()

@@ -118,8 +118,8 @@ Phases (every check raises, so any failure exits non-zero):
    set, init_sharded(seed=0): in a world of one rank on NCCL, mesh (1, 1),
    and in a world of two ranks sharing the card over gloo, meshes (1, 2)
    (every layer sharded, the classes-wide last one too) and (2, 1): three
-   steps after a first one timed by CUDA events with their collectives
-   counted, then, with
+   eager steps (`step.eager`) after a first one timed by CUDA events with
+   their collectives counted, then, with
    cuDNN's deterministic algorithms, three make_sharded_train_step steps
    against make_train_step on the same card from the same state with the
    same constant-rate, no-Glorot Adam (loss
@@ -160,7 +160,28 @@ Phases (every check raises, so any failure exits non-zero):
    an epoch. Where an engine's forward runs as a program, a wrapper counts
    its launches at the eager run before the capture and at the capture,
    and the program counts its replays: phases 4, 12 and 15 hold both
-   (capture launches == the eager forward's, replays > 0).
+   (capture launches == the eager forward's, replays > 0);
+21. the parallel engines' programs (parallel/spmd.py) and the captured
+   sharded step, in a world of one rank on NCCL: a probe that captures an
+   all_reduce, an all_gather_into_tensor and a batch_isend_irecv pair in
+   one graph and replays them equal to the eager calls (this PyTorch and
+   NCCL capture collectives); on mesh (1, 1) TPInferenceEngine 'vpu' and
+   'mxu', OverlapTPEngine ring, blocking and 'auto' and make_gspmd_engine
+   on phase 4's 1024 images at batch 1024 and 1, each program equal to the
+   eager forward bit for bit at its first use and at a replay, its
+   capture's kernel launches and collective calls equal to the eager
+   forward's, replayed, classify and logits equal to the single-card
+   engine; captured against eager in the same run: the host's enqueue of
+   a forward, device ms per forward (and the eager forward under graph
+   replay) and batch-1 µs chained; a load_parameters between two launches
+   (old, then new, captured again); 40 sharded CNV-W1A1 steps at batch 50
+   captured against eager under cuDNN's deterministic algorithms (losses,
+   parameters, statistics, moments bit for bit), ms a step and the card's
+   busy share of each (the replayed graph profiled), and a captured
+   make_sharded_epoch_fn equal to them, captured again each time Adam's
+   table doubles. The
+   2-rank gloo worlds of phases 17-18 report their engines as eager, with
+   no programs: gloo stages through the host, which no graph can hold.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -170,7 +191,11 @@ card, mesh (2, cards): each rank computes on the card make_mesh gave it
 'vpu' and OverlapTPEngine ring and blocking on CNV-W1A1 equal the
 single-card engine on that card; then phase 18's job in an NCCL world of
 one rank a card, mesh (cards / 2, 2): the only run where NCCL carries a
-model axis above 1.
+model axis above 1, its sharded steps captured with their collectives;
+then phase 21's probe over every card and its engine checks on meshes
+(1, cards) and (cards / 2, 2) in an NCCL world of one rank a card, real
+collectives in the graphs (the ring's ppermutes, the blocking arm's
+all-gathers, counted at the capture), ring against blocking.
 
 Beside each kernel's time stands its bound: the least time the card could
 take for the same work, the larger of operations / peak rate and bytes /
@@ -1340,10 +1365,12 @@ def _float_predictions(torch, cfg, result, x_uint8):
     return logits_fn(x).argmax(-1).cpu().numpy()
 
 
-def _step_profile(torch, step, x, y, wall_ms, steps=10):
+def _step_profile(torch, step, x, y, wall_ms, steps=10, require=True):
     """Device time of one train step by kernel (torch.profiler over
     `steps` steps), and its share of the step's wall time `wall_ms`;
-    returns the device ms a step."""
+    returns the device ms a step. require=False: None where the trace
+    holds no device event (a replayed graph's kernels, where this
+    profiler does not see them)."""
     import collections
 
     from torch.autograd import DeviceType
@@ -1362,6 +1389,9 @@ def _step_profile(torch, step, x, y, wall_ms, steps=10):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
             launches += 1
+    if not by_name and not require:
+        print(f"train step profile ({steps} steps): no device event")
+        return None
     assert by_name, "the profiler's trace holds no device event"
     device_ms = sum(by_name.values())
     top = "; ".join(f"{ms:.4f} {name[:60]}"
@@ -1722,14 +1752,20 @@ def _reset_path_launches():
 def _held(torch, label, eng, x, want_logits, want_cls):
     """Classify x (uint8) on a parallel engine with the launches and the
     collectives counted around it, then logits; both against the
-    single-card engine's. Returns the row of this configuration."""
+    single-card engine's. Returns the row of this configuration: its
+    launches per forward (under NCCL a classify's first use of a bucket
+    counts the eager run before the capture and the capture, 2 × a
+    forward) and its execution."""
     from bnn_pynq_tpu_torch.parallel import comm
     from bnn_pynq_tpu_torch.parallel.overlap import elapsed_s
     _reset_path_launches()
     comm.reset_counts()
     got_cls = eng.classify(x, prepared=False)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in _path_launches().items() if v}
+    runs = 2 if eng.execution == "graphs" else 1
+    launches = {k: v // runs for k, v in _path_launches().items() if v}
+    assert all(v * runs == _path_launches()[k] for k, v in launches.items()),\
+        f"{label}: launches {_path_launches()} not {runs} forwards"
     counts = {k: v for k, v in comm.counts().items() if v}
     got = eng.logits(x, prepared=False)
     assert np.array_equal(got_cls, want_cls), f"{label}: classes differ"
@@ -1739,7 +1775,8 @@ def _held(torch, label, eng, x, want_logits, want_cls):
     ms = elapsed_s(lambda: eng.launch_prepared(xd), 3, eng.device) * 1e3
     return {"label": label, "launches": launches, "collectives": counts,
             "max_abs_err": float(np.abs(got - want_logits).max()),
-            "ms": ms}
+            "ms": ms, "execution": eng.execution,
+            "programs": len(eng.programs)}
 
 
 def _parallel_one_rank(images):
@@ -1764,6 +1801,7 @@ def _parallel_one_rank(images):
                     TPInferenceEngine(compiled, mesh, route=route), images,
                     single.logits(images), single.classify(images))
         assert row["launches"] == {f"packed_matmul[{route}]": 8}, row
+        assert row["execution"] == "graphs" and row["programs"] == 2, row
         rows.append(row)
     mega = InferenceEngine(compiled, device="cuda")
     want = mega.logits(images), mega.classify(images)
@@ -1812,6 +1850,9 @@ def _parallel_two_ranks(images, mnist):
                                     if shape == "(1,2)" else ("ring",))]
             for label, eng in engines:
                 row = _held(torch, f"{name} {label} {shape}", eng, x, *want)
+                # gloo stages through the host: no graph, no program
+                assert row["execution"] == "eager" and \
+                    row["programs"] == 0 and "'eager'" in repr(eng), row
                 if label.startswith("TP"):
                     assert row["launches"] == {"packed_matmul[vpu]": 8
                                                if name == "cnv-w1a1" else 4}
@@ -1897,6 +1938,7 @@ def _spread_phase(torch, smi):
     print(f"sharded training spread: an nccl world of {cards} ranks, one a "
           f"card, in {time.perf_counter() - t0:.1f} s")
     _check_sharded(res, smi, f"{cards}-rank nccl, one rank a card")
+    _spread_programs(torch, smi, cards)
 
 
 def _serve_following(mesh, images):
@@ -1982,7 +2024,7 @@ def _parallel_phase(torch, smi):
                                       if "arm_reason" in row else "")
             print(f"  [{world}] {row['label']}: logits == single-card "
                   f"engine (max |diff| {row['max_abs_err']:.3g}), classes "
-                  f"equal; launches per classify {row['launches']}; "
+                  f"equal; launches per forward {row['launches']}; "
                   f"collectives {row['collectives']}; {row['ms']:.3f} ms "
                   f"per forward at batch {BATCH} ({smi}){extra}")
     served, follower = two[0]["served"], two[1]["served"]
@@ -2025,8 +2067,8 @@ def _tree_worst(got, want):
 
 def _sharded_rank(shapes, xs, ys, images):
     """Phase 18, in each rank: per mesh shape, CNV-W1A1 from
-    init_sharded(seed=0): SHARDED_STEPS steps timed after a first one, with
-    their collectives counted; then, under cuDNN's deterministic
+    init_sharded(seed=0): SHARDED_STEPS eager steps timed after a first
+    one, with their collectives counted; then, under cuDNN's deterministic
     algorithms, SHARDED_STEPS steps by make_sharded_train_step and, anew,
     by make_sharded_epoch_fn, and the same steps of make_train_step on
     this rank's card from the same state and the same constant-rate,
@@ -2054,18 +2096,19 @@ def _sharded_rank(shapes, xs, ys, images):
     for data, model in shapes:
         mesh = make_mesh(data=data, model=model)
         dev = mesh.device
+        # the eager step (`step.eager`; phase 21 times the captured one),
         # timed with cuDNN's default algorithms, as the trainer runs, after
         # a step that sets them up
         net, tx = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
         step = make_sharded_train_step(cfg, mesh, net, tx)
-        step(xs[0], ys[0])
+        step.eager(xs[0], ys[0])
         comm.reset_counts()
         ms = []
         for i in range(SHARDED_STEPS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            step(xs[i], ys[i])
+            step.eager(xs[i], ys[i])
             end.record()
             end.synchronize()
             ms.append(start.elapsed_time(end))
@@ -2170,8 +2213,7 @@ def _check_sharded(res, smi, world):
             FLOAT_ENGINE_DIFFER, rank0["float_engine_differ"]
         for rank, row in rows:
             assert row["tp"]["launches"] == {"packed_matmul[vpu]": 8}, row
-        steps = SHARDED_STEPS
-        per_step = {k: v / steps for k, v in rank0["counts"].items() if v}
+        counted = {k: v for k, v in rank0["counts"].items() if v}
         print(f"sharded training [{label}, {rank0['backend']}, "
               f"{rank0['device']}]: CNV-W1A1 at batch 50, "
               f"layers sharded {rank0['sharded']}; losses "
@@ -2179,9 +2221,10 @@ def _check_sharded(res, smi, world):
               f"single-card step's {[round(v, 6) for v in rank0['ref_losses']]}"
               f"; gathered parameters within {worst:.3g} of it; epoch == "
               f"steps; {n_same} leaves equal bit for bit "
-              f"across ranks; ms per step (CUDA events) "
+              f"across ranks; ms per eager step (step.eager, CUDA events) "
               f"{[round(v, 3) for v in rank0['step_ms']]} ({smi}); "
-              f"collectives per step {json.dumps(per_step)}")
+              f"collectives over those {SHARDED_STEPS} eager steps "
+              f"{json.dumps(counted)}")
         print(f"  served: mega launches {rank0['mega_launches']}, logits == "
               f"ref (max |diff| {rank0['mega_err']:.3g}), float model and "
               f"engine argmax differ on {rank0['float_engine_differ']} of "
@@ -2656,6 +2699,462 @@ def _programs_phase(torch, smi):
     _train_cnv_synth(torch, smi)
 
 
+# -- phase 21: the parallel engines' programs and the captured sharded step --
+
+SPMD_ENGINES = ("TPInferenceEngine vpu", "TPInferenceEngine mxu",
+                "OverlapTPEngine ring", "OverlapTPEngine blocking",
+                "OverlapTPEngine auto", "make_gspmd_engine")
+# the single-card route each engine is held against
+SPMD_SINGLE = {"TPInferenceEngine vpu": "vpu", "TPInferenceEngine mxu": "mxu"}
+SHARDED_CAPTURE_STEPS = 20
+
+
+def _nccl_capture_probe(torch):
+    """21.1, in a rank of an NCCL world: an all_reduce, an
+    all_gather_into_tensor and a batch_isend_irecv pair (to the right
+    neighbour, from the left; the rank itself in a world of one) captured
+    in one graph in thread-local mode and replayed on new inputs, equal to
+    the same calls made eagerly. Integer-valued floats, so the sums are
+    exact in any order."""
+    import torch.distributed as dist
+    n, me = dist.get_world_size(), dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def body(x):
+        a = x.clone()
+        dist.all_reduce(a)
+        g = torch.empty((n * x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                        device=device)
+        dist.all_gather_into_tensor(g, x)
+        r = torch.empty_like(x)
+        for w in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, (me + 1) % n),
+                 dist.P2POp(dist.irecv, r, (me - 1) % n)]):
+            w.wait()
+        return a, g, r
+
+    def draw(seed):
+        gen = torch.Generator().manual_seed(1000 * seed + me)
+        return torch.randint(-64, 64, (256, 512), generator=gen).to(
+            device, torch.float32)
+
+    static = draw(0)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body(static)                        # the communicators, eagerly
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            outs = body(static)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    for seed in (1, 2):
+        x = draw(seed)
+        static.copy_(x)
+        graph.replay()
+        want = body(x)
+        torch.cuda.synchronize()
+        for name, got, w in zip(("all_reduce", "all_gather_into_tensor",
+                                 "batch_isend_irecv"), outs, want):
+            assert torch.equal(got, w), \
+                f"NCCL capture probe: the replayed {name} != the eager one"
+    return {"world": n, "replays": 2}
+
+
+def _spmd_engine(label, compiled, mesh):
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    from bnn_pynq_tpu_torch.parallel.tp import (TPInferenceEngine,
+                                                make_gspmd_engine)
+    kind, _, arg = label.partition(" ")
+    if kind == "make_gspmd_engine":
+        return make_gspmd_engine(compiled, mesh)
+    if kind == "TPInferenceEngine":
+        return TPInferenceEngine(compiled, mesh, route=arg)
+    return OverlapTPEngine(compiled, mesh, arm=arg)
+
+
+def _calls_delta(before):
+    from bnn_pynq_tpu_torch.parallel import comm
+    return {k: n - before[k] for k, n in comm.counts().items()
+            if n != before[k]}
+
+
+def _gspmd_rows(mesh, x):
+    """The rows of prepared x that make_gspmd_engine gives this rank, on
+    its card (the batch padded to a multiple of 'data')."""
+    import torch
+    d = mesh.shape["data"]
+    x = np.concatenate([x, np.zeros(((-len(x)) % d,) + x.shape[1:],
+                                    x.dtype)])
+    rows = len(x) // d
+    return torch.from_numpy(np.ascontiguousarray(
+        x[mesh.coords[0] * rows:][:rows])).to(mesh.device)
+
+
+def _spmd_held(torch, label, eng, mesh, x_prepared, wants, graph=True):
+    """21.2, one engine of a rank: at batch 1024 and 1, in both variants
+    (make_gspmd_engine: logits), the program's output equal to the eager
+    forward bit for bit at its first use and at a replay, its capture's
+    kernel launches and collective calls equal to the eager forward's,
+    and it replayed; classify and logits of the batch against the
+    single-card engine (`wants`: logits, classes). Then, captured against
+    eager: the host's enqueue of a forward at 1024 (ms), device ms per
+    forward chained at 1024, batch-1 µs chained, and (graph) the eager
+    forward under graph replay at 1024 and at 1."""
+    from bnn_pynq_tpu_torch.parallel import comm
+    from bnn_pynq_tpu_torch.runtime.engine import kernel_launches
+    from bnn_pynq_tpu_torch.tools.batch1_latency import chained_us
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    gspmd = label == "make_gspmd_engine"
+    assert eng.execution == "graphs", (label, eng.execution)
+
+    def forwards(x):
+        """{argmax: (program launch, eager forward, program key)}"""
+        if gspmd:
+            xl = _gspmd_rows(mesh, x)
+            key = tuple(xl.shape)
+            return {False: (lambda: eng.programs[key](xl),
+                            lambda: eng.forward(xl), key)}
+        xd = eng.upload(eng._pad_to_bucket(x)[0])
+        xl, params = eng._rows(xd), eng._state.params
+        return {am: (lambda am=am: eng.launch_prepared(xd, argmax=am),
+                     lambda am=am: eng._eager(params, xl, am, False),
+                     (tuple(xl.shape), xl.dtype, am, False))
+                for am in (False, True)}
+
+    runs = {}
+    for batch in (BATCH, 1):
+        if gspmd:
+            eng(x_prepared[:batch])         # makes the shape's program
+        for argmax, (program, eager, key) in forwards(
+                x_prepared[:batch]).items():
+            tag = f"{label} batch {batch} {'argmax' if argmax else 'logits'}"
+            before, calls = kernel_launches(), comm.counts()
+            want = eager()
+            torch.cuda.synchronize()
+            e_launch, e_calls = _launch_delta(before), _calls_delta(calls)
+            replayed = eng.programs[key].replays.value if gspmd else 0
+            got, again = program(), program()
+            torch.cuda.synchronize()
+            p = eng.programs[key]
+            assert torch.equal(got, want) and torch.equal(again, want), \
+                f"{tag}: program != eager forward"
+            assert p.graph is not None, f"{tag}: not captured"
+            assert p.launches == e_launch and e_launch, \
+                f"{tag}: capture launches {p.launches} != eager {e_launch}"
+            assert p.collectives == e_calls, \
+                f"{tag}: capture collectives {p.collectives} != {e_calls}"
+            assert p.replays.value - replayed == 2, f"{tag}: replays"
+            runs[tag] = {"launches": p.launches,
+                         "collectives": p.collectives}
+    want_logits, want_cls = wants
+    if gspmd:
+        got = eng(x_prepared)
+        assert (got.argmax(1) == want_cls).all(), label
+    else:
+        assert (eng.classify(x_prepared) == want_cls).all(), label
+        got = eng.logits(x_prepared)
+    np.testing.assert_allclose(got, want_logits, **TOL, err_msg=label)
+    times = {}
+    for kind in ("captured", "eager"):
+        i = 0 if kind == "captured" else 1
+        big = forwards(x_prepared)
+        fwd = big[not gspmd][i]             # classify's variant
+        fwd1 = forwards(x_prepared[:1])[False][i]
+        fwd()
+        enqueue = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        times[kind] = {"enqueue_ms": float(np.median(enqueue)),
+                       "chained_ms": _time_ms(torch, fwd),
+                       "b1_chained_us": chained_us(fwd1, 200)}
+        if graph and kind == "eager":
+            times[kind]["graph_ms"] = graph_ms(fwd)
+            times[kind]["b1_graph_us"] = 1e3 * graph_ms(fwd1)
+    return {"label": label, "runs": runs, "times": times,
+            "programs": len(eng.programs), "repr": repr(eng)}
+
+
+def _spmd_swap(torch, compiled, mesh):
+    """21.3: a load_parameters (out_bias + 1) between two launches of one
+    bucket on an OverlapTPEngine: the first launch gives the old
+    parameters' output, the second the new ones', captured again."""
+    import copy
+
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    eng = OverlapTPEngine(compiled, mesh)
+    x = np.random.default_rng(4).integers(
+        -128, 128, size=(BATCH, 32, 32, 3), dtype=np.int8)
+    xd = eng.upload(x)
+    a = eng.launch_prepared(xd)
+    want_a = eng._eager(eng._state.params, eng._rows(xd), False, False)
+    old = next(iter(eng.programs.values())).graph
+    swapped = copy.copy(compiled)
+    swapped.out_bias = compiled.out_bias + 1.0
+    eng.load_parameters(swapped)
+    b = eng.launch_prepared(xd)
+    want_b = eng._eager(eng._state.params, eng._rows(xd), False, False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want_a), "the launch before the swap: not old"
+    assert torch.equal(b, want_b), "the launch after the swap: not new"
+    torch.testing.assert_close(b, a + 1.0, **TOL)
+    prog = next(iter(eng.programs.values()))
+    assert prog.graph is not old and prog.replays.value == 1
+    return {"version": eng.version}
+
+
+def _sharded_capture(torch, mesh, xs, ys):
+    """21.4: 2·SHARDED_CAPTURE_STEPS sharded CNV-W1A1 steps at batch 50 on
+    the captured step against the eager one from init_sharded(seed=0),
+    under cuDNN's deterministic algorithms: losses, parameters,
+    statistics and Adam's moments equal bit for bit. The captured side's
+    Adam table is sized for the whole phase first, so it captures once
+    and its timing holds replays only. Then make_sharded_epoch_fn from
+    the same state on `init_sharded`'s one-row table, which grows by
+    doubling (captures at steps 2, 6, 14, 30): its two epochs' losses
+    equal to the captured steps', each fetched once. ms a step (host
+    clock over SHARDED_CAPTURE_STEPS steps ending in a synchronise) of
+    the captured step, the eager step and a third epoch, none capturing;
+    device ms a step (torch.profiler) of the eager step and of the
+    replayed graph, both on cuDNN's deterministic algorithms."""
+    from bnn_pynq_tpu_torch.models.config import get_config
+    from bnn_pynq_tpu_torch.parallel import (init_sharded,
+                                             make_sharded_epoch_fn,
+                                             make_sharded_train_step)
+    from bnn_pynq_tpu_torch.train import trainer
+    cfg = get_config("cnv-w1a1")
+    n = SHARDED_CAPTURE_STEPS
+    xs, ys = (torch.from_numpy(a).to(mesh.device) for a in (xs, ys))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sides = {}
+        for kind in ("captured", "eager"):
+            net, tx = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
+            step = make_sharded_train_step(cfg, mesh, net, tx)
+            sides[kind] = (net, tx, step, step if kind == "captured"
+                           else step.eager)
+        sides["captured"][1].reserve(4 * n)
+        losses = {kind: torch.stack([call(xs[i], ys[i])
+                                     for i in range(2 * n)]).cpu()
+                  for kind, (_, _, _, call) in sides.items()}
+        (nc, txc, stepc, _), (ne, txe, stepe, _) = sides["captured"], \
+            sides["eager"]
+        assert stepc.captures == 1 and \
+            stepc.replays == 2 * n - trainer.WARMUP_STEPS, stepc.replays
+        assert torch.equal(losses["captured"], losses["eager"]), losses
+        for (k, a), b in zip(nc.state_dict().items(),
+                             ne.state_dict().values()):
+            assert torch.equal(a, b), f"sharded captured != eager: {k}"
+        for a, b in zip(txc.mu + txc.nu, txe.mu + txe.nu):
+            assert torch.equal(a, b), "sharded: Adam's moments differ"
+        times = {}
+        for kind, (_, _, _, call) in sides.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                call(xs[i], ys[i])
+            torch.cuda.synchronize()
+            times[kind] = (time.perf_counter() - t0) / n * 1e3
+        assert stepc.captures == 1
+        net3, tx3 = init_sharded(cfg, mesh, lr=SHARDED_LR, seed=0)
+        run = make_sharded_epoch_fn(cfg, mesh, net3, tx3)
+        for half in (slice(0, n), slice(n, 2 * n)):
+            assert np.array_equal(run(xs[half], ys[half]),
+                                  losses["captured"][half].numpy()), \
+                f"the epoch != the captured steps at {half}"
+        assert run.step.captures == 4, run.step.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(xs[:n], ys[:n])
+        times["epoch"] = (time.perf_counter() - t0) / n * 1e3
+        assert run.step.captures == 4 and \
+            run.step.replays == 3 * n - trainer.WARMUP_STEPS
+        # profiled under the deterministic algorithms the graph holds
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            device_ms = {
+                "eager": _step_profile(torch, stepe.eager, xs[0], ys[0],
+                                       times["eager"]),
+                "captured": _step_profile(torch, stepc, xs[0], ys[0],
+                                          times["captured"], require=False)}
+        assert stepc.captures == 1
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"times": times, "device_ms": device_ms,
+            "profile": log.getvalue().strip(),
+            "losses": [round(float(v), 6) for v in losses["captured"][:3]]}
+
+
+def _programs_rank(images, xs, ys):
+    """Phase 21, in the one rank of an NCCL world on the card: the probe,
+    every engine on mesh (1, 1), the swap, the sharded step."""
+    import torch
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
+                                                   prepare_host)
+
+    probe = _nccl_capture_probe(torch)
+    mesh = make_mesh(data=1, model=1)
+    assert mesh.backend == "nccl"
+    compiled = load_artifact(_artifact("cnv-w1a1"))
+    plain = _count_plain()
+    wants = {}
+    for route in ("vpu", "mxu", "mega"):
+        single = InferenceEngine(compiled, device="cuda", route=route)
+        wants[route] = single.logits(images), single.classify(images)
+    x = prepare_host(compiled.config, images)
+    rows = [_spmd_held(torch, label, _spmd_engine(label, compiled, mesh),
+                       mesh, x, wants[SPMD_SINGLE.get(label, "mega")])
+            for label in SPMD_ENGINES]
+    swap = _spmd_swap(torch, compiled, mesh)
+    assert not plain, f"plain versions called: {sorted(set(plain))}"
+    return {"probe": probe, "rows": rows, "swap": swap,
+            "sharded": _sharded_capture(torch, mesh, xs, ys)}
+
+
+def _print_spmd_rows(rows, smi, where):
+    for row in rows:
+        c, e = row["times"]["captured"], row["times"]["eager"]
+        first = next(iter(row["runs"].values()))
+        replay = b1 = ""
+        if "graph_ms" in e:
+            replay = f" (eager under graph replay {e['graph_ms']:.4f})"
+            b1 = f" (eager under graph replay {e['b1_graph_us']:.2f})"
+        print(f"  [{where}] {row['label']}: {len(row['runs'])} programs held "
+              f"(batch 1024 and 1) == the eager forward bit for bit, capture "
+              f"launches {first['launches']} and collectives "
+              f"{first['collectives']} == eager's, replayed; == single-card "
+              f"engine; enqueue ms captured {c['enqueue_ms']:.4f} / eager "
+              f"{e['enqueue_ms']:.4f}; device ms a forward at 1024 captured "
+              f"{c['chained_ms']:.4f} / eager {e['chained_ms']:.4f}{replay}; "
+              f"batch-1 chained µs captured {c['b1_chained_us']} / eager "
+              f"{e['b1_chained_us']}{b1} ({smi})")
+
+
+def _spmd_programs_phase(torch, smi):
+    """Phase 21: the parallel engines' programs and the captured sharded
+    step in a one-rank NCCL world on the card."""
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    from bnn_pynq_tpu_torch.train import data as data_mod
+    rng = np.random.default_rng(1)          # phase 4's draws
+    images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    ds = data_mod.load("cifar10")
+    n = 2 * SHARDED_CAPTURE_STEPS * 50
+    xs = data_mod.train_inputs("cifar10", ds.x_train[:n], "int8").reshape(
+        (2 * SHARDED_CAPTURE_STEPS, 50, 32, 32, 3))
+    ys = ds.y_train[:n].astype(np.int64).reshape(-1, 50)
+    t0 = time.perf_counter()
+    res = run_world(_programs_rank, 1, args=(images, xs, ys),
+                    device="cuda", timeout=PARALLEL_DEADLINE_S)[0]
+    print(f"spmd programs: a world of 1 rank (nccl) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"  NCCL capture probe: all_reduce, all_gather_into_tensor and a "
+          f"batch_isend_irecv pair captured in one graph, replayed "
+          f"{res['probe']['replays']} times == the eager calls (a world of "
+          f"{res['probe']['world']})")
+    _print_spmd_rows(res["rows"], smi, "(1,1) nccl")
+    print(f"  swap: load_parameters between two launches of OverlapTPEngine "
+          f"ring (1,1): old, then new (captured again), never mixed; "
+          f"version {res['swap']['version']}")
+    sh = res["sharded"]
+    t, dev = sh["times"], sh["device_ms"]
+    busy = {k: "not measured (no device event in the trace)" if
+            dev[k] is None else f"{dev[k]:.4f} ms a step, busy "
+            f"{100 * dev[k] / t[k]:.1f} %" for k in ("captured", "eager")}
+    print(f"  captured sharded step: cnv-w1a1 batch 50 on (1,1) nccl, "
+          f"{2 * SHARDED_CAPTURE_STEPS} steps ({2} eager, then captured "
+          f"once on a table sized first) == the eager steps bit for bit "
+          f"(losses {sh['losses']}..., parameters, statistics, moments; "
+          f"cudnn.deterministic); make_sharded_epoch_fn from init_sharded's "
+          f"one-row table, captured again as the table doubled (4 "
+          f"captures), == those steps over two epochs, each fetched once; "
+          f"ms a step (host clock, {SHARDED_CAPTURE_STEPS} steps ending in "
+          f"a synchronise, no capture among them): captured "
+          f"{t['captured']:.3f}, epoch {t['epoch']:.3f}, eager "
+          f"{t['eager']:.3f}; device (torch.profiler, deterministic "
+          f"algorithms): captured "
+          f"{busy['captured']} (the replayed graph's kernels), eager "
+          f"{busy['eager']} ({smi})")
+    print(f"  {sh['profile']}")
+    print("  gloo: the 2-rank gloo worlds of phases 17-18 report their "
+          "engines as execution 'eager', with no programs (asserted there)")
+
+
+def _spread_programs_rank(images, shapes):
+    """--spread, in each rank of an NCCL world of one rank a card: the
+    NCCL capture probe over every card, then per mesh shape every engine
+    held as in 21.2, real collectives in its graphs."""
+    import torch
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
+                                                   prepare_host)
+
+    probe = _nccl_capture_probe(torch)
+    compiled = load_artifact(_artifact("cnv-w1a1"))
+    device = torch.device("cuda", torch.cuda.current_device())
+    wants = {}
+    for route in ("vpu", "mxu", "mega"):
+        single = InferenceEngine(compiled, device=device, route=route)
+        wants[route] = single.logits(images), single.classify(images)
+    x = prepare_host(compiled.config, images)
+    out = {"probe": probe, "meshes": []}
+    for data, model in shapes:
+        mesh = make_mesh(data=data, model=model)
+        assert mesh.backend == "nccl"
+        rows = [_spmd_held(torch, label,
+                           _spmd_engine(label, compiled, mesh), mesh, x,
+                           wants[SPMD_SINGLE.get(label, "mega")],
+                           graph=False)
+                for label in SPMD_ENGINES]
+        out["meshes"].append({"mesh": (data, model), "rows": rows})
+    return out
+
+
+def _spread_programs(torch, smi, cards):
+    """--spread: the engines' programs in an NCCL world of one rank a
+    card on meshes (1, cards) and (cards / 2, 2)."""
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    images = np.random.default_rng(1).integers(
+        0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    shapes = list(dict.fromkeys([(1, cards), (cards // 2, 2)]))
+    t0 = time.perf_counter()
+    res = run_world(_spread_programs_rank, cards, args=(images, shapes),
+                    device="cuda", timeout=PARALLEL_DEADLINE_S)
+    print(f"spmd programs spread: an nccl world of {cards} ranks, one a "
+          f"card, in {time.perf_counter() - t0:.1f} s; the NCCL capture "
+          f"probe held on every rank (a world of {res[0]['probe']['world']})")
+    for i, (data, model) in enumerate(shapes):
+        for rank, out in enumerate(res):
+            rows = {r["label"]: r for r in out["meshes"][i]["rows"]}
+            ring = next(iter(rows["OverlapTPEngine ring"]["runs"].values()))
+            block = next(iter(
+                rows["OverlapTPEngine blocking"]["runs"].values()))
+            assert ring["collectives"].get("ppermute"), ring
+            assert block["collectives"].get("all_gather") and \
+                not block["collectives"].get("ppermute"), block
+            if rank == 0:
+                _print_spmd_rows(out["meshes"][i]["rows"], smi,
+                                 f"({data},{model}) nccl, rank 0")
+        r0 = {r["label"]: r["times"] for r in res[0]["meshes"][i]["rows"]}
+        ring, block = (r0[f"OverlapTPEngine {arm}"]
+                       for arm in ("ring", "blocking"))
+        print(f"  ring against blocking on ({data},{model}), rank 0, device "
+              f"ms a forward at 1024 captured: ring "
+              f"{ring['captured']['chained_ms']:.4f}, blocking "
+              f"{block['captured']['chained_ms']:.4f}; eager: ring "
+              f"{ring['eager']['chained_ms']:.4f}, blocking "
+              f"{block['eager']['chained_ms']:.4f} ({smi})")
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2981,6 +3480,9 @@ def main(argv=None) -> int:
 
     # -- 20. the captured programs and the captured training step -------------
     _programs_phase(torch, smi)
+
+    # -- 21. the parallel engines' programs, the captured sharded step ------
+    _spmd_programs_phase(torch, smi)
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
