@@ -1,6 +1,6 @@
 """Inference graph: config + decoded params → forward pass on tensors.
 
-Port of `bnn_pynq_tpu/models/network.py`, four forwards:
+Port of `bnn_pynq_tpu/models/network.py`, five forwards:
 - `forward_mega` / `mega_stages` (← the JAX `mega` route): the network as
   a list of kernel stages and plain glue, with the same stage names as the
   JAX route wherever the stage exists. For CNV: chain0-1 → pool2 →
@@ -17,6 +17,10 @@ Port of `bnn_pynq_tpu/models/network.py`, four forwards:
   or 2-bit conv runs `conv2d_direct` (the CUDA kernel
   `csrc/conv_direct.cu`), on codes, with no im2col; CNV's first, 8-bit
   conv and the dense layers are plain exact matmuls, as in JAX.
+- `forward_xla` (← `forward_xla`, the `xla` and `xlaconv` routes) on
+  `decode_params`' layers: JAX's decoded-integer route, every dot and conv
+  a library call (`ops/int_dot.py`: cuBLASLt's int8 GEMM, cuDNN's float64
+  conv), the MultiThresholds in PyTorch; no hand-written kernel.
 - `forward_ref` (← `forward_xla(conv_mode="patches")`): per layer a
   sliding window, an exact int matmul and a MultiThreshold. The port's
   independent reference.
@@ -37,11 +41,14 @@ import torch
 
 from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
                                               NetworkConfig, PoolSpec)
-from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, maxpool2d,
-                                         pack_along_last, sliding_window)
+from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, conv_weight_matrix,
+                                         maxpool2d, pack_along_last,
+                                         sliding_window)
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from bnn_pynq_tpu_torch.ops.int_dot import (int_conv2d, int_matmul,
+                                            k_contiguous)
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.packing import np_pack_bits, np_pack_codes2
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
@@ -366,6 +373,90 @@ def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
     else:
         acc = int_matmul_ref(vals, p["w"].kn)
     return acc if lp.last else multithreshold(acc, p["thr"])
+
+
+def decode_params(config: NetworkConfig, layers):
+    """The port's layers → the JAX package's decoded form
+    (`bnn_pynq_tpu/models/network.py::decode_params`), array for array:
+    per layer `{"w_int8": int8 [K, N]}` (a dense layer or an 8-bit first
+    conv) or `{"w_hwio": int8 [kh, kw, C, N]}` (any other conv), plus
+    "thr" where the layer has thresholds; `{}` for a pool. The weights are
+    stored K-contiguous (`ops/int_dot.py::k_contiguous`), the layout
+    `int_matmul` takes without a copy; `w_hwio` is then channels-last for
+    `int_conv2d` too (O outermost), and `conv_weight_matrix` of it a
+    view."""
+    out = []
+    for lp, p in zip(make_plan(config), layers):
+        if lp.kind == "pool":
+            out.append({})
+            continue
+        kn = k_contiguous(p["w"].kn)
+        if lp.kind == "conv":
+            c = lp.k // (lp.kernel * lp.kernel)
+            q = {"w_hwio": kn.reshape(lp.kernel, lp.kernel, c, lp.n)}
+        else:
+            q = {"w_int8": kn}
+        if "thr" in p:
+            q["thr"] = p["thr"]
+        out.append(q)
+    return out
+
+
+CONV_MODES = ("patches", "native", "s2d")
+
+
+def forward_xla(config: NetworkConfig, decoded, x: torch.Tensor, *,
+                conv_mode: str = "patches",
+                force_thresholds: bool = False) -> torch.Tensor:
+    """Decoded-integer forward: int32 logits [B, num_classes] (scale and
+    bias not applied, as in JAX), JAX's layer loop on `decode_params`'
+    layers. Dense layers: `int_matmul` on the levels. Convs by conv_mode:
+    'patches': sliding window, then `int_matmul`; 'native': `int_conv2d`
+    (cuDNN, no patches); 's2d': JAX's space-to-depth form, bit for bit
+    'patches' (its docstring), whose phase layout only suited the TPU's
+    dot shapes: computed as 'patches'.
+
+    force_thresholds: JAX's profiling aid, kept for its signature. As in
+    JAX's 'patches' and 'native' forms, a last layer still gives its
+    int32 accumulators (it has no thresholds), so it changes nothing."""
+    if conv_mode not in CONV_MODES:
+        raise ValueError(f"unknown conv_mode {conv_mode!r}; one of "
+                         f"{CONV_MODES}")
+    act = prepare_input(config, x)
+    for lp, p in zip(make_plan(config), decoded):
+        act = xla_layer(config, lp, p, act, conv_mode=conv_mode,
+                        force_thresholds=force_thresholds)
+    return act
+
+
+def xla_layer(config: NetworkConfig, lp: LayerPlan, p, act: torch.Tensor, *,
+              conv_mode: str = "patches",
+              force_thresholds: bool = False) -> torch.Tensor:
+    """One layer of `forward_xla` on its decoded parameters `p`."""
+    thr = p.get("thr") if force_thresholds else \
+        (None if lp.last else p.get("thr"))
+    if lp.kind == "pool":
+        return maxpool2d(act, lp.window)
+    if lp.kind == "conv_int8":
+        vals = act        # raw int8 image, already levels
+    else:
+        if act.ndim > 2 and lp.kind == "dense":
+            act = act.reshape(act.shape[0], -1)
+        vals = codes_to_values(act, config.abits)
+    if lp.kind == "dense":
+        acc = int_matmul(vals, p["w_int8"])
+    elif conv_mode == "native":
+        w_hwio = p["w_hwio"] if "w_hwio" in p else p["w_int8"].reshape(
+            lp.kernel, lp.kernel, lp.k // (lp.kernel * lp.kernel), lp.n)
+        acc = int_conv2d(vals, w_hwio, lp.stride)
+    else:
+        w = conv_weight_matrix(p["w_hwio"]) if "w_hwio" in p \
+            else p["w_int8"]
+        patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
+        b, oh, ow, k = patches.shape
+        acc = int_matmul(patches.reshape(b * oh * ow, k),
+                         w).reshape(b, oh, ow, lp.n)
+    return acc if lp.last else multithreshold(acc, thr)
 
 
 def forward_direct(config: NetworkConfig, layers,

@@ -1,11 +1,11 @@
 """Host image ops: the host half of the reference's `binarizeAndPack`,
 and the Classifier's preprocessing.
 
-Port of `bnn_pynq_tpu/native.py` (`binarize_pack`, `center_int8`,
-`pack_bits`, `pack_codes2`, `argmax`, `resize_nn`). Where the repo's
-framework-neutral C++ library `native/libbnn_host.so` has been built
-(`make -C native`), it is bound with ctypes; otherwise the numpy bodies
-run. The two are bit-identical (the JAX package's `tests/test_native.py`
+Port of `bnn_pynq_tpu/native.py` (`build`, `binarize_pack`,
+`center_int8`, `pack_bits`, `pack_codes2`, `argmax`, `resize_nn`). Where
+the repo's framework-neutral C++ library `native/libbnn_host.so` has been
+built (`build()`, which runs `make -C native`), it is bound with ctypes;
+otherwise the numpy bodies run. The two are bit-identical (the JAX package's `tests/test_native.py`
 holds the library to numpy). The packers return uint32 words;
 `ops.packing.words_to_tensor` views them as int32 for torch.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 import threading
 from typing import Optional
 
@@ -22,9 +23,9 @@ import numpy as np
 from bnn_pynq_tpu_torch.ops.packing import (np_pack_bits, np_pack_codes2,
                                             packed_len)
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native",
-    "libbnn_host.so")
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libbnn_host.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -54,6 +55,20 @@ def _try_load() -> Optional[ctypes.CDLL]:
                 fn.restype = None
             _lib = lib
         return _lib
+
+
+def build(quiet: bool = True) -> bool:
+    """Build the C++ library in-tree (`make -C native`) and bind it anew;
+    returns whether it is bound."""
+    global _lib
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=quiet)
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return False
+    with _lock:
+        _lib = None
+    return _try_load() is not None
 
 
 def available() -> bool:

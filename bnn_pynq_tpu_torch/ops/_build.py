@@ -18,7 +18,9 @@ nvcc's output. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -27,6 +29,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Iterator
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -100,6 +103,22 @@ class KernelLibrary:
             msg = self.lib.bnn_error_string(rc).decode()
             raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
         return True
+
+
+@contextlib.contextmanager
+def gc_paused() -> Iterator[None]:
+    """No cyclic garbage collection inside the block, in any thread; put
+    around every CUDA graph capture. A collection there can free another
+    program's graph (an engine and its programs form a cycle), and
+    destroying a graph is a call a capture forbids: it invalidates the
+    capture (cudaErrorStreamCaptureInvalidated)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class LaunchCounter:

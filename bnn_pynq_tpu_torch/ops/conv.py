@@ -1,7 +1,8 @@
 """Sliding window (im2col), max-pool and the packed conv on NHWC tensors.
 
-Port of `bnn_pynq_tpu/ops/conv.py`: `sliding_window`, `maxpool2d`,
-`conv2d_packed` and `maxpool2d_packed_or`. Patch order along the last
+Port of `bnn_pynq_tpu/ops/conv.py`: `sliding_window`,
+`conv_weight_matrix`, `maxpool2d`, `conv2d_packed` and
+`maxpool2d_packed_or`. Patch order along the last
 axis is (ki, kj, c): element (ki·kw + kj)·C + c, which equals a plain
 reshape of HWIO weights to [kh·kw·C, O].
 """
@@ -26,6 +27,13 @@ def sliding_window(x: torch.Tensor, kh: int, kw: int,
                kj:kj + (ow - 1) * stride + 1:stride, :]
              for ki in range(kh) for kj in range(kw)]
     return torch.cat(parts, dim=-1)
+
+
+def conv_weight_matrix(w_hwio: torch.Tensor) -> torch.Tensor:
+    """HWIO conv weights [kh, kw, C, O] → the matmul matrix [kh·kw·C, O],
+    rows in the (ki, kj, c) order of `sliding_window`'s patches."""
+    kh, kw, c, o = w_hwio.shape
+    return w_hwio.reshape(kh * kw * c, o)
 
 
 def maxpool2d(codes: torch.Tensor, window: int = 2) -> torch.Tensor:

@@ -12,9 +12,13 @@ Runtimes:
   tensor runs follows from its device, not from the name. The engine
   keeps the resolved name in `runtime`. Routes (models/network.py):
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
-    fused_mlp stage list. The JAX package's decoded-integer routes 's2d'
-    (its default), 'xla' and 'xlaconv' compute the same function in
-    other TPU layouts, so they run this stage list too;
+    fused_mlp stage list. 's2d', the JAX package's default, computes the
+    same function in a TPU layout, so it runs this stage list too;
+  - 'xla' and 'xlaconv', the JAX package's other decoded-integer routes:
+    `forward_xla` with conv_mode 'patches' and 'native', as JAX maps them,
+    on the parameters `decode_params` made at load: every dot and conv a
+    library call (`ops/int_dot.py`: cuBLASLt's int8 GEMM, cuDNN), no
+    hand-written kernel; `library_calls()` counts the calls;
   - 'fused' (all-dense nets only, as in JAX): the whole net in one
     fused_mlp launch, which is what `forward_mega` runs on an MLP;
   - 'vpu' (W1A1 only), 'mxu', 'mxu_rm': the packed `forward`, every
@@ -84,11 +88,13 @@ from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
 from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
                                               NetworkConfig)
-from bnn_pynq_tpu_torch.models.network import (forward, forward_direct,
-                                               forward_mega, forward_ref,
+from bnn_pynq_tpu_torch.models.network import (decode_params, forward,
+                                               forward_direct, forward_mega,
+                                               forward_ref, forward_xla,
                                                input_shape)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
-from bnn_pynq_tpu_torch.ops import _build, conv_direct, conv_stack, matmul
+from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack, int_dot,
+                                    matmul, ref)
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
@@ -97,10 +103,12 @@ DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 # the JAX engine's names for its kernel runtimes, all 'kernels' here
 KERNEL_RUNTIMES = ("auto", "kernels", "tpu", "interpret")
 RUNTIMES = KERNEL_RUNTIMES + ("ref",)
-# routes that run forward_mega (the JAX package's names for the same
-# decoded-integer forward, and 'fused', its all-dense special case)
-MEGA_ROUTES = ("mega", "s2d", "xla", "xlaconv", "fused")
-ROUTES = MEGA_ROUTES + ("mxu", "mxu_rm", "vpu", "direct")
+# routes that run forward_mega ('s2d', the JAX package's name for the same
+# function, and 'fused', its all-dense special case)
+MEGA_ROUTES = ("mega", "s2d", "fused")
+# the routes that run forward_xla, by the conv_mode each runs (JAX's map)
+XLA_ROUTES = {"xla": "patches", "xlaconv": "native"}
+ROUTES = MEGA_ROUTES + tuple(XLA_ROUTES) + ("mxu", "mxu_rm", "vpu", "direct")
 
 
 def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
@@ -130,6 +138,15 @@ def kernel_launches() -> Dict[str, int]:
     return out
 
 
+def library_calls() -> Dict[str, int]:
+    """Every library product's call count (process-wide): the
+    decoded-integer route's `int_mm` (cuBLASLt's int8 GEMM) and `conv2d`
+    (cuDNN), and `int_matmul_ref`, the reference's float64 product."""
+    return {"int_mm": int_dot.int_matmul.calls.value,
+            "conv2d": int_dot.int_conv2d.calls.value,
+            "int_matmul_ref": ref.int_matmul_ref.calls.value}
+
+
 def _moved(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
     return {k: n - before[k] for k, n in after.items() if n != before[k]}
 
@@ -139,8 +156,9 @@ class Program:
     (the input), `out` (the output) and, on a card, the CUDA graph that
     reads the one and writes the other. `launches`: the kernel launches
     its capture counted (a replay goes through no wrapper, so it counts
-    none); `collectives`: likewise the calls of `collectives()` (the
-    parallel engines pass `parallel/comm.py::counts`; none here);
+    none); `library`: likewise the calls of `library_calls()`;
+    `collectives`: likewise the calls of `collectives()` (the parallel
+    engines pass `parallel/comm.py::counts`; none here);
     `replays`: how many times the graph ran."""
 
     def __init__(self, body, x: torch.Tensor, label: str,
@@ -151,6 +169,7 @@ class Program:
         self.out: Optional[torch.Tensor] = None
         self.graph = None
         self.launches: Dict[str, int] = {}
+        self.library: Dict[str, int] = {}
         self.collectives: Dict[str, int] = {}
         self._count_collectives = collectives
         self.replays = _build.LaunchCounter()
@@ -164,19 +183,22 @@ class Program:
             with torch.cuda.stream(stream):
                 self.body(self.x)
                 before = kernel_launches()
+                before_library = library_calls()
                 before_calls = self._count_collectives()
                 graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    out = self.body(self.x)
-                finally:
-                    graph.capture_end()
+                with _build.gc_paused():
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        out = self.body(self.x)
+                    finally:
+                        graph.capture_end()
             torch.cuda.current_stream().wait_stream(stream)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.label} "
                                f"failed: {e}") from e
         self.launches = _moved(before, kernel_launches())
+        self.library = _moved(before_library, library_calls())
         self.collectives = _moved(before_calls, self._count_collectives())
         self.graph, self.out = graph, out
 
@@ -195,8 +217,10 @@ class Program:
 
 
 class _State(NamedTuple):
-    """What the engine publishes as one unit: the parameters and the
-    programs that run on them (`pool`: their graphs' memory pool)."""
+    """What the engine publishes as one unit: the parameters (`layers`:
+    `decode_params`' on the 'xla' and 'xlaconv' routes of the kernels
+    runtime, else `params_from_numpy`'s) and the programs that run on
+    them (`pool`: their graphs' memory pool)."""
     layers: list
     out_scale: torch.Tensor
     out_bias: torch.Tensor
@@ -246,9 +270,12 @@ class InferenceEngine:
     def _new_state(self, compiled: CompiledNetwork) -> _State:
         pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
-        return _State(*params_from_numpy(
+        layers, out_scale, out_bias = params_from_numpy(
             self.config, compiled.layers, compiled.out_scale,
-            compiled.out_bias, self.device), {}, pool)
+            compiled.out_bias, self.device)
+        if self.runtime == "kernels" and self.route in XLA_ROUTES:
+            layers = decode_params(self.config, layers)
+        return _State(layers, out_scale, out_bias, {}, pool)
 
     def load_parameters(self, compiled: CompiledNetwork):
         """Hot-swap parameters of the same topology. Every program already
@@ -317,6 +344,9 @@ class InferenceEngine:
         else:
             if self.runtime == "ref":
                 acc = forward_ref(self.config, layers, xd)
+            elif self.route in XLA_ROUTES:
+                acc = forward_xla(self.config, layers, xd,
+                                  conv_mode=XLA_ROUTES[self.route])
             elif self.route == "direct":
                 acc = forward_direct(self.config, layers, xd)
             else:

@@ -1,5 +1,5 @@
-"""Where the `mega`, `direct` and `vpu` routes' device time goes on a CUDA
-card.
+"""Where the `mega`, `direct`, `vpu`, `xla` and `xlaconv` routes' device
+time goes on a CUDA card.
 
     python -m bnn_pynq_tpu_torch.tools.layer_times [--only SECTION ...]
 
@@ -29,10 +29,11 @@ Needs one CUDA card and nvcc. Without options it prints all five sections
    fragment layout the packed kernel relies on against a popcount on the
    host;
 4. `profiles`: one forward of the pretrained CNV-W1A1 engine on a
-   device-resident batch on the `mega`, `direct` and `vpu` routes (and
-   CNV-W2A2 on `direct`): its device ms under graph replay, the host ms to
-   enqueue it (the engine's captured program, and the eager forward) and
-   to prepare its 1024 images, and from one `torch.profiler` trace of 20
+   device-resident batch on the `mega`, `direct` and `vpu` routes and the
+   decoded-integer `xla` and `xlaconv` (and CNV-W2A2 on `direct`): its
+   device ms under graph replay, the host ms to enqueue it (the engine's
+   captured program, and the eager forward) and to prepare its 1024
+   images, and from one `torch.profiler` trace of 20
    eager forwards the device ms per forward of every kernel in it, by
    name;
 5. `probes`: where the two dot probes' time goes (`csrc/mosaic_probes.cu`,
@@ -633,7 +634,8 @@ def main(argv=None) -> int:
     if "rates" in only:
         mma_rate()
     for name, route in (("cnv-w1a1", "mega"), ("cnv-w1a1", "direct"),
-                        ("cnv-w2a2", "direct"), ("cnv-w1a1", "vpu")):
+                        ("cnv-w2a2", "direct"), ("cnv-w1a1", "vpu"),
+                        ("cnv-w1a1", "xla"), ("cnv-w1a1", "xlaconv")):
         if "profiles" in only:
             forward_profile(device, name, route)
     if "probes" in only:

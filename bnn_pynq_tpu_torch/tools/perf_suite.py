@@ -46,20 +46,23 @@ from bnn_pynq_tpu_torch.utils.profiling import steady_state_stats
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
-# (network, route, batch). The JAX suite's 's2d' and 'xla' are one route
-# here ('mega', which they name); every route of CNV-W1A1, CNV-W2A2 and
+# (network, route, batch). The JAX suite's 's2d' runs 'mega' here, which
+# computes the same function; every other route of CNV-W1A1, CNV-W2A2 and
 # LFC-W1A1 is in the list, so --verify on those nets checks them all.
 CASES = [
     ("cnv-w1a1", "mega", 1024), ("cnv-w1a1", "mega", 2048),
     ("cnv-w1a1", "mega", 4096), ("cnv-w1a1", "direct", 1024),
     ("cnv-w1a1", "vpu", 1024), ("cnv-w1a1", "mxu", 1024),
-    ("cnv-w1a1", "mxu_rm", 1024),
+    ("cnv-w1a1", "mxu_rm", 1024), ("cnv-w1a1", "xla", 1024),
+    ("cnv-w1a1", "xlaconv", 1024),
     ("cnv-w2a2", "mega", 1024), ("cnv-w2a2", "direct", 1024),
     ("cnv-w2a2", "mxu", 1024), ("cnv-w2a2", "mxu_rm", 1024),
+    ("cnv-w2a2", "xla", 1024), ("cnv-w2a2", "xlaconv", 1024),
     ("cnv-w1a2", "mega", 1024), ("cnv-w2a2-gtsrb", "mega", 1024),
     ("lfc-w1a1", "mega", 4096), ("lfc-w1a1", "fused", 4096),
     ("lfc-w1a1", "direct", 4096), ("lfc-w1a1", "vpu", 4096),
     ("lfc-w1a1", "mxu", 4096), ("lfc-w1a1", "mxu_rm", 4096),
+    ("lfc-w1a1", "xla", 4096), ("lfc-w1a1", "xlaconv", 4096),
     ("lfc-w1a1", "mega", 32768),
     ("sfc-w1a1", "mega", 8192), ("sfc-w1a1", "mega", 65536),
     ("lfc-w1a2", "mega", 32768), ("sfc-w1a2", "mega", 65536),

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
+from bnn_pynq_tpu_torch.ops._build import gc_paused
 from bnn_pynq_tpu_torch.train import data as data_mod
 from bnn_pynq_tpu_torch.train.model import QuantNet, full_fp32
 
@@ -317,7 +318,7 @@ class TrainStep:
         torch.backends.cudnn.benchmark = False
         try:
             self.stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.graph(graph, stream=self.stream):
+            with gc_paused(), torch.cuda.graph(graph, stream=self.stream):
                 loss, grads = self.loss_and_grads(self.x, self.y)
                 self.tx.apply(grads)
         except Exception as e:

@@ -9,9 +9,12 @@ CUDA graph replay (`utils/profiling.py::graph_stats`, the method of
 `tools/layer_times.py`); on the CPU (the plain versions) by the host
 clock.
 
-The stages are the `mega` route's (`models/network.py::mega_stages`): a
-`conv_chain` launch, a pool, a `dense_block`, the `fused_mlp` tail. A stage
-that runs several layers of the plan gives one row for them.
+On the `mega` routes the stages are `models/network.py::mega_stages`: a
+`conv_chain` launch, a pool, a `dense_block`, the `fused_mlp` tail; a
+stage that runs several layers of the plan gives one row for them. On the
+decoded-integer routes `xla` and `xlaconv` every layer of the plan is a
+stage of its own (`_layer_fns`, JAX's rows): a pool, or a library dot or
+conv (`ops/int_dot.py`) with its MultiThreshold.
 
     from bnn_pynq_tpu_torch.utils.layerprof import profile_layers
     rows = profile_layers(compiled, batch=1024)
@@ -20,16 +23,25 @@ that runs several layers of the plan gives one row for them.
 from __future__ import annotations
 
 import re
+from functools import partial
 from typing import List
 
 import numpy as np
 import torch
 
-from bnn_pynq_tpu_torch.models.network import (make_plan, mega_stages,
-                                               prepare_input)
+from bnn_pynq_tpu_torch.models.network import (decode_params, make_plan,
+                                               mega_stages, prepare_input,
+                                               xla_layer)
 from bnn_pynq_tpu_torch.models.params import params_from_numpy
-from bnn_pynq_tpu_torch.runtime.engine import MEGA_ROUTES
+from bnn_pynq_tpu_torch.runtime.engine import MEGA_ROUTES, XLA_ROUTES
 from bnn_pynq_tpu_torch.utils.profiling import graph_stats, steady_state_stats
+
+
+def _layer_fns(config, plan, decoded, conv_mode: str = "patches"):
+    """One callable per layer (act → act) of the decoded-integer route:
+    `forward_xla`'s layers on `decode_params`' parameters."""
+    return [partial(xla_layer, config, lp, p, conv_mode=conv_mode)
+            for lp, p in zip(plan, decoded)]
 
 
 def _layer_macs(config, batch: int) -> List[int]:
@@ -70,12 +82,15 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
     tops}]: `layer` the stage's first plan index, `layers` all of them,
     `kind` their kinds joined by '+', `k` the first one's contraction and
     `n` the last one's width; `noise_ms` the half range of the readings,
-    `suspect` a time below it. device="cuda" (default) raises without
-    CUDA; "cpu" times the plain versions. `iters`: graph replays (card)
-    or launches a window (CPU)."""
-    if route not in MEGA_ROUTES:
+    `suspect` a time below it. route: one of MEGA_ROUTES (its stages) or
+    XLA_ROUTES (a stage a layer, named `layer{i}`). device="cuda"
+    (default) raises without CUDA; "cpu" times the plain versions and the
+    CPU's library calls. `iters`: graph replays (card) or launches a
+    window (CPU)."""
+    if route not in MEGA_ROUTES and route not in XLA_ROUTES:
         raise ValueError(f"route {route!r}: the stage list is the mega "
-                         f"route's, one of {MEGA_ROUTES}")
+                         f"route's, one of {MEGA_ROUTES}, or a layer a "
+                         f"stage on {tuple(XLA_ROUTES)}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but CUDA is not available; pass "
@@ -85,7 +100,14 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
     layers, out_scale, out_bias = params_from_numpy(
         config, compiled.layers, compiled.out_scale, compiled.out_bias,
         device)
-    stages = mega_stages(config, layers, out_scale, out_bias)
+    if route in XLA_ROUTES:
+        fns = _layer_fns(config, plan, decode_params(config, layers),
+                         XLA_ROUTES[route])
+        stages = [(f"layer{i}", fn) for i, fn in enumerate(fns)]
+        spans = [[i] for i in range(len(plan))]
+    else:
+        stages = mega_stages(config, layers, out_scale, out_bias)
+        spans = _stage_layers([s for s, _ in stages], len(plan))
     rng = np.random.default_rng(0)
     if config.input_kind == "bipolar":
         x = rng.choice([-1, 1], size=(batch, int(np.prod(
@@ -97,8 +119,7 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
     act = prepare_input(config, torch.from_numpy(x).to(device))
     macs_of = _layer_macs(config, batch)
     rows = []
-    for (name, fn), idx in zip(stages, _stage_layers(
-            [s for s, _ in stages], len(plan))):
+    for (name, fn), idx in zip(stages, spans):
         inp = act
         if device.type == "cuda":
             ms, noise = graph_stats(lambda: fn(inp), reps=iters)

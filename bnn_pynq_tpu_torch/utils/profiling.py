@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from bnn_pynq_tpu_torch.ops._build import gc_paused
+
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None, enabled: bool = True):
@@ -96,7 +98,7 @@ def graph_stats(fn: Callable[[], object], calls: int = 10,
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     graph.replay()

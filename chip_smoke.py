@@ -5,7 +5,8 @@
 
 Phases (every check raises, so any failure exits non-zero):
 1. the card: `nvidia-smi` name and power limit, torch's device name;
-   no CUDA is a failure;
+   no CUDA is a failure; the host library built (`native.build`, `make -C
+   native`) and whether the host ops run in C or numpy;
 2. build the kernels from bnn_pynq_tpu_torch/csrc (nvcc, first use);
 3. each kernel against its plain version on the card, on seeded inputs at
    the CNV-W1A1 main-path shapes at batch 1024 (and W2A2, LFC cases):
@@ -145,7 +146,8 @@ Phases (every check raises, so any failure exits non-zero):
    1024 and 1, in every variant the engine dispatches (logits, argmax and
    for LFC the packed-words pair), the program's output equal to the eager
    forward bit for bit at its first use and at a replay, in distinct
-   buffers, its capture's kernel launches equal to the eager forward's,
+   buffers, its capture's kernel launches and library calls equal to the
+   eager forward's ('xla' and 'xlaconv': library calls, no kernel),
    logits within rtol=atol=1e-5 of runtime="ref" and argmax equal; then,
    captured against eager in the same run, classify images/s, the host's
    enqueue of a forward, device ms per forward (and the eager forward
@@ -182,6 +184,20 @@ Phases (every check raises, so any failure exits non-zero):
    table doubles. The
    2-rank gloo worlds of phases 17-18 report their engines as eager, with
    no programs: gloo stages through the host, which no graph can hold.
+22. the decoded-integer routes (models/network.py::forward_xla on
+   decode_params; ops/int_dot.py): CNV-W1A1, CNV-W2A2 and LFC-W1A1 from
+   pretrained/ at batch 1024 and 1 on 'xla' (patches and cuBLASLt's int8
+   GEMM) and 'xlaconv' (cuDNN's float64 conv): int32
+   accumulators equal runtime="ref"'s, 'native' equal to 'patches' bit
+   for bit, logits within rtol=atol=1e-5 of runtime="ref" and of 'mega'
+   with argmax equal; the library calls of a forward counted (an int8
+   GEMM a dense layer, a GEMM or a cuDNN conv a conv layer; no kernel
+   launch, no int_matmul_ref), each program equal to the eager forward
+   bit for bit; device ms a forward under graph replay beside 'mega''s;
+   then CNV-W1A1 a layer at a time (profile_layers) beside the mega stage
+   of the same layers, the memory of one engine's programs, one
+   torch.profiler trace by kernel (tools/layer_times.py::forward_profile)
+   and the card's clocks and temperature after the timings.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -2407,10 +2423,14 @@ def _programs_held(torch, images, mnist):
     """20.1: every route of CNV-W1A1 and LFC-W1A1 at batch 1024 and 1, in
     each variant the engine dispatches: the program's output equal to the
     eager forward bit for bit (first use and a replay), its capture's
-    launches equal to the eager forward's, logits against runtime="ref"."""
+    kernel launches and library calls equal to the eager forward's (on
+    'xla' and 'xlaconv' library calls only: no kernel, no
+    int_matmul_ref), logits against runtime="ref"."""
     from bnn_pynq_tpu_torch import native
-    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
-                                                   kernel_launches)
+    from bnn_pynq_tpu_torch.runtime.engine import (XLA_ROUTES,
+                                                   InferenceEngine,
+                                                   _moved, kernel_launches,
+                                                   library_calls)
     n_programs = 0
     for name, routes in PROGRAM_ROUTES.items():
         x_all = images if name.startswith("cnv") else mnist
@@ -2432,8 +2452,10 @@ def _programs_held(torch, images, mnist):
                                  f"{'words-' if words else ''}"
                                  f"{'argmax' if argmax else 'logits'}")
                         before = kernel_launches()
+                        lib_before = library_calls()
                         want = _eager(eng, inp, argmax, words)
                         eager = _launch_delta(before)
+                        lib = _moved(lib_before, library_calls())
                         got = eng.launch_prepared(inp, argmax=argmax,
                                                   words=words)
                         again = eng.launch_prepared(inp, argmax=argmax,
@@ -2447,10 +2469,16 @@ def _programs_held(torch, images, mnist):
                         assert prog.graph is not None, label
                         assert prog.launches == eager, \
                             f"{label}: capture {prog.launches} != eager {eager}"
+                        assert prog.library == lib, \
+                            f"{label}: capture {prog.library} != eager {lib}"
                         assert prog.replays.value == 2, label
-                        if name != "lfc-w1a1" or route != "direct":
+                        if route in XLA_ROUTES:
+                            assert not eager and lib and \
+                                "int_matmul_ref" not in lib, \
+                                f"{label}: {eager} {lib}, not the library"
+                        elif name != "lfc-w1a1" or route != "direct":
                             assert eager, f"{label}: no kernel launched"
-                        seen[label.split(" ", 2)[2]] = eager
+                        seen[label.split(" ", 2)[2]] = eager or lib
                         n_programs += 1
                 logits = eng.fetch(eng.launch_prepared(xd))
                 want = ref.logits(eng.prepare(x_all[:batch]), prepared=True)
@@ -2459,7 +2487,8 @@ def _programs_held(torch, images, mnist):
                     f"{name} {route} batch {batch}: argmax != ref"
             print(f"programs {name} {route}: {len(eng.programs)} captured "
                   f"(batch 1024 and 1), each == the eager forward bit for "
-                  f"bit, capture launches == eager "
+                  f"bit, capture launches (library calls on xla, "
+                  f"xlaconv) == eager "
                   f"{seen[f'batch {BATCH} logits']}, logits == ref")
     return n_programs
 
@@ -2565,13 +2594,15 @@ def _swap_between_replays(torch, images):
           "again), never mixed")
 
 
-def _graph_pool_bytes(torch):
-    """20.4: the memory of one CNV-W1A1 `mega` engine's programs, every
-    bucket in both serving variants (one shared pool): the growth of the
-    allocator's reserved bytes over the captures, and the pool's own
-    segments where the allocator's snapshot names their pool."""
+def _graph_pool_bytes(torch, route="mega"):
+    """20.4 (and 22 on 'xla', 'xlaconv'): the memory of one CNV-W1A1
+    engine's programs on `route`, every bucket in both serving variants
+    (one shared pool): the growth of the allocator's reserved bytes over
+    the captures, and the pool's own segments where the allocator's
+    snapshot names their pool."""
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
-    eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda")
+    eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda",
+                                        route=route)
     torch.cuda.synchronize()
     reserved0 = torch.cuda.memory_reserved()
     for b in eng.batch_buckets:
@@ -2582,7 +2613,7 @@ def _graph_pool_bytes(torch):
     segs = torch.cuda.memory._snapshot()["segments"]
     in_pool = [s["total_size"] for s in segs
                if tuple(s.get("segment_pool_id") or ()) == pool]
-    print(f"programs memory: cnv-w1a1 mega, {len(eng.programs)} programs "
+    print(f"programs memory: cnv-w1a1 {route}, {len(eng.programs)} programs "
           f"(buckets {list(eng.batch_buckets)}, logits and argmax), reserved "
           f"bytes grew {grown} over the captures; the shared pool's segments "
           f"{sum(in_pool)} bytes in {len(in_pool)}")
@@ -3088,6 +3119,183 @@ def _spmd_programs_phase(torch, smi):
           "engines as execution 'eager', with no programs (asserted there)")
 
 
+# -- phase 22: the decoded-integer routes ------------------------------------
+
+# the nets phase 22 runs from pretrained/ on 'xla' and 'xlaconv'
+XLA_NETS = ("cnv-w1a1", "cnv-w2a2", "lfc-w1a1")
+
+
+def _xla_library(config):
+    """The library calls one forward_xla makes, by route: an int8 GEMM a
+    dense layer, and a conv layer's on 'xla' (patches) or cuDNN's on
+    'xlaconv'; no kernel, no int_matmul_ref."""
+    from bnn_pynq_tpu_torch.models.network import make_plan
+    kinds = [lp.kind for lp in make_plan(config)]
+    convs = sum(k in ("conv", "conv_int8") for k in kinds)
+    dense = kinds.count("dense")
+    calls = {"xla": {"int_mm": convs + dense},
+             "xlaconv": {"int_mm": dense, "conv2d": convs}}
+    return {r: {k: n for k, n in c.items() if n} for r, c in calls.items()}
+
+
+def _xla_held(torch, name, x_all):
+    """22.1: one net from pretrained/ at batch 1024 and 1 on 'xla' and
+    'xlaconv': int32 accumulators equal runtime="ref"'s (forward_ref),
+    'native' equal to 'patches' bit for bit, the library calls counted (no
+    kernel launch, no int_matmul_ref), each program (logits, argmax) equal
+    to the eager forward at its first use and at a replay, its capture's
+    library calls the eager forward's, logits within rtol=atol=1e-5 of
+    runtime="ref" and of 'mega' with argmax equal; device ms a forward
+    (argmax) under graph replay beside 'mega''s."""
+    from bnn_pynq_tpu_torch.models.network import forward_ref, forward_xla
+    from bnn_pynq_tpu_torch.runtime.engine import (XLA_ROUTES,
+                                                   InferenceEngine, _moved,
+                                                   kernel_launches,
+                                                   library_calls)
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    ref = InferenceEngine.from_artifact(_artifact(name), device="cuda",
+                                        runtime="ref")
+    engs = {r: InferenceEngine.from_artifact(_artifact(name), device="cuda",
+                                             route=r)
+            for r in ("xla", "xlaconv", "mega")}
+    want_lib = _xla_library(ref.config)
+    row = {"net": name, "library_calls": want_lib}
+    for batch in (BATCH, 1):
+        xd = ref.upload(ref.prepare(x_all[:batch]))
+        want_acc = forward_ref(ref.config, ref._state.layers, xd)
+        want = ref.fetch(ref.launch_prepared(xd))
+        mega = engs["mega"].fetch(engs["mega"].launch_prepared(xd))
+        accs = {}
+        for route, mode in XLA_ROUTES.items():
+            eng = engs[route]
+            label = f"{name} {route} batch {batch}"
+            before, lib_before = kernel_launches(), library_calls()
+            accs[route] = forward_xla(eng.config, eng._state.layers, xd,
+                                      conv_mode=mode)
+            torch.cuda.synchronize()
+            launched = _moved(before, kernel_launches())
+            lib = _moved(lib_before, library_calls())
+            assert torch.equal(accs[route], want_acc), \
+                f"{label}: int32 accumulators != runtime='ref'"
+            assert not launched and lib == want_lib[route], \
+                f"{label}: launches {launched}, library {lib}"
+            for argmax in (False, True):
+                want_out = _eager(eng, xd, argmax)
+                got = eng.launch_prepared(xd, argmax=argmax)
+                again = eng.launch_prepared(xd, argmax=argmax)
+                torch.cuda.synchronize()
+                assert got.data_ptr() != again.data_ptr(), label
+                assert torch.equal(got, want_out) and \
+                    torch.equal(again, want_out), \
+                    f"{label}: program != eager forward"
+                prog = eng.programs[_key(xd, argmax)]
+                assert prog.graph is not None and not prog.launches and \
+                    prog.library == want_lib[route], \
+                    f"{label}: capture {prog.launches} {prog.library}"
+            logits = eng.fetch(eng.launch_prepared(xd))
+            for other, what in ((want, "ref"), (mega, "mega")):
+                np.testing.assert_allclose(logits, other, **TOL)
+                assert (logits.argmax(1) == other.argmax(1)).all(), \
+                    f"{label}: argmax != {what}"
+        assert torch.equal(accs["xla"], accs["xlaconv"]), \
+            f"{name} batch {batch}: native != patches"
+        for route, eng in engs.items():
+            row.setdefault("graph_ms", {}).setdefault(route, {})[batch] = \
+                graph_ms(lambda: _eager(eng, xd, True))
+    return row
+
+
+def _xla_layers(torch, smi):
+    """22.2: CNV-W1A1 from pretrained/ at batch 1024, a layer at a time
+    on 'xla' and 'xlaconv' (profile_layers, graph replay), beside the
+    'mega' stage that computes the same layers."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.utils.layerprof import profile_layers
+    compiled = load_artifact(_artifact("cnv-w1a1"))
+    rows = {r: profile_layers(compiled, batch=BATCH, iters=20, route=r)
+            for r in ("mega", "xla", "xlaconv")}
+    print(f"decoded-integer routes, cnv-w1a1 batch {BATCH}, a layer at a "
+          f"time under graph replay (profile_layers), beside the mega "
+          f"stage of the same layers ({smi}):")
+    stages = []
+    for st in rows["mega"]:
+        idx = st["layers"]
+        per = {r: [rows[r][i]["ms"] for i in idx] for r in ("xla",
+                                                             "xlaconv")}
+        stages.append({"stage": st["stage"], "layers": idx,
+                       "mega_ms": st["ms"],
+                       **{f"{r}_ms": sum(v) for r, v in per.items()},
+                       **{f"{r}_layer_ms": v for r, v in per.items()}})
+        print(f"  {st['stage']} (layers {idx}): mega {st['ms']:.4f} ms; "
+              f"xla {sum(per['xla']):.4f} "
+              f"({', '.join(f'{v:.4f}' for v in per['xla'])}); xlaconv "
+              f"{sum(per['xlaconv']):.4f} "
+              f"({', '.join(f'{v:.4f}' for v in per['xlaconv'])})")
+    totals = {r: sum(x["ms"] for x in rows[r]) for r in rows}
+    print(f"  sums: mega {totals['mega']:.4f} ms, xla {totals['xla']:.4f}, "
+          f"xlaconv {totals['xlaconv']:.4f}")
+    # the layers each hand-written kernel computes on its route, and the
+    # decoded-integer route's ms over the same layers (several library
+    # calls a layer, not one call)
+    kinds = [r["kind"] for r in rows["xla"]]
+    spans = {k: [i for st in rows["mega"] if st["stage"].startswith(pre)
+                 for i in st["layers"]]
+             for k, pre in (("fused_mlp", "mlp_tail"), ("conv_chain", "chain"),
+                            ("dense_block", "block"))}
+    spans["packed_matmul"] = [i for i, k in enumerate(kinds)
+                              if k in ("conv", "dense")]
+    spans["conv2d_direct"] = [i for i, k in enumerate(kinds) if k == "conv"]
+    spans["conv_chain_direct"] = spans["conv_chain"]
+    by_kernel = {k: {"layers": idx, **{r: sum(rows[r][i]["ms"] for i in idx)
+                                        for r in ("xla", "xlaconv")}}
+                 for k, idx in spans.items()}
+    print("  over each kernel's layers: " + "; ".join(
+        f"{k} (layers {v['layers']}) xla {v['xla']:.4f} ms, xlaconv "
+        f"{v['xlaconv']:.4f}" for k, v in by_kernel.items()))
+    return stages, totals, by_kernel
+
+
+def _xla_routes_phase(torch, smi):
+    """Phase 22: JAX's decoded-integer routes 'xla' and 'xlaconv' on
+    library calls (cuBLASLt's int8 GEMM, cuDNN's float64 conv)."""
+    from bnn_pynq_tpu_torch.tools.layer_times import forward_profile
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)          # phase 4's draws
+    images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    mnist = rng.integers(0, 256, size=(BATCH, 28, 28), dtype=np.uint8)
+    rows = []
+    for name in XLA_NETS:
+        row = _xla_held(torch, name, images if name.startswith("cnv")
+                        else mnist)
+        rows.append(row)
+        ms = row["graph_ms"]
+        print(f"decoded-integer routes {name}: xla and xlaconv at batch "
+              f"{BATCH} and 1 == runtime='ref' (int32 accumulators exact, "
+              f"logits within 1e-5, argmax) and == mega; native == patches "
+              f"bit for bit; library calls a forward {row['library_calls']}"
+              f", no kernel, no int_matmul_ref; programs == eager bit for "
+              f"bit; device ms a forward under graph replay, batch {BATCH}: "
+              + ", ".join(f"{r} {ms[r][BATCH]:.4f}" for r in ms)
+              + "; batch 1: " + ", ".join(f"{r} {ms[r][1]:.4f}" for r in ms)
+              + f" ({smi})")
+    stages, totals, by_kernel = _xla_layers(torch, smi)
+    # clocks and heat beside the timings: a card late in a long run reads
+    # slower than a fresh one
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"decoded-integer routes: the card after the timings (clocks.sm, "
+          f"clocks.max.sm, clocks.mem, temperature.gpu, power.draw): {card}")
+    for route in ("xla", "xlaconv"):
+        _graph_pool_bytes(torch, route)
+        forward_profile(torch.device("cuda", 0), "cnv-w1a1", route)
+    print("decoded-integer routes " + json.dumps(
+        {"device": smi, "forwards": rows, "stages": stages,
+         "stage_sums": totals, "by_kernel": by_kernel, "card": card}))
+    print(f"decoded-integer routes: {time.perf_counter() - t0:.1f} s")
+
+
 def _spread_programs_rank(images, shapes):
     """--spread, in each rank of an NCCL world of one rank a card: the
     NCCL capture probe over every card, then per mesh shape every engine
@@ -3167,6 +3375,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from bnn_pynq_tpu_torch import native
     from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
                                         fused_mlp, matmul)
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
@@ -3182,6 +3391,16 @@ def main(argv=None) -> int:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {kind}, count {torch.cuda.device_count()}")
+    # the host library, on a fresh tree not built yet
+    if native.build():
+        print("host library: native/libbnn_host.so built and bound; "
+              "binarize_pack and pack_bits (the packed transport), "
+              "center_int8 and resize_nn (Classifier) run in C; "
+              "engine.prepare_host is numpy, as in JAX")
+    else:
+        print("host library: not built (make failed); binarize_pack, "
+              "pack_bits, center_int8 and resize_nn run their numpy bodies; "
+              "engine.prepare_host is numpy, as in JAX")
     if spread:
         _spread_phase(torch, smi)
         print(json.dumps({"ok": True, "device": {
@@ -3483,6 +3702,9 @@ def main(argv=None) -> int:
 
     # -- 21. the parallel engines' programs, the captured sharded step ------
     _spmd_programs_phase(torch, smi)
+
+    # -- 22. the decoded-integer routes on library calls --------------------
+    _xla_routes_phase(torch, smi)
 
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),

@@ -117,9 +117,8 @@ def test_native_packers_match_numpy(use_lib, monkeypatch):
     """The C++ library where it is built, else the numpy bodies: both
     give JAX's words."""
     if use_lib and not native.available():
-        from bnn_pynq_tpu import native as jax_native
-        assert jax_native.build(), "native toolchain unavailable"
         monkeypatch.setattr(native, "_lib", None)
+        assert native.build(), "native toolchain unavailable"
         assert native.available()
     if not use_lib:
         monkeypatch.setattr(native, "_LIB_PATH", "/nonexistent")

@@ -7,6 +7,8 @@ tolerance (tests/test_golden_fixtures.py:36), classes equal; the eager
 forward and the program bit for bit. What only a card shows (the graphs,
 their launches and replays) is `chip_smoke.py` phase 20."""
 
+import contextlib
+import gc
 import sys
 import threading
 from pathlib import Path
@@ -18,6 +20,7 @@ import torch
 from bnn_pynq_tpu.compiler.artifacts import load_artifact as jax_load_artifact
 from bnn_pynq_tpu.runtime.engine import InferenceEngine as JaxEngine
 from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+from bnn_pynq_tpu_torch.ops._build import gc_paused
 from bnn_pynq_tpu_torch.runtime import engine as engine_mod
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine, Program
 from bnn_pynq_tpu_torch.runtime.http_server import serve
@@ -209,3 +212,46 @@ def test_kernel_launches_reads_every_wrapper():
     assert {"fused_mlp", "conv_chain", "dense_block", "conv2d_direct",
             "conv_chain_direct"} <= set(counts)
     assert {k for k in counts if k.startswith("packed_matmul[")}
+
+
+def test_a_capture_runs_with_the_garbage_collector_paused(monkeypatch):
+    """A cyclic collection inside a capture can free another program's
+    graph (an engine and its programs form a cycle), a call that
+    invalidates the capture on a card: Program.capture pauses the
+    collector from capture_begin to capture_end, then restores it."""
+    seen = []
+
+    class Graph:
+        def capture_begin(self, pool=None, capture_error_mode=None):
+            seen.append(gc.isenabled())
+
+        def capture_end(self):
+            seen.append(gc.isenabled())
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "current_stream", Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    prog = Program(lambda x: x + 1, torch.zeros(4, 3), "bucket 4")
+    assert gc.isenabled()
+    prog.capture(Stream(), None)
+    assert seen == [False, False] and gc.isenabled()
+    assert isinstance(prog.graph, Graph)
+    assert torch.equal(prog.out, torch.ones(4, 3))
+
+
+def test_gc_paused_restores_the_collector_as_it_was():
+    with gc_paused():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -72,8 +72,10 @@ def _mini_artifacts(tmp_path, *seeds):
     ("sfc-w1a1", "fused"), ("cnv-w1a1", "s2d"), ("cnv-w1a1", "xla"),
     ("cnv-w1a1", "xlaconv")])
 def test_jax_route_names_match_jax_engine(name, route):
-    """The JAX engine's route names run on the port's engine (the mega
-    stage list) and give the JAX engine's logits on that route."""
+    """The JAX engine's route names run on the port's engine and give the
+    JAX engine's logits on that route: 's2d' and 'fused' the mega stage
+    list, 'xla' and 'xlaconv' forward_xla on the decoded parameters
+    (conv_mode 'patches' and 'native', as JAX maps them)."""
     path = _art(name)
     cfg_shape = (4, 28, 28) if path == SFC else (4, 32, 32, 3)
     x = _images(cfg_shape, 11)
@@ -145,8 +147,8 @@ def native_body(request, monkeypatch):
     numpy bodies."""
     if request.param == "lib":
         if not native.available():
-            assert jax_native.build(), "native toolchain unavailable"
             monkeypatch.setattr(native, "_lib", None)
+            assert native.build(), "native toolchain unavailable"
         assert native.available()
     else:
         monkeypatch.setattr(native, "_LIB_PATH", "/nonexistent")

@@ -56,10 +56,11 @@ def test_perf_suite_rows(tmp_path, capsys):
 
 
 VERIFIED = [("cnv-w1a1", r) for r in ("mega", "direct", "vpu", "mxu",
-                                      "mxu_rm")] + \
-    [("cnv-w2a2", r) for r in ("mega", "direct", "mxu", "mxu_rm")] + \
+                                      "mxu_rm", "xla", "xlaconv")] + \
+    [("cnv-w2a2", r) for r in ("mega", "direct", "mxu", "mxu_rm", "xla",
+                               "xlaconv")] + \
     [("lfc-w1a1", r) for r in ("mega", "fused", "direct", "vpu", "mxu",
-                               "mxu_rm")]
+                               "mxu_rm", "xla", "xlaconv")]
 
 
 def test_perf_suite_cases_hold_every_route():
