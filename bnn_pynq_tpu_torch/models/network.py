@@ -10,13 +10,15 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
 - `forward` (← `forward(impl="pallas")`, the packed routes `vpu`, `mxu`,
   `mxu_rm`): every binary or 2-bit conv and dense layer packs its input
   codes into words and runs `packed_matmul` (the CUDA kernel
-  `csrc/packed_matmul.cu`); CNV's first, 8-bit conv is a plain exact
-  matmul, as in JAX; pools run on codes. W1A1 bipolar nets also take
+  `csrc/packed_matmul.cu`); CNV's first, 8-bit conv is `xla_layer`'s:
+  windows and cuBLASLt's int8 GEMM (`ops/int_dot.py::int_matmul`), where
+  JAX runs XLA's int8 dot; pools run on codes. W1A1 bipolar nets also take
   host-packed words (the `binarizeAndPack` contract).
 - `forward_direct` (← `forward_direct`, the `direct` route): every binary
   or 2-bit conv runs `conv2d_direct` (the CUDA kernel
   `csrc/conv_direct.cu`), on codes, with no im2col; CNV's first, 8-bit
-  conv and the dense layers are plain exact matmuls, as in JAX.
+  conv and the dense layers are `xla_layer`'s, cuBLASLt's int8 GEMM, as
+  JAX leaves them to XLA's int8 dot.
 - `forward_xla` (← `forward_xla`, the `xla` and `xlaconv` routes) on
   `decode_params`' layers: JAX's decoded-integer route, every dot and conv
   a library call (`ops/int_dot.py`: cuBLASLt's int8 GEMM, cuDNN's float64
@@ -27,7 +29,10 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
 
 `layers` is the first element of `params_from_numpy`'s result: per config
 layer `{}` (pool) or `{"w": WeightMatrix, "w_packed": int32 words [Kw, N]
-(packed layers only), "thr": int32 [nthr, N]}`.
+(packed layers only), "w_int8": int8 [K, N] K-contiguous, "thr": int32
+[nthr, N]}`. `forward_ref` is the
+plain float64 product's (`ops/ref.py::int_matmul_ref` on the card); no
+route of the kernels runtime calls it.
 """
 
 from __future__ import annotations
@@ -47,8 +52,7 @@ from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, conv_weight_matrix,
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
-from bnn_pynq_tpu_torch.ops.int_dot import (int_conv2d, int_matmul,
-                                            k_contiguous)
+from bnn_pynq_tpu_torch.ops.int_dot import int_conv2d, int_matmul
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.packing import np_pack_bits, np_pack_codes2
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
@@ -318,11 +322,7 @@ def forward(config: NetworkConfig, layers, x: torch.Tensor, *,
         if lp.kind == "pool":
             act = maxpool2d(act, lp.window)
         elif lp.kind == "conv_int8":
-            patches = sliding_window(act, lp.kernel, lp.kernel, lp.stride)
-            b, oh, ow, k = patches.shape
-            acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
-                                 p["w"].kn).reshape(b, oh, ow, lp.n)
-            act = acc if lp.last else multithreshold(acc, thr)
+            act = xla_layer(config, lp, p, act)
         elif lp.kind == "conv":
             act = conv2d_packed(act, p["w_packed"], thr, kernel=lp.kernel,
                                 stride=lp.stride, bits=bits, route=route)
@@ -381,16 +381,16 @@ def decode_params(config: NetworkConfig, layers):
     per layer `{"w_int8": int8 [K, N]}` (a dense layer or an 8-bit first
     conv) or `{"w_hwio": int8 [kh, kw, C, N]}` (any other conv), plus
     "thr" where the layer has thresholds; `{}` for a pool. The weights are
-    stored K-contiguous (`ops/int_dot.py::k_contiguous`), the layout
-    `int_matmul` takes without a copy; `w_hwio` is then channels-last for
-    `int_conv2d` too (O outermost), and `conv_weight_matrix` of it a
-    view."""
+    views of the layers' K-contiguous `w_int8` (`params_from_numpy`), the
+    layout `int_matmul` takes without a copy; `w_hwio` is then
+    channels-last for `int_conv2d` too (O outermost), and
+    `conv_weight_matrix` of it a view."""
     out = []
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "pool":
             out.append({})
             continue
-        kn = k_contiguous(p["w"].kn)
+        kn = p["w_int8"]
         if lp.kind == "conv":
             c = lp.k // (lp.kernel * lp.kernel)
             q = {"w_hwio": kn.reshape(lp.kernel, lp.kernel, c, lp.n)}
@@ -432,7 +432,9 @@ def forward_xla(config: NetworkConfig, decoded, x: torch.Tensor, *,
 def xla_layer(config: NetworkConfig, lp: LayerPlan, p, act: torch.Tensor, *,
               conv_mode: str = "patches",
               force_thresholds: bool = False) -> torch.Tensor:
-    """One layer of `forward_xla` on its decoded parameters `p`."""
+    """One layer of `forward_xla` on its decoded parameters `p`; a layer's
+    weights may be a column shard (N/m of its N), whose output is N/m
+    wide."""
     thr = p.get("thr") if force_thresholds else \
         (None if lp.last else p.get("thr"))
     if lp.kind == "pool":
@@ -447,7 +449,7 @@ def xla_layer(config: NetworkConfig, lp: LayerPlan, p, act: torch.Tensor, *,
         acc = int_matmul(vals, p["w_int8"])
     elif conv_mode == "native":
         w_hwio = p["w_hwio"] if "w_hwio" in p else p["w_int8"].reshape(
-            lp.kernel, lp.kernel, lp.k // (lp.kernel * lp.kernel), lp.n)
+            lp.kernel, lp.kernel, lp.k // (lp.kernel * lp.kernel), -1)
         acc = int_conv2d(vals, w_hwio, lp.stride)
     else:
         w = conv_weight_matrix(p["w_hwio"]) if "w_hwio" in p \
@@ -455,7 +457,7 @@ def xla_layer(config: NetworkConfig, lp: LayerPlan, p, act: torch.Tensor, *,
         patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
         b, oh, ow, k = patches.shape
         acc = int_matmul(patches.reshape(b * oh * ow, k),
-                         w).reshape(b, oh, ow, lp.n)
+                         w).reshape(b, oh, ow, -1)
     return acc if lp.last else multithreshold(acc, thr)
 
 
@@ -464,7 +466,9 @@ def forward_direct(config: NetworkConfig, layers,
     """Direct-route forward: int32 logits [B, num_classes] (scale/bias not
     applied, as in JAX `forward_direct`). Every 'conv' layer runs
     `conv2d_direct` on codes (int32 out on a last layer); pools, the 8-bit
-    first conv and dense layers are `forward_ref`'s."""
+    first conv and dense layers are `xla_layer`'s: `int_matmul` on the
+    K-contiguous `w_int8`, where JAX's `forward_direct` runs XLA's int8
+    dot."""
     act = prepare_input(config, x)
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "conv":
@@ -472,7 +476,7 @@ def forward_direct(config: NetworkConfig, layers,
                                 kernel=lp.kernel, abits=config.abits,
                                 stride=lp.stride)
         else:
-            act = _ref_layer(config, lp, p, act)
+            act = xla_layer(config, lp, p, act)
     return act
 
 

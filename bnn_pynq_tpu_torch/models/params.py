@@ -20,6 +20,7 @@ import torch
 
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
 from bnn_pynq_tpu_torch.models.network import make_plan
+from bnn_pynq_tpu_torch.ops.int_dot import k_contiguous
 from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 
@@ -114,7 +115,11 @@ def params_from_numpy(config: NetworkConfig,
     pool, else `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr"
     where the artifact has none, i.e. on the last layer), plus
     `"w_packed"`, the artifact's uint32 words [Kw, N] as an int32 tensor,
-    on every packed layer (all but an 8-bit first conv); out_scale and
+    on every packed layer (all but an 8-bit first conv), and `"w_int8"`,
+    the levels [K, N] stored K-contiguous (`ops/int_dot.py::k_contiguous`):
+    the weight `int_matmul` (cuBLASLt's int8 GEMM) takes without a copy,
+    where a route leaves a product to the library as JAX leaves it to
+    XLA's int8 dot, and what `decode_params` reshapes; out_scale and
     out_bias float32 [num_classes]. The engine publishes this tuple as one
     unit.
     """
@@ -137,6 +142,7 @@ def params_from_numpy(config: NetworkConfig,
             raise ValueError(f"layer weights {w_lev.shape} != "
                              f"{(lp.k, lp.n)}")
         q = {"w": weight_matrix(torch.from_numpy(w_lev).to(device))}
+        q["w_int8"] = k_contiguous(q["w"].kn)
         if "w_packed" in p:
             q["w_packed"] = words_to_tensor(
                 np.array(p["w_packed"], dtype=np.uint32)).to(device)

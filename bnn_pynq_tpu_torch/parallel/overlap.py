@@ -35,9 +35,11 @@ between layers, as the kernels take them):
   epilogue for a ring step (the shard's `WeightMatrix.wsum` folds the level
   offset, so a partial over a C-slice is exact), thresholded in the kernel
   on the blocking arm;
-- the dense partials and the last layer: the exact `ops/ref.int_matmul_ref`
-  (float64 on the card), as JAX leaves them to an XLA dot outside any
-  Pallas kernel; pools: `maxpool2d`, channelwise, no communication.
+- the dense layers, their ring partials and the last layer: cuBLASLt's
+  int8 GEMM (`ops/int_dot.py::int_matmul`), where JAX runs XLA's int8 dot
+  outside any Pallas kernel, on weights stored K-contiguous at load, the
+  ring's row blocks cut there too; pools: `maxpool2d`, channelwise, no
+  communication.
 JAX's `_conv_bf16_exact` works around a TPU int8-conv hang and has no
 counterpart here.
 """
@@ -59,8 +61,8 @@ from bnn_pynq_tpu_torch.models.params import (WeightMatrix, unpack_levels,
 from bnn_pynq_tpu_torch.ops.conv import maxpool2d
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
+from bnn_pynq_tpu_torch.ops.int_dot import int_matmul, k_contiguous
 from bnn_pynq_tpu_torch.ops.packing import packed_len
-from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
 from bnn_pynq_tpu_torch.parallel import comm
@@ -103,16 +105,19 @@ def _validate_divisibility(config, plan, d):
 
 
 @dataclass(frozen=True)
-class ConvShard:
-    """A conv layer's weights on one rank: its output columns over every
-    input channel (`full`: the blocking arm, the replicated first layer
-    and every arm on a model axis of 1), and the same columns cut into the
-    model axis's input-channel blocks (`blocks[idx]`: the ring's step on
-    the shard of rank idx; none on a model axis of 1). The
-    port's WeightMatrix is [K²·C, N] in (ki, kj, c) order, where a C-block
-    is no contiguous row range, so the blocks are built once, at load."""
-    full: WeightMatrix
-    blocks: Tuple[WeightMatrix, ...]
+class Shard:
+    """A layer's weights on one rank: its output columns over the whole
+    contraction (`full`: the blocking arm, the replicated first layer,
+    every arm on a model axis of 1, and the last layer's row block), and
+    the same columns cut into the model axis's contraction blocks
+    (`blocks[idx]`: the ring's step on the shard of rank idx; none on a
+    model axis of 1, the first layer or the last). A conv's are
+    WeightMatrix: [K²·C, N] in (ki, kj, c) order, where a C-block is no
+    contiguous row range. A dense layer's are int8 [K, N] K-contiguous,
+    `int_matmul`'s operand, where a row block of one is no K-contiguous
+    matrix. So the blocks are built once, at load."""
+    full: object
+    blocks: Tuple[object, ...]
 
 
 def layer_levels(config, lp, p) -> np.ndarray:
@@ -124,6 +129,11 @@ def layer_levels(config, lp, p) -> np.ndarray:
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _levels(a, device) -> torch.Tensor:
+    """int8 levels [K, N] on `device`, stored K-contiguous."""
+    return k_contiguous(_tensor(a, device))
 
 
 def shard_overlap_params(compiled: CompiledNetwork, mesh):
@@ -159,7 +169,7 @@ def shard_overlap_params(compiled: CompiledNetwork, mesh):
                     weight_matrix(_tensor(
                         hwio[:, :, i * cs:(i + 1) * cs].reshape(-1, nl),
                         device)) for i in range(d))
-            weights.append(ConvShard(
+            weights.append(Shard(
                 full=weight_matrix(_tensor(kn[:, cols], device)),
                 blocks=blocks))
             h = (h - lp.kernel) // lp.stride + 1
@@ -172,9 +182,15 @@ def shard_overlap_params(compiled: CompiledNetwork, mesh):
                 first_dense_after_conv = False
             if lp.last:
                 kl = lp.k // d
-                weights.append(_tensor(kn[my * kl:(my + 1) * kl], device))
+                weights.append(Shard(full=_levels(
+                    kn[my * kl:(my + 1) * kl], device), blocks=()))
             else:
-                weights.append(_tensor(kn[:, cols], device))
+                ks = lp.k // d
+                blocks = tuple(
+                    _levels(kn[i * ks:(i + 1) * ks, cols], device)
+                    for i in range(d)) if weights and d > 1 else ()
+                weights.append(Shard(full=_levels(kn[:, cols], device),
+                                     blocks=blocks))
         if not lp.last:
             thrs.append(_tensor(np.asarray(p["thr"], np.int32)[:, cols],
                                 device))
@@ -194,10 +210,10 @@ def first_conv(act: torch.Tensor, w: WeightMatrix, thr, lp, abits: int):
 
 def dense(act: torch.Tensor, w: torch.Tensor, thr, abits: int, *,
           levels: bool = False) -> torch.Tensor:
-    """Codes (or levels) [B, K] · int8 levels [K, N]: int32, or codes with
-    thresholds."""
+    """Codes (or levels) [B, K] · int8 levels [K, N] (K-contiguous):
+    int32, or codes with thresholds."""
     vals = act if levels else codes_to_values(act, abits)
-    acc = int_matmul_ref(vals, w)
+    acc = int_matmul(vals, w)
     return acc if thr is None else multithreshold(acc, thr)
 
 
@@ -265,19 +281,16 @@ def make_overlap_tp_forward(config, mesh, *, blocking: bool = False):
                 act = act.reshape(act.shape[0], -1)
                 if lp.last:
                     # row-sharded final layer: partial dot + one psum
-                    acc = comm.psum(dense(act, w, None, abits), mg)
+                    acc = comm.psum(dense(act, w.full, None, abits), mg)
                     logits = acc.to(torch.float32) * out_scale + out_bias
                     return comm.gather_batch(logits, dg)
                 if replicated_in:
-                    act = dense(act, w, thr, abits, levels=levels_in)
+                    act = dense(act, w.full, thr, abits, levels=levels_in)
                 elif whole_input:
-                    act = dense(gathered(act, 1), w, thr, abits)
+                    act = dense(gathered(act, 1), w.full, thr, abits)
                 else:
-                    ks = w.shape[0] // d
-
-                    def dense_part(idx, cur, w=w, ks=ks):
-                        return dense(cur, w[idx * ks:(idx + 1) * ks], None,
-                                     abits)
+                    def dense_part(idx, cur, w=w):
+                        return dense(cur, w.blocks[idx], None, abits)
                     act = multithreshold(_ring(mg, my, d, act, dense_part),
                                          thr)
             replicated_in = False

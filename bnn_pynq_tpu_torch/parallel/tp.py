@@ -1,25 +1,36 @@
-"""Tensor-parallel packed inference over a ('data', 'model') mesh.
+"""Tensor-parallel inference over a ('data', 'model') mesh: the packed
+engine and the decoded-integer engine.
 
-Port of `bnn_pynq_tpu/parallel/tp.py`: Megatron-style column parallelism.
+Port of `bnn_pynq_tpu/parallel/tp.py`. `TPInferenceEngine`,
+Megatron-style column parallelism on the packed kernels:
 - every packed weight matrix [Kw, N] and threshold table [nthr, N] is
   sharded on N over 'model' (replicated over 'data');
 - each rank computes its output channels with the SAME kernels as one
   card (`ops/conv.py::conv2d_packed` and `ops/matmul.py::packed_matmul`,
-  csrc/packed_matmul.cu; an 8-bit first conv is the exact
-  `int_matmul_ref`, as the port's `models/network.py::forward` runs it),
-  then the 1- or 2-bit codes are all-gathered over 'model' so that the next
-  layer sees its whole contraction axis;
+  csrc/packed_matmul.cu; an 8-bit first conv is `xla_layer`'s cuBLASLt
+  int8 GEMM, `ops/int_dot.py::int_matmul`, where JAX runs XLA's int8
+  dot), then the 1- or 2-bit codes are all-gathered over 'model' so that
+  the next layer sees its whole contraction axis;
 - the batch is split over 'data';
 - the last (classes-wide) layer is replicated: its N is 10 or 43, and the
   gathered input is already on every rank.
 
-JAX wraps the layer loop in `shard_map` because GSPMD cannot partition a
-`pallas_call`; here each rank runs it on its own shards and the
-collectives are explicit calls (parallel/comm.py). Every rank returns the
-logits of the whole batch, gathered over 'data', as JAX's call returns
-them. The engines' serving surface, and the programs they run in place of
-JAX's jitted calls (a CUDA graph a shape under NCCL), are
-parallel/spmd.py's.
+JAX wraps that layer loop in `shard_map` because GSPMD cannot partition
+a `pallas_call`; here each rank runs it on its own shards and the
+collectives are explicit calls (parallel/comm.py).
+
+`make_gspmd_engine`, JAX's decoded-integer route under sharding:
+`forward_xla`'s layers (`models/network.py::xla_layer`, library calls
+only) on `decode_params`' arrays, each array cut on its last axis over
+'model' where the layer is not the last and the axis divides, the rest
+replicated. JAX annotates those shardings and GSPMD inserts the
+collectives; here they are explicit: an all-gather of the codes after
+every column-sharded layer, and the logits gathered over 'data'.
+
+Every rank returns the logits of the whole batch, gathered over 'data',
+as JAX's calls return them. The engines' serving surface, and the
+programs they run in place of JAX's jitted calls (a CUDA graph a shape
+under NCCL), are parallel/spmd.py's.
 """
 
 from __future__ import annotations
@@ -32,18 +43,15 @@ import torch.distributed as dist
 
 from bnn_pynq_tpu_torch.compiler.artifacts import CompiledNetwork
 from bnn_pynq_tpu_torch.models.config import NetworkConfig
-from bnn_pynq_tpu_torch.models.network import make_plan, prepare_input
-from bnn_pynq_tpu_torch.models.params import weight_matrix
+from bnn_pynq_tpu_torch.models.network import (decode_params, make_plan,
+                                               prepare_input, xla_layer)
+from bnn_pynq_tpu_torch.models.params import params_from_numpy
 from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, maxpool2d,
-                                         pack_along_last, sliding_window)
-from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
+                                         pack_along_last)
+from bnn_pynq_tpu_torch.ops.int_dot import k_contiguous
 from bnn_pynq_tpu_torch.ops.matmul import ROUTES, packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
-from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
-from bnn_pynq_tpu_torch.ops.thresholds import multithreshold
 from bnn_pynq_tpu_torch.parallel import comm
-from bnn_pynq_tpu_torch.parallel.overlap import dense, first_conv, \
-    layer_levels
 from bnn_pynq_tpu_torch.parallel.spmd import (DEFAULT_BATCH_BUCKETS,
                                               Programs, SPMDEngine,
                                               execution_of)
@@ -85,7 +93,8 @@ def _local(arr: np.ndarray, spec: Spec, mesh) -> np.ndarray:
 def shard_params(params, mesh, config: NetworkConfig):
     """This rank's shards of a CompiledNetwork's layers on its device:
     `w_packed` uint32 words as their int32 bit pattern (as
-    `models/params.py::params_from_numpy` keeps them), `w_int8` int8 and
+    `models/params.py::params_from_numpy` keeps them), `w_int8` int8
+    stored K-contiguous (`int_matmul`'s operand, copied once here) and
     `thr` int32, each cut as `param_specs` says."""
     specs = param_specs(config)
     out = []
@@ -97,6 +106,8 @@ def shard_params(params, mesh, config: NetworkConfig):
             t = words_to_tensor(a) if a.dtype == np.uint32 \
                 else torch.from_numpy(a)
             q[k] = t.to(mesh.device)
+        if "w_int8" in q:
+            q["w_int8"] = k_contiguous(q["w_int8"])
         out.append(q)
     return out
 
@@ -118,12 +129,7 @@ def make_tp_forward(config: NetworkConfig, mesh, *, route: str = "mxu"):
                 act = maxpool2d(act, lp.window)
                 continue
             if lp.kind == "conv_int8":
-                patches = sliding_window(act, lp.kernel, lp.kernel,
-                                         lp.stride)
-                b, oh, ow, k = patches.shape
-                acc = int_matmul_ref(patches.reshape(b * oh * ow, k),
-                                     p["w_int8"]).reshape(b, oh, ow, -1)
-                act = acc if lp.last else multithreshold(acc, thr)
+                act = xla_layer(config, lp, p, act)
             elif lp.kind == "conv":
                 act = conv2d_packed(act, p["w_packed"], thr,
                                     kernel=lp.kernel, stride=lp.stride,
@@ -143,66 +149,59 @@ def make_tp_forward(config: NetworkConfig, mesh, *, route: str = "mxu"):
     return fn
 
 
-def make_gspmd_engine(compiled: CompiledNetwork, mesh):
-    """Tensor- and data-parallel inference on decoded integer levels;
-    returns `logits(x_prepared) -> np.ndarray`, called on every rank. As
-    JAX jits it, `logits` runs one program per padded shape (its
-    `programs`, by this rank's input shape; parallel/spmd.py's
-    `execution`, kept on `logits.execution`); `logits.forward(x_local)` is
-    the eager forward the programs run.
+def _cut(arr: torch.Tensor, lp, mesh) -> Tuple[torch.Tensor, bool]:
+    """JAX's GSPMD rule for one decoded array: this rank's N/m slice of
+    its last axis when the layer is not the last and the axis divides by
+    m = mesh.shape['model'], else the whole array (replicated). A cut
+    keeps the array's layout (a K-contiguous weight stays K-contiguous)
+    and holds only the slice. Returns (array, cut)."""
+    m, j = mesh.shape["model"], mesh.coords[1]
+    n = arr.shape[-1]
+    if lp.last or m == 1 or n % m:
+        return arr, False
+    return arr[..., j * (n // m):(j + 1) * (n // m)].clone(), True
 
-    JAX's counterpart annotates shardings and lets GSPMD insert the
-    collectives. Torch has no GSPMD: this keeps JAX's name and its rule (a
-    layer whose N divides by 'model' is column-sharded, the last layer and
-    the others are replicated; the batch is split over 'data') and makes
-    the collectives explicit: an all-gather of the codes after every
-    sharded layer, and the logits gathered over 'data'. Local compute is
-    OverlapTPEngine's blocking arm: `conv_chain` for the first conv on the
-    raw image, `conv2d_direct` for the others, `int_matmul_ref` for dense
-    layers."""
+
+def make_gspmd_engine(compiled: CompiledNetwork, mesh):
+    """Tensor- and data-parallel inference on the decoded-integer route;
+    returns `logits(x_prepared) -> np.ndarray`, called on every rank.
+
+    As JAX's: `decode_params` of the compiled layers (through
+    `params_from_numpy`, as the engine's 'xla' route loads them), every
+    decoded array (`w_int8` [K, N], `w_hwio` [kh, kw, C, N], `thr`
+    [nthr, N]) column-sharded on its last axis over 'model' where the
+    layer is not the last and N divides by the axis, else replicated;
+    `out_scale` and `out_bias` replicated; the batch split over 'data'.
+    Each rank runs `forward_xla`'s layers (`xla_layer`, conv_mode
+    'patches', JAX's default: windows and cuBLASLt's int8 GEMM, no
+    hand-written kernel) on its shards, all-gathers the codes over
+    'model' after every column-sharded layer (the collective GSPMD puts
+    in JAX's program), applies scale and bias in float32 and gathers the
+    logits over 'data'.
+
+    As JAX jits it, `logits` runs one program per padded shape (its
+    `programs`, by this rank's input shape; parallel/spmd.py's
+    `execution`, kept on `logits.execution`); `logits.forward(x_local)`
+    is the eager forward the programs run, `logits.params` this rank's
+    decoded shards, layer by layer."""
     config, device = compiled.config, mesh.device
     plan = make_plan(config)
-    m, my = mesh.shape["model"], mesh.coords[1]
     mg, dg = mesh.model_group, mesh.data_group
-    abits = config.abits
-    layers = []
-    for lp, p in zip(plan, compiled.layers):
-        if lp.kind == "pool":
-            layers.append(None)
-            continue
-        kn = layer_levels(config, lp, p)
-        sharded = not lp.last and lp.n % m == 0
-        cols = slice(my * (lp.n // m), (my + 1) * (lp.n // m)) if sharded \
-            else slice(None)
-        w = torch.from_numpy(np.ascontiguousarray(kn[:, cols])).to(device)
-        if lp.kind != "dense":
-            w = weight_matrix(w)
-        thr = None if lp.last else torch.from_numpy(np.ascontiguousarray(
-            np.asarray(p["thr"], np.int32)[:, cols])).to(device)
-        layers.append((w, thr, sharded))
-    scale = torch.from_numpy(np.asarray(compiled.out_scale,
-                                        np.float32)).to(device)
-    bias = torch.from_numpy(np.asarray(compiled.out_bias,
-                                       np.float32)).to(device)
+    layers, scale, bias = params_from_numpy(
+        config, compiled.layers, compiled.out_scale, compiled.out_bias,
+        device)
+    params, gathered = [], []
+    for lp, p in zip(plan, decode_params(config, layers)):
+        cuts = {name: _cut(arr, lp, mesh) for name, arr in p.items()}
+        params.append({name: arr for name, (arr, _) in cuts.items()})
+        gathered.append(any(cut for _, cut in cuts.values()))
+    del layers
 
     def local_forward(x):
-        levels = config.input_kind == "int8"
-        act = x if levels else prepare_input(config, x)
-        for lp, layer in zip(plan, layers):
-            if lp.kind == "pool":
-                act = maxpool2d(act, lp.window)
-                continue
-            w, thr, sharded = layer
-            if lp.kind == "dense":
-                act = dense(act.reshape(act.shape[0], -1), w, thr, abits,
-                            levels=levels)
-            elif levels:
-                act = first_conv(act, w, thr, lp, abits)
-            else:
-                act = conv2d_direct(act, w, thr, kernel=lp.kernel,
-                                    abits=abits, stride=lp.stride)
-            levels = False
-            if sharded:
+        act = prepare_input(config, x)
+        for lp, p, cut in zip(plan, params, gathered):
+            act = xla_layer(config, lp, p, act)
+            if cut:
                 act = comm.all_gather(act, mg, axis=act.ndim - 1)
         logits = act.to(torch.float32) * scale + bias
         return comm.gather_batch(logits, dg)
@@ -232,6 +231,7 @@ def make_gspmd_engine(compiled: CompiledNetwork, mesh):
     logits.programs = programs
     logits.execution = execution
     logits.forward = local_forward
+    logits.params = params
     return logits
 
 

@@ -40,7 +40,9 @@ Phases (every check raises, so any failure exits non-zero):
    and int32 exactly equal;
 8. the packed routes: InferenceEngine(cnv-w1a1, route="vpu").classify of
    the 1024 images with the packed kernel's launch counts read around it
-   (and no plain packed_matmul call), logits against runtime="ref";
+   (and no plain packed_matmul call), its 8-bit first conv one `int_mm`
+   (cuBLASLt's int8 GEMM) a forward and no int_matmul_ref, logits against
+   runtime="ref";
    the same for cnv-w2a2 route="mxu" and lfc-w1a1 route="vpu";
 9. packed input on lfc-w1a1: logits_packed and logits_words equal logits
    (route "vpu"), logits_words equals logits on route "mega";
@@ -59,7 +61,8 @@ Phases (every check raises, so any failure exits non-zero):
    conv_chain;
 12. the direct route: InferenceEngine(cnv-w1a1, route="direct").classify
    of the 1024 images with conv2d_direct's launch count read around it
-   (5) and no plain call, logits against runtime="ref"; the same for
+   (5) and no plain call, conv0 and the 3 dense layers 4 `int_mm` a
+   forward and no int_matmul_ref, logits against runtime="ref"; the same for
    cnv-w2a2; then batches above the largest bucket: classify of 2048 and
    4096 images on "mega", "direct" and "vpu" equal to runtime="ref" taken
    1024 at a time, with images/s beside the 1024 figure;
@@ -104,7 +107,9 @@ Phases (every check raises, so any failure exits non-zero):
    OverlapTPEngine ring, blocking and 'auto' (conv_chain 1, conv2d_direct
    5) classifying the 1024 images of phase 4, equal to the single-card
    engine (classes exactly, logits within rtol=atol=1e-5), with no plain
-   call; then in a world of two ranks sharing the card over gloo, meshes
+   call and no int_matmul_ref (the first conv of TPInferenceEngine and the
+   dense layers of OverlapTPEngine are `int_mm`, counted); then in a world
+   of two ranks sharing the card over gloo, meshes
    (1, 2) and (2, 1) on CNV-W1A1 and LFC-W1A1, both engines, every arm, each
    rank's launches and collectives counted, and a BatchingServer on rank 0
    answering 68 requests while rank 1 follows, with the parameters swapped
@@ -147,12 +152,16 @@ Phases (every check raises, so any failure exits non-zero):
    for LFC the packed-words pair), the program's output equal to the eager
    forward bit for bit at its first use and at a replay, in distinct
    buffers, its capture's kernel launches and library calls equal to the
-   eager forward's ('xla' and 'xlaconv': library calls, no kernel),
+   eager forward's ('xla' and 'xlaconv': library calls, no kernel; the
+   packed routes and 'direct': their `int_mm` calls; no int_matmul_ref),
    logits within rtol=atol=1e-5 of runtime="ref" and argmax equal; then,
    captured against eager in the same run, classify images/s, the host's
    enqueue of a forward, device ms per forward (and the eager forward
    under graph replay, at 1024 and at 1) and batch-1 µs chained,
-   synchronised and host to host (CNV-W1A1 mega, direct, vpu; LFC-W1A1 mega); two launches of one
+   synchronised and host to host (CNV-W1A1 mega, direct, vpu; LFC-W1A1
+   mega), and for `direct` and `vpu` the eager forward under graph replay
+   with its int8 products on `int_mm` against the float64 int_matmul_ref
+   they ran on before, in turns, equal bit for bit; two launches of one
    bucket in flight and a load_parameters between two launches (old, then
    new, never mixed); the memory of one engine's programs; 20 CNV-W1A1
    training steps at batch 50 captured against eager under cuDNN's
@@ -171,9 +180,12 @@ Phases (every check raises, so any failure exits non-zero):
    'mxu', OverlapTPEngine ring, blocking and 'auto' and make_gspmd_engine
    on phase 4's 1024 images at batch 1024 and 1, each program equal to the
    eager forward bit for bit at its first use and at a replay, its
-   capture's kernel launches and collective calls equal to the eager
-   forward's, replayed, classify and logits equal to the single-card
-   engine; captured against eager in the same run: the host's enqueue of
+   capture's kernel launches, library calls and collective calls equal to
+   the eager forward's (no int_matmul_ref; make_gspmd_engine, on
+   decode_params' arrays, one `int_mm` a conv or dense layer and no kernel),
+   replayed, classify and logits equal to the single-card engine
+   ('mega''s for make_gspmd_engine; its programs' pool bytes printed);
+   captured against eager in the same run: the host's enqueue of
    a forward, device ms per forward (and the eager forward under graph
    replay) and batch-1 µs chained; a load_parameters between two launches
    (old, then new, captured again); 40 sharded CNV-W1A1 steps at batch 50
@@ -828,15 +840,30 @@ def _direct_cases(torch, device):
     return cases
 
 
+def _library_moved(label, before):
+    """The library calls (`engine.library_calls`) made since `before` by
+    an engine of the kernels runtime, which calls no int_matmul_ref: the
+    int8 products JAX leaves to XLA are `int_mm` (cuBLASLt) there."""
+    from bnn_pynq_tpu_torch.runtime.engine import _moved, library_calls
+    lib = _moved(before, library_calls())
+    assert "int_matmul_ref" not in lib, \
+        f"{label}: the kernels runtime called int_matmul_ref: {lib}"
+    return lib
+
+
 def _engine_check(torch, name, images, label, route="mega"):
     """Kernel engine vs ref engine on the card; returns the kernel engine
-    (and prints both img/s)."""
-    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    (and prints both img/s). The kernel engine calls no int_matmul_ref."""
+    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
+                                                   library_calls)
     eng = InferenceEngine.from_artifact(_artifact(name), device="cuda",
                                         route=route)
     ref = InferenceEngine.from_artifact(_artifact(name), device="cuda",
                                         runtime="ref")
+    before = library_calls()
     got = eng.logits(images)
+    torch.cuda.synchronize()
+    _library_moved(f"engine {label}", before)
     want = ref.logits(images)
     assert got.shape == (len(images), eng.config.num_classes), got.shape
     assert np.isfinite(got).all()
@@ -1765,23 +1792,48 @@ def _reset_path_launches():
     conv_direct.conv2d_direct.launches.reset()
 
 
+def _int_mm_calls(eng):
+    """The int_mm calls of one forward of a parallel engine, the int8
+    products JAX leaves to XLA: TPInferenceEngine's 8-bit first conv;
+    OverlapTPEngine's dense layers, each but the first and the last as m
+    ring partials on a ring of m > 1."""
+    from bnn_pynq_tpu_torch.models.network import make_plan
+    plan = [lp for lp in make_plan(eng.config) if lp.kind != "pool"]
+    if not hasattr(eng, "arm"):
+        n = sum(lp.kind == "conv_int8" for lp in plan)
+    else:
+        m = eng.mesh.shape["model"]
+        ring = m if eng.arm == "ring" else 1
+        n = sum(ring if i and not lp.last else 1
+                for i, lp in enumerate(plan) if lp.kind == "dense")
+    return {"int_mm": n} if n else {}
+
+
 def _held(torch, label, eng, x, want_logits, want_cls):
     """Classify x (uint8) on a parallel engine with the launches and the
     collectives counted around it, then logits; both against the
     single-card engine's. Returns the row of this configuration: its
     launches per forward (under NCCL a classify's first use of a bucket
     counts the eager run before the capture and the capture, 2 × a
-    forward) and its execution."""
+    forward) and its library calls per forward (`_int_mm_calls`, no
+    int_matmul_ref) and its execution."""
     from bnn_pynq_tpu_torch.parallel import comm
     from bnn_pynq_tpu_torch.parallel.overlap import elapsed_s
+    from bnn_pynq_tpu_torch.runtime.engine import library_calls
     _reset_path_launches()
     comm.reset_counts()
+    lib_before = library_calls()
     got_cls = eng.classify(x, prepared=False)
     torch.cuda.synchronize()
     runs = 2 if eng.execution == "graphs" else 1
     launches = {k: v // runs for k, v in _path_launches().items() if v}
     assert all(v * runs == _path_launches()[k] for k, v in launches.items()),\
         f"{label}: launches {_path_launches()} not {runs} forwards"
+    lib = _library_moved(label, lib_before)
+    library = {k: v // runs for k, v in lib.items()}
+    assert library == _int_mm_calls(eng) and all(
+        v * runs == lib[k] for k, v in library.items()), \
+        f"{label}: library calls {lib}, not {runs} x {_int_mm_calls(eng)}"
     counts = {k: v for k, v in comm.counts().items() if v}
     got = eng.logits(x, prepared=False)
     assert np.array_equal(got_cls, want_cls), f"{label}: classes differ"
@@ -1790,6 +1842,7 @@ def _held(torch, label, eng, x, want_logits, want_cls):
     eng.launch_prepared(xd)
     ms = elapsed_s(lambda: eng.launch_prepared(xd), 3, eng.device) * 1e3
     return {"label": label, "launches": launches, "collectives": counts,
+            "library": library,
             "max_abs_err": float(np.abs(got - want_logits).max()),
             "ms": ms, "execution": eng.execution,
             "programs": len(eng.programs)}
@@ -2041,6 +2094,7 @@ def _parallel_phase(torch, smi):
             print(f"  [{world}] {row['label']}: logits == single-card "
                   f"engine (max |diff| {row['max_abs_err']:.3g}), classes "
                   f"equal; launches per forward {row['launches']}; "
+                  f"library calls {row['library']} (no int_matmul_ref); "
                   f"collectives {row['collectives']}; {row['ms']:.3f} ms "
                   f"per forward at batch {BATCH} ({smi}){extra}")
     served, follower = two[0]["served"], two[1]["served"]
@@ -2381,9 +2435,20 @@ PROGRAM_ROUTES = {"cnv-w1a1": ("mega", "s2d", "xla", "xlaconv", "vpu", "mxu",
                                "mxu_rm", "direct"),
                   "lfc-w1a1": ("mega", "fused", "vpu", "mxu", "mxu_rm",
                                "direct")}
+# the int_mm calls (cuBLASLt's int8 GEMM) of one forward of the routes that
+# run hand-written kernels and leave a product to the library, as JAX
+# leaves it to XLA's int8 dot: the 8-bit first conv, and on 'direct' every
+# dense layer
+INT_MM_ROUTES = {"vpu": {"cnv-w1a1": 1, "lfc-w1a1": 0},
+                 "mxu": {"cnv-w1a1": 1, "lfc-w1a1": 0},
+                 "mxu_rm": {"cnv-w1a1": 1, "lfc-w1a1": 0},
+                 "direct": {"cnv-w1a1": 4, "lfc-w1a1": 4}}
 # the route and net each eager-against-captured timing runs
 PROGRAM_TIMINGS = (("cnv-w1a1", "mega"), ("cnv-w1a1", "direct"),
                    ("cnv-w1a1", "vpu"), ("lfc-w1a1", "mega"))
+# the routes whose device ms a forward phase 20 also takes "before": conv0
+# (and on 'direct' the dense layers) on forward_ref's float64 product
+BEFORE_INT_MM = ("direct", "vpu")
 TRAIN_STEPS = 20          # captured against eager, bit for bit
 
 
@@ -2424,7 +2489,8 @@ def _programs_held(torch, images, mnist):
     each variant the engine dispatches: the program's output equal to the
     eager forward bit for bit (first use and a replay), its capture's
     kernel launches and library calls equal to the eager forward's (on
-    'xla' and 'xlaconv' library calls only: no kernel, no
+    'xla' and 'xlaconv' library calls only: no kernel; on the packed
+    routes and 'direct' the int_mm calls of INT_MM_ROUTES; no route calls
     int_matmul_ref), logits against runtime="ref"."""
     from bnn_pynq_tpu_torch import native
     from bnn_pynq_tpu_torch.runtime.engine import (XLA_ROUTES,
@@ -2472,12 +2538,19 @@ def _programs_held(torch, images, mnist):
                         assert prog.library == lib, \
                             f"{label}: capture {prog.library} != eager {lib}"
                         assert prog.replays.value == 2, label
+                        assert "int_matmul_ref" not in lib, \
+                            f"{label}: {lib}: the kernels runtime called " \
+                            f"int_matmul_ref"
                         if route in XLA_ROUTES:
-                            assert not eager and lib and \
-                                "int_matmul_ref" not in lib, \
+                            assert not eager and lib, \
                                 f"{label}: {eager} {lib}, not the library"
                         elif name != "lfc-w1a1" or route != "direct":
                             assert eager, f"{label}: no kernel launched"
+                        if route in INT_MM_ROUTES:
+                            # conv0 (and on 'direct' the dense layers)
+                            n = INT_MM_ROUTES[route][name]
+                            assert lib == ({"int_mm": n} if n else {}), \
+                                f"{label}: library calls {lib}"
                         seen[label.split(" ", 2)[2]] = eager or lib
                         n_programs += 1
                 logits = eng.fetch(eng.launch_prepared(xd))
@@ -2491,6 +2564,22 @@ def _programs_held(torch, images, mnist):
                   f"xlaconv) == eager "
                   f"{seen[f'batch {BATCH} logits']}, logits == ref")
     return n_programs
+
+
+@contextlib.contextmanager
+def _float64_products():
+    """`forward` and `forward_direct` as they ran before their int8
+    products moved to cuBLASLt's GEMM: conv0 (and on 'direct' the dense
+    layers) through forward_ref's layer, `int_matmul_ref` in float64 on
+    the card."""
+    from bnn_pynq_tpu_torch.models import network
+    xla_layer = network.xla_layer
+    network.xla_layer = lambda config, lp, p, act: \
+        network._ref_layer(config, lp, p, act)
+    try:
+        yield
+    finally:
+        network.xla_layer = xla_layer
 
 
 def _eager_engine(eng):
@@ -2555,10 +2644,33 @@ def _program_timings(torch, images, mnist, smi):
                 got["graph_ms"] = graph_ms(lambda: _eager(eng, xd, True))
                 got["b1_graph_us"] = 1e3 * graph_ms(
                     lambda: _eager(one, xd1))
+            if mode == "eager" and route in BEFORE_INT_MM:
+                # int_mm against the float64 product, in turns
+                order = ("int_mm", "float64") if kind == "eager" \
+                    else ("float64", "int_mm")
+                for side in order:
+                    with (_float64_products() if side == "float64"
+                          else contextlib.nullcontext()):
+                        got[f"{side}_graph_ms"] = graph_ms(
+                            lambda: _eager(eng, xd, True))
+                        got[f"{side}_out"] = _eager(eng, xd)
+                assert torch.equal(got.pop("int_mm_out"),
+                                   got.pop("float64_out")), \
+                    f"{name} {route}: int_mm forward != float64 forward"
             for k, v in got.items():
                 row.setdefault(k, {})[kind] = v
         rows.append(row)
         print(f"programs timing {json.dumps(row)}")
+        if route in BEFORE_INT_MM:
+            print(f"programs {name} {route}: device ms a forward at batch "
+                  f"{BATCH} under graph replay (the eager forward), conv0"
+                  f"{' and the dense layers' if route == 'direct' else ''} "
+                  f"on int_mm (cuBLASLt) / on the float64 int_matmul_ref "
+                  f"(as before), in turns: "
+                  + "; ".join(f"{row['int_mm_graph_ms'][k]:.4f} / "
+                              f"{row['float64_graph_ms'][k]:.4f}"
+                              for k in ("eager", "eager_again"))
+                  + f" ({smi})")
     return rows
 
 
@@ -2609,14 +2721,20 @@ def _graph_pool_bytes(torch, route="mega"):
         eng.warmup(b)
     torch.cuda.synchronize()
     grown = torch.cuda.memory_reserved() - reserved0
-    pool = tuple(eng._state.pool)
-    segs = torch.cuda.memory._snapshot()["segments"]
-    in_pool = [s["total_size"] for s in segs
-               if tuple(s.get("segment_pool_id") or ()) == pool]
+    in_pool = _pool_bytes(torch, eng._state.pool)
     print(f"programs memory: cnv-w1a1 {route}, {len(eng.programs)} programs "
           f"(buckets {list(eng.batch_buckets)}, logits and argmax), reserved "
           f"bytes grew {grown} over the captures; the shared pool's segments "
-          f"{sum(in_pool)} bytes in {len(in_pool)}")
+          f"{in_pool[0]} bytes in {in_pool[1]}")
+
+
+def _pool_bytes(torch, pool):
+    """(bytes, segments) of a graph pool's segments, where the allocator's
+    snapshot names their pool."""
+    segs = torch.cuda.memory._snapshot()["segments"]
+    sizes = [s["total_size"] for s in segs
+             if tuple(s.get("segment_pool_id") or ()) == tuple(pool)]
+    return sum(sizes), len(sizes)
 
 
 def _captured_training(torch, smi):
@@ -2835,11 +2953,15 @@ def _spmd_held(torch, label, eng, mesh, x_prepared, wants, graph=True):
     forward chained at 1024, batch-1 µs chained, and (graph) the eager
     forward under graph replay at 1024 and at 1."""
     from bnn_pynq_tpu_torch.parallel import comm
-    from bnn_pynq_tpu_torch.runtime.engine import kernel_launches
+    from bnn_pynq_tpu_torch.runtime.engine import (_moved, kernel_launches,
+                                                   library_calls)
     from bnn_pynq_tpu_torch.tools.batch1_latency import chained_us
     from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
     gspmd = label == "make_gspmd_engine"
     assert eng.execution == "graphs", (label, eng.execution)
+    # make_gspmd_engine: an int8 GEMM a conv or dense layer, nothing else
+    want_lib = {"int_mm": sum(1 for p in eng.params if p)} if gspmd \
+        else _int_mm_calls(eng)
 
     def forwards(x):
         """{argmax: (program launch, eager forward, program key)}"""
@@ -2857,28 +2979,35 @@ def _spmd_held(torch, label, eng, mesh, x_prepared, wants, graph=True):
 
     runs = {}
     for batch in (BATCH, 1):
-        if gspmd:
-            eng(x_prepared[:batch])         # makes the shape's program
+        first = eng(x_prepared[:batch]) if gspmd else None   # its program
         for argmax, (program, eager, key) in forwards(
                 x_prepared[:batch]).items():
             tag = f"{label} batch {batch} {'argmax' if argmax else 'logits'}"
             before, calls = kernel_launches(), comm.counts()
+            lib_before = library_calls()
             want = eager()
             torch.cuda.synchronize()
             e_launch, e_calls = _launch_delta(before), _calls_delta(calls)
+            e_lib = _moved(lib_before, library_calls())
             replayed = eng.programs[key].replays.value if gspmd else 0
             got, again = program(), program()
             torch.cuda.synchronize()
             p = eng.programs[key]
             assert torch.equal(got, want) and torch.equal(again, want), \
                 f"{tag}: program != eager forward"
+            if gspmd:                       # its first use, bit for bit
+                assert np.array_equal(first, want.cpu().numpy()[:batch]), \
+                    f"{tag}: first use != eager forward"
             assert p.graph is not None, f"{tag}: not captured"
-            assert p.launches == e_launch and e_launch, \
+            assert p.launches == e_launch and bool(e_launch) != gspmd, \
                 f"{tag}: capture launches {p.launches} != eager {e_launch}"
+            assert p.library == e_lib == want_lib, \
+                f"{tag}: capture library {p.library}, eager {e_lib}, " \
+                f"not {want_lib}"
             assert p.collectives == e_calls, \
                 f"{tag}: capture collectives {p.collectives} != {e_calls}"
             assert p.replays.value - replayed == 2, f"{tag}: replays"
-            runs[tag] = {"launches": p.launches,
+            runs[tag] = {"launches": p.launches, "library": p.library,
                          "collectives": p.collectives}
     want_logits, want_cls = wants
     if gspmd:
@@ -2908,8 +3037,11 @@ def _spmd_held(torch, label, eng, mesh, x_prepared, wants, graph=True):
         if graph and kind == "eager":
             times[kind]["graph_ms"] = graph_ms(fwd)
             times[kind]["b1_graph_us"] = 1e3 * graph_ms(fwd1)
-    return {"label": label, "runs": runs, "times": times,
-            "programs": len(eng.programs), "repr": repr(eng)}
+    row = {"label": label, "runs": runs, "times": times,
+           "programs": len(eng.programs), "repr": repr(eng)}
+    if gspmd:                       # the memory of its two programs
+        row["pool_bytes"] = _pool_bytes(torch, eng.programs.pool)
+    return row
 
 
 def _spmd_swap(torch, compiled, mesh):
@@ -3059,15 +3191,19 @@ def _print_spmd_rows(rows, smi, where):
         if "graph_ms" in e:
             replay = f" (eager under graph replay {e['graph_ms']:.4f})"
             b1 = f" (eager under graph replay {e['b1_graph_us']:.2f})"
+        pool = "" if "pool_bytes" not in row else (
+            f"; its programs' pool {row['pool_bytes'][0]} bytes in "
+            f"{row['pool_bytes'][1]} segments")
         print(f"  [{where}] {row['label']}: {len(row['runs'])} programs held "
               f"(batch 1024 and 1) == the eager forward bit for bit, capture "
-              f"launches {first['launches']} and collectives "
+              f"launches {first['launches']}, library calls "
+              f"{first['library']} (no int_matmul_ref) and collectives "
               f"{first['collectives']} == eager's, replayed; == single-card "
               f"engine; enqueue ms captured {c['enqueue_ms']:.4f} / eager "
               f"{e['enqueue_ms']:.4f}; device ms a forward at 1024 captured "
               f"{c['chained_ms']:.4f} / eager {e['chained_ms']:.4f}{replay}; "
               f"batch-1 chained µs captured {c['b1_chained_us']} / eager "
-              f"{e['b1_chained_us']}{b1} ({smi})")
+              f"{e['b1_chained_us']}{b1}{pool} ({smi})")
 
 
 def _spmd_programs_phase(torch, smi):
@@ -3378,7 +3514,8 @@ def main(argv=None) -> int:
     from bnn_pynq_tpu_torch import native
     from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
                                         fused_mlp, matmul)
-    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
+                                                   library_calls)
     from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
     from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
 
@@ -3543,13 +3680,21 @@ def main(argv=None) -> int:
                                              device="cuda", route="vpu")
         for c in arms.values():
             c.reset()
+        lib_before = library_calls()
         vpred = veng.classify(images)
         torch.cuda.synchronize()
         arm_launches = {r: c.value for r, c in arms.items()}
         launches["packed_matmul"] = sum(arm_launches.values())
+        vlib = _library_moved("packed path", lib_before)
+        vprog = _hold_program(torch, veng, ((BATCH, 32, 32, 3), torch.int8,
+                                            True, False), "packed path")
         print(f"packed path: cnv-w1a1 route=vpu classify batch {BATCH}, "
               f"packed_matmul launches {arm_launches}, plain calls "
-              f"{len(plain_calls)}")
+              f"{len(plain_calls)}; library calls {vlib} (the eager run and "
+              f"the capture; the program's {vprog.library}: conv0 on "
+              f"cuBLASLt's int8 GEMM, no int_matmul_ref)")
+        assert vprog.library == {"int_mm": 1} and \
+            vlib == {"int_mm": 2}, (vprog.library, vlib)
         assert arm_launches["vpu"] > 0, "packed path never launched vpu"
         assert not plain_calls, "a CUDA route ran the plain version"
         assert vpred.shape == (BATCH,) and vpred.min() >= 0 \
@@ -3645,18 +3790,24 @@ def main(argv=None) -> int:
                                              device="cuda", route="direct")
         for c in direct_counters.values():
             c.reset()
+        lib_before = library_calls()
         dpred = deng.classify(images)
         torch.cuda.synchronize()
+        dlib = _library_moved("direct path", lib_before)
         launches.update({k: c.value for k, c in direct_counters.items()})
         print(f"direct path: cnv-w1a1 route=direct classify batch {BATCH}, "
               f"launches conv2d_direct {launches['conv2d_direct']}, "
               f"conv_chain_direct {launches['conv_chain_direct']} (no "
-              f"route calls it, as in JAX), plain calls {len(direct_plain)}")
+              f"route calls it, as in JAX), plain calls {len(direct_plain)}"
+              f"; library calls {dlib} (conv0 and the 3 dense layers on "
+              f"cuBLASLt's int8 GEMM, no int_matmul_ref)")
         # the first use: the eager run before the capture, the capture
         dprog = _hold_program(torch, deng, ((BATCH, 32, 32, 3), torch.int8,
                                             True, False), "direct path")
         assert dprog.launches["conv2d_direct"] == 5, \
             "direct path: 5 conv layers a forward"
+        assert dprog.library == {"int_mm": 4} and \
+            dlib == {"int_mm": 8}, (dprog.library, dlib)
         assert launches["conv2d_direct"] == 2 * 5 and \
             dprog.replays.value == 1, "direct path: 5 conv layers"
         assert not direct_plain, "a CUDA route ran the plain version"
