@@ -5,8 +5,10 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
   a list of kernel stages and plain glue, with the same stage names as the
   JAX route wherever the stage exists. For CNV: chain0-1 → pool2 →
   chain3-4 → pool5 → block6 → mlp_tail, i.e. `conv_chain` (twice),
-  `dense_block` and `fused_mlp_forward`. The JAX route's `im2col0` stage
-  is gone: the conv kernel reads the raw image itself.
+  `dense_block` and `fused_mlp_forward_padded`. The JAX route's `im2col0`
+  stage is gone there: the conv kernel reads the raw image itself. A
+  strided conv keeps JAX's layout: `im2col{i}` (`sliding_window` with the
+  stride), then `chain{i}-{j}` on `conv_chain(input_patches=True)`.
 - `forward` (← `forward(impl="pallas")`, the packed routes `vpu`, `mxu`,
   `mxu_rm`): every binary or 2-bit conv and dense layer packs its input
   codes into words and runs `packed_matmul` (the CUDA kernel
@@ -51,7 +53,7 @@ from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, conv_weight_matrix,
                                          sliding_window)
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
-from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward_padded
 from bnn_pynq_tpu_torch.ops.int_dot import int_conv2d, int_matmul
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.packing import np_pack_bits, np_pack_codes2
@@ -204,8 +206,6 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
         oh = (h - lp.kernel) // lp.stride + 1
         if oh * oh < _MEGA_SMALL_HW and lp.stride == 1:
             break  # small-spatial tail (phase 2)
-        if lp.stride != 1:
-            raise NotImplementedError("the conv kernel is stride-1 only")
         ow = (w - lp.kernel) // lp.stride + 1
         group = [idx]
         j = idx + 1
@@ -217,10 +217,19 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
         if plan[group[0]].last:
             raise NotImplementedError(
                 "mega route expects a dense (or small-conv) final stage")
+        # a strided conv's patches are prebuilt, as in JAX (which also
+        # prebuilds the image conv's and those of channels that are no
+        # multiple of 32; the conv kernel reads those in place)
+        prebuild = lp.stride != 1
+        if prebuild:
+            stages.append((f"im2col{idx}", partial(
+                sliding_window, kh=lp.kernel, kw=lp.kernel,
+                stride=lp.stride)))
         stages.append((f"chain{group[0]}-{group[-1]}", partial(
             conv_chain, weights=[layers[g]["w"] for g in group],
             thresholds=[layers[g]["thr"] for g in group],
-            kernel=lp.kernel, abits=abits, input_levels=levels)))
+            kernel=lp.kernel, abits=abits, input_patches=prebuild,
+            input_levels=levels)))
         shrink = (len(group) - 1) * (lp.kernel - 1)
         h, w = oh - shrink, ow - shrink
         levels = False
@@ -282,8 +291,9 @@ def _conv_block(a, *, w, thr, kernel, stride, abits, levels):
 
 
 def _mlp_tail(a, *, weights, thresholds, out_scale, out_bias, abits):
-    return fused_mlp_forward(a.reshape(a.shape[0], -1), weights, thresholds,
-                             out_scale, out_bias, abits=abits)
+    return fused_mlp_forward_padded(a.reshape(a.shape[0], -1), weights,
+                                    thresholds, out_scale, out_bias,
+                                    abits=abits)
 
 
 def forward_mega(config: NetworkConfig, layers, x: torch.Tensor,

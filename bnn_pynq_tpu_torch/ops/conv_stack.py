@@ -1,12 +1,16 @@
 """Quantized conv chains and thresholded dense blocks.
 
 Ports of `bnn_pynq_tpu/ops/conv_stack.py`:
-- `conv_chain` ← `conv_chain_vmem`: chained stride-1 VALID K×K convs, each
-  an exact int dot + MultiThreshold to codes. Unlike the JAX kernel it
-  returns the valid region only, and takes a raw int8 image
-  (`input_levels=True`) without prebuilt patches. CUDA kernel:
+- `conv_chain` ← `conv_chain_vmem`: chained VALID K×K convs, each an exact
+  int dot + MultiThreshold to codes, on activation codes, on a raw int8
+  image (`input_levels=True`), or on prebuilt first-layer patches
+  (`input_patches=True`, e.g. `sliding_window` with a stride). Unlike the
+  JAX kernel it returns the valid region only. CUDA kernel:
   `csrc/conv_chain.cu` (entry `bnn_conv_layer`), launched once per layer
-  (the intermediate codes go through device memory).
+  (the intermediate codes go through device memory); prebuilt patches are
+  its layer 0 at kernel 1.
+- `conv_chain_vmem`: JAX's name and signature over `conv_chain`, returning
+  JAX's full-grid shape (the valid region, zero beyond it).
 - `dense_block` ← `dense_block`: chained dense layers, all thresholded,
   codes (or levels) in, codes out. CUDA kernel: `csrc/dense_block.cu`
   (entry `bnn_dense_block`), launched once per layer likewise.
@@ -32,13 +36,15 @@ from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
 
 
 def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
+                     input_patches: bool = False,
                      input_levels: bool = False) -> torch.Tensor:
     """Plain PyTorch version of `conv_chain` (same arguments)."""
     act = x
     for j, (w, thr) in enumerate(zip(weights, thresholds)):
         vals = act if (j == 0 and input_levels) else \
             codes_to_values(act, abits)
-        patches = sliding_window(vals, kernel, kernel, 1)
+        patches = vals if (j == 0 and input_patches) else \
+            sliding_window(vals, kernel, kernel, 1)
         b, oh, ow, k = patches.shape
         acc = int_matmul_ref(patches.reshape(b * oh * ow, k), w.kn)
         act = multithreshold(acc, thr).reshape(b, oh, ow, w.kn.shape[1])
@@ -47,14 +53,30 @@ def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
 
 def conv_chain(x: torch.Tensor, weights: Sequence,
                thresholds: Sequence[torch.Tensor], *, kernel: int,
-               abits: int, input_levels: bool = False) -> torch.Tensor:
-    """Chained stride-1 VALID convs, every one thresholded.
+               abits: int, input_patches: bool = False,
+               input_levels: bool = False) -> torch.Tensor:
+    """Chained stride-1 VALID K×K convs, every one thresholded (a strided
+    first conv comes as its prebuilt patches).
 
     x: int8 [B, H, W, C0] activation codes, or int8 levels (e.g. the
        centred image) if `input_levels` — which applies to layer 0 only.
+       With `input_patches`, x is layer 0's prebuilt patches
+       [B, H, W, K²·C_in] in (ki, kj, c) order (`ops/conv.py::
+       sliding_window`, which also absorbs a strided first conv): layer 0
+       is then the product over the patch lanes at each pixel and keeps
+       the grid.
     weights: WeightMatrix per layer, levels [K²C_j, C_{j+1}] in (ki,kj,c)
        order. thresholds: int32 [nthr, C_{j+1}] per layer.
-    Returns int8 codes [B, H - n(K-1), W - n(K-1), C_last], n = layers.
+    Returns int8 codes [B, H - n(K-1), W - n(K-1), C_last], n the layers
+    that convolve in here (all of them, or all but layer 0 with
+    `input_patches`).
+
+    On a CUDA tensor prebuilt patches run as the kernel's layer at kernel
+    1, their lanes zero-padded to the weights' `nk32` width first (the
+    weights are zero there, so any pad is safe): whole 32-byte-aligned
+    rows that the kernel copies into shared memory, where K²·C_in lanes
+    that are no multiple of 32 (27 for a 3-channel image) would take its
+    byte-wise patch gather.
     """
     if len(thresholds) != len(weights):
         raise ValueError("one threshold table per chained layer")
@@ -63,30 +85,37 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
                          f"{tuple(x.shape)}")
     b, h, w, c = x.shape
     for j, (wt, thr) in enumerate(zip(weights, thresholds)):
-        if wt.kn.shape[0] != kernel * kernel * c:
+        ks = 1 if (j == 0 and input_patches) else kernel
+        if wt.kn.shape[0] != ks * ks * c:
             raise ValueError(f"layer {j}: weight rows {wt.kn.shape[0]} != "
-                             f"K²C {kernel * kernel * c}")
+                             f"K²C {ks * ks * c}")
         if thr.dtype != torch.int32 or thr.ndim != 2 or \
                 thr.shape[1] != wt.kn.shape[1]:
             raise ValueError(f"layer {j}: thresholds must be int32 "
                              f"[nthr, {wt.kn.shape[1]}]")
-        h, w, c = h - kernel + 1, w - kernel + 1, wt.kn.shape[1]
+        h, w, c = h - ks + 1, w - ks + 1, wt.kn.shape[1]
         if h < 1 or w < 1:
             raise ValueError(f"layer {j}: {kernel}×{kernel} conv leaves no "
                              "valid region")
     if x.device.type == "cpu":
         return conv_chain_plain(x, weights, thresholds, kernel=kernel,
-                                abits=abits, input_levels=input_levels)
+                                abits=abits, input_patches=input_patches,
+                                input_levels=input_levels)
     check_cuda_operands(x, weights, thresholds)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     act = x
     for j, (wt, thr) in enumerate(zip(weights, thresholds)):
+        ks = kernel
+        if j == 0 and input_patches:
+            ks, k32 = 1, wt.nk32.shape[1]
+            if act.shape[-1] != k32:
+                act = torch.nn.functional.pad(act, (0, k32 - act.shape[-1]))
         b, h, w, c = act.shape
         n = wt.kn.shape[1]
-        out = torch.empty((b, h - kernel + 1, w - kernel + 1, n),
+        out = torch.empty((b, h - ks + 1, w - ks + 1, n),
                           dtype=torch.int8, device=x.device)
-        lib.call("bnn_conv_layer", act.data_ptr(), b, h, w, c, kernel,
+        lib.call("bnn_conv_layer", act.data_ptr(), b, h, w, c, ks,
                  int(j == 0 and input_levels), wt.nk32.data_ptr(),
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
                  thr.shape[0], abits, out.data_ptr(), stream)
@@ -96,6 +125,27 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
 
 
 conv_chain.launches = _build.LaunchCounter()
+
+
+def conv_chain_vmem(x: torch.Tensor, weights: Sequence,
+                    thresholds: Sequence[torch.Tensor], *, kernel: int,
+                    abits: int, input_patches: bool = False,
+                    input_levels: bool = False) -> torch.Tensor:
+    """`conv_chain` in the JAX kernel's form: int8 codes [B, H, W, C_last]
+    on the full input grid, whose valid region [:, :H - n(K-1),
+    :W - n(K-1)] (n as in `conv_chain`) equals JAX's and whose border,
+    garbage in JAX, is zero here. The routes call `conv_chain`, which
+    returns the valid region alone.
+
+    JAX's TPU-only arguments are left out: `interpret`, the tile sizes
+    `block_b` and `target_rows`, `build_mode` (its two schedules give the
+    same bits) and `offset_mode` (its other values are timing diagnostics
+    that give wrong results by design)."""
+    out = conv_chain(x, weights, thresholds, kernel=kernel, abits=abits,
+                     input_patches=input_patches, input_levels=input_levels)
+    _, h, w, _ = x.shape
+    return torch.nn.functional.pad(
+        out, (0, 0, 0, w - out.shape[2], 0, h - out.shape[1]))
 
 
 def dense_block_plain(x_codes, weights, thresholds, *, abits: int,

@@ -1,7 +1,8 @@
 """Whole quantized MLP in one kernel: codes in, float logits out.
 
-Port of `bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward` (and its
-`_padded` form: the kernel masks a ragged batch, so there is no padding).
+Port of `bnn_pynq_tpu/ops/fused_mlp.py::fused_mlp_forward` and
+`fused_mlp_forward_padded` (any batch: the kernel masks a ragged batch, so
+nothing is padded).
 Per layer: levels · weights → int32, MultiThreshold back to levels; the
 last layer gives `float(acc) * out_scale + out_bias`. The CUDA kernel is
 `csrc/dense_chain.cu` (entry `bnn_fused_mlp`): one launch, the dots on the
@@ -80,6 +81,17 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
 
 
 fused_mlp_forward.launches = _build.LaunchCounter()
+
+
+def fused_mlp_forward_padded(x_codes: torch.Tensor, weights: Sequence,
+                             thresholds: Sequence[torch.Tensor],
+                             out_scale: torch.Tensor, out_bias: torch.Tensor,
+                             *, abits: int) -> torch.Tensor:
+    """JAX's any-batch entry: `fused_mlp_forward` itself, which takes any
+    batch (its launches count there). JAX's `block_b` (the batch tile its
+    padding rounds to) and `interpret` are TPU arguments, left out."""
+    return fused_mlp_forward(x_codes, weights, thresholds, out_scale,
+                             out_bias, abits=abits)
 
 
 def check_chain(x, weights, thresholds) -> None:

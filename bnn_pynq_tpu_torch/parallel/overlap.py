@@ -30,11 +30,13 @@ Local compute, on the card, on the port's kernels (activations are codes
 between layers, as the kernels take them):
 - the first conv, on the replicated raw image: `conv_chain` with one layer
   and `input_levels` (csrc/conv_chain.cu, `bnn_conv_layer`) on the rank's
-  columns;
+  columns, on `sliding_window`'s patches (`input_patches`) where it
+  strides;
 - every other conv: `conv2d_direct` (csrc/conv_direct.cu), its int32
   epilogue for a ring step (the shard's `WeightMatrix.wsum` folds the level
-  offset, so a partial over a C-slice is exact), thresholded in the kernel
-  on the blocking arm;
+  offset, so a partial over a C-slice is exact; a strided conv's step runs
+  at kernel 1 on the block's patches), thresholded in the kernel on the
+  blocking arm;
 - the dense layers, their ring partials and the last layer: cuBLASLt's
   int8 GEMM (`ops/int_dot.py::int_matmul`), where JAX runs XLA's int8 dot
   outside any Pallas kernel, on weights stored K-contiguous at load, the
@@ -58,7 +60,7 @@ from bnn_pynq_tpu_torch.compiler.artifacts import CompiledNetwork
 from bnn_pynq_tpu_torch.models.network import make_plan, prepare_input
 from bnn_pynq_tpu_torch.models.params import (WeightMatrix, unpack_levels,
                                               weight_matrix)
-from bnn_pynq_tpu_torch.ops.conv import maxpool2d
+from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.ops.int_dot import int_matmul, k_contiguous
@@ -200,12 +202,29 @@ def shard_overlap_params(compiled: CompiledNetwork, mesh):
 
 
 def first_conv(act: torch.Tensor, w: WeightMatrix, thr, lp, abits: int):
-    """The first conv, on the raw int8 image (levels): `conv_chain`."""
-    if lp.stride != 1 or thr is None:
-        raise NotImplementedError("the first conv runs conv_chain: stride "
-                                  "1, thresholded")
+    """The first conv, on the raw int8 image (levels): `conv_chain`, on
+    prebuilt patches where it strides."""
+    if thr is None:
+        raise NotImplementedError("the first conv runs conv_chain: "
+                                  "thresholded")
+    patches = lp.stride != 1
+    if patches:
+        act = sliding_window(act, lp.kernel, lp.kernel, lp.stride)
     return conv_chain(act, [w], [thr], kernel=lp.kernel, abits=abits,
-                      input_levels=True)
+                      input_patches=patches, input_levels=True)
+
+
+def conv_partial(act: torch.Tensor, w: WeightMatrix, lp,
+                 abits: int) -> torch.Tensor:
+    """int32 partial sums of a conv over the channel block of codes `act`
+    (a ring step): `conv2d_direct` without thresholds, on prebuilt patches
+    at kernel 1 where the conv strides (its accumulator path is stride-1
+    only)."""
+    kernel = lp.kernel
+    if lp.stride != 1:
+        act = sliding_window(act, kernel, kernel, lp.stride)
+        kernel = 1
+    return conv2d_direct(act, w, None, kernel=kernel, abits=abits)
 
 
 def dense(act: torch.Tensor, w: torch.Tensor, thr, abits: int, *,
@@ -272,9 +291,7 @@ def make_overlap_tp_forward(config, mesh, *, blocking: bool = False):
                                         stride=lp.stride)
                 else:
                     def conv_part(idx, cur, w=w, lp=lp):
-                        return conv2d_direct(cur, w.blocks[idx], None,
-                                             kernel=lp.kernel, abits=abits,
-                                             stride=lp.stride)
+                        return conv_partial(cur, w.blocks[idx], lp, abits)
                     act = multithreshold(_ring(mg, my, d, act, conv_part),
                                          thr)
             else:

@@ -1,9 +1,10 @@
-"""Straight-through-estimator quantizers as `torch.autograd.Function`s.
+"""Straight-through-estimator quantizers on `torch.autograd.Function`s.
 
 Port of `bnn_pynq_tpu/train/quant.py`, whose three `jax.custom_vjp`s
-become the Functions `binarize`, `quantize2` and `_binarize_stochastic`
-(call them with `.apply`). The forward passes repeat JAX's operations in
-JAX's order, so float32 results are bitwise the reference's.
+become the Functions `_Binarize`, `_Quantize2` and `_binarize_stochastic`.
+`binarize(x)` and `quantize2(x)` are called as JAX calls them; each also
+carries its Function's `.apply`. The forward passes repeat JAX's
+operations in JAX's order, so float32 results are bitwise the reference's.
 
 Quantization grids (the compiler and the integer engine rely on these
 exact boundary semantics):
@@ -29,12 +30,7 @@ def _ste_bwd_mask(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) <= 1.0, g, 0.0)
 
 
-class binarize(torch.autograd.Function):  # noqa: N801 — JAX's name
-    """±1 deterministic binarization with hard-tanh STE.
-
-    x >= 0 → +1 (NOT sign(x)): matches the `acc >= thr` comparison the
-    compiler folds batch-norm into."""
-
+class _Binarize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
@@ -46,9 +42,7 @@ class binarize(torch.autograd.Function):  # noqa: N801 — JAX's name
         return _ste_bwd_mask(x, g)
 
 
-class quantize2(torch.autograd.Function):  # noqa: N801 — JAX's name
-    """2-bit quantization to {-1, -1/3, 1/3, 1} with hard-tanh STE."""
-
+class _Quantize2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
@@ -59,6 +53,23 @@ class quantize2(torch.autograd.Function):  # noqa: N801 — JAX's name
     def backward(ctx, g):
         x, = ctx.saved_tensors
         return _ste_bwd_mask(x, g)
+
+
+def binarize(x: torch.Tensor) -> torch.Tensor:
+    """±1 deterministic binarization with hard-tanh STE.
+
+    x >= 0 → +1 (NOT sign(x)): matches the `acc >= thr` comparison the
+    compiler folds batch-norm into."""
+    return _Binarize.apply(x)
+
+
+def quantize2(x: torch.Tensor) -> torch.Tensor:
+    """2-bit quantization to {-1, -1/3, 1/3, 1} with hard-tanh STE."""
+    return _Quantize2.apply(x)
+
+
+binarize.apply = _Binarize.apply
+quantize2.apply = _Quantize2.apply
 
 
 class _binarize_stochastic(torch.autograd.Function):  # noqa: N801

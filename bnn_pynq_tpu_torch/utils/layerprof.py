@@ -64,10 +64,12 @@ def _layer_macs(config, batch: int) -> List[int]:
 
 def _stage_layers(names, n_layers: int) -> List[List[int]]:
     """The plan indices each stage runs: `chain{a}-{b}`, `pool{i}`,
-    `block{i}`, and the `mlp_tail` the rest."""
+    `block{i}`, `im2col{i}` (the patches of conv i, which its chain
+    computes), and the `mlp_tail` the rest."""
     spans = []
     for name in names:
-        m = re.fullmatch(r"(?:chain|pool|block)(\d+)(?:-(\d+))?", name)
+        m = re.fullmatch(r"(?:chain|pool|block|im2col)(\d+)(?:-(\d+))?",
+                         name)
         spans.append(None if m is None else list(
             range(int(m[1]), int(m[2] or m[1]) + 1)))
     taken = {i for s in spans if s for i in s}
@@ -127,7 +129,8 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
             sec, half = steady_state_stats(lambda: fn(inp), iters=iters)
             ms, noise = sec * 1e3, half * 1e3
         act = fn(inp)
-        macs = sum(macs_of[i] for i in idx)
+        macs = 0 if name.startswith("im2col") else \
+            sum(macs_of[i] for i in idx)
         rows.append({
             "layer": idx[0], "layers": idx, "stage": name,
             "kind": "+".join(plan[i].kind for i in idx),

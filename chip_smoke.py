@@ -210,6 +210,24 @@ Phases (every check raises, so any failure exits non-zero):
    of the same layers, the memory of one engine's programs, one
    torch.profiler trace by kernel (tools/layer_times.py::forward_profile)
    and the card's clocks and temperature after the timings.
+23. strided convs and conv_chain on prebuilt patches (ops/conv_stack.py,
+   `input_patches`): (a) CNV-W1A1 from pretrained/ on phase 4's images at
+   batch 1024 in JAX's layout of its first chain, `im2col0` (patches of
+   levels [1024, 30, 30, 27]) then conv_chain_vmem over conv0-1, its
+   valid region equal to the plain version's and to the route's own stage
+   chain0-1, each timed under graph replay with and without the im2col
+   stage; (b) the same weights at stride 2 (patches [1024, 15, 15, 27]
+   to [1024, 13, 13, 64]) against the plain version; each with its events
+   ms, graph ms, plain ms and bound on conv_chain's row; (c) strided nets
+   (a strided conv on the image, and one on codes after a pool; W1A1 and
+   W2A2, random parameters from a seed) on InferenceEngine 'mega' and
+   's2d' at batch 1024: the stage list JAX's (`im2col{i}`), logits
+   within rtol=atol=1e-5 of runtime="ref" with argmax and classify
+   equal, each program equal to the eager forward bit for bit, the kernel
+   launches counted from 0 around the engines; a ring step's int32
+   partials of a strided conv (`overlap.conv_partial`) equal to the CPU's;
+   OverlapTPEngine ring and blocking in a one-rank NCCL world equal to the
+   single-card engine.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -3499,6 +3517,258 @@ def _spread_programs(torch, smi, cards):
               f"{block['eager']['chained_ms']:.4f} ({smi})")
 
 
+# -- phase 23: strided convs, conv_chain on prebuilt patches ----------------
+
+def _strided_configs():
+    """Phase 23's strided nets (tests/test_torch_input_patches.py holds
+    the same topologies against JAX): a strided conv on the image chained
+    with a stride-1 conv, and a strided conv on codes after a pool; W1A1
+    and W2A2."""
+    from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+                                                  NetworkConfig, PoolSpec)
+    nets = []
+    for wbits, abits in ((1, 1), (2, 2)):
+        nets.append(NetworkConfig(
+            name=f"strided-first-w{wbits}a{abits}", wbits=wbits,
+            abits=abits, input_kind="int8", input_shape=(33, 33, 3),
+            layers=(ConvSpec(64, stride=2), ConvSpec(64), PoolSpec(),
+                    ConvSpec(128), DenseSpec(256), DenseSpec(10)),
+            num_classes=10, dataset="cifar10"))
+        nets.append(NetworkConfig(
+            name=f"strided-pool-w{wbits}a{abits}", wbits=wbits,
+            abits=abits, input_kind="int8", input_shape=(32, 32, 3),
+            layers=(ConvSpec(64), ConvSpec(64), PoolSpec(),
+                    ConvSpec(128, stride=2), ConvSpec(128),
+                    DenseSpec(256), DenseSpec(10)),
+            num_classes=10, dataset="cifar10"))
+    return nets
+
+
+STRIDED_STAGES = {
+    "strided-first": ["im2col0", "chain0-1", "pool2", "block3", "mlp_tail"],
+    "strided-pool": ["chain0-1", "pool2", "im2col3", "chain3-4",
+                     "mlp_tail"]}
+
+
+def _patch_cases(torch, device, images, smi):
+    """23(a)-(b): CNV-W1A1's conv0-1 from pretrained/ on prebuilt patches
+    of phase 4's images at batch 1024, stride 1 (JAX's layout of the
+    route's first chain) and 2; exact against the plain version, the full
+    grid of conv_chain_vmem against the valid region. Returns the rows
+    for conv_chain's `input_patches` entry."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.params import params_from_numpy
+    from bnn_pynq_tpu_torch.ops import conv_stack
+    from bnn_pynq_tpu_torch.ops.conv import sliding_window
+    from bnn_pynq_tpu_torch.runtime.engine import prepare_host
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    c = load_artifact(_artifact("cnv-w1a1"))
+    layers, _, _ = params_from_numpy(c.config, c.layers, c.out_scale,
+                                     c.out_bias, device)
+    x = torch.from_numpy(prepare_host(c.config, images)).to(device)
+    route_kw = dict(weights=[layers[0]["w"], layers[1]["w"]],
+                    thresholds=[layers[0]["thr"], layers[1]["thr"]],
+                    kernel=3, abits=c.config.abits, input_levels=True)
+    kw = dict(route_kw, input_patches=True)
+    rows = []
+    for stride in (1, 2):
+        patches = sliding_window(x, 3, 3, stride)
+        label = (f"cnv-w1a1 conv0-1 on patches {tuple(patches.shape)}, "
+                 f"stride {stride}")
+
+        def kern(p=patches):
+            return conv_stack.conv_chain(p, **kw)
+
+        def plain(p=patches):
+            return conv_stack.conv_chain_plain(p, **kw)
+
+        def vmem(p=patches):
+            return conv_stack.conv_chain_vmem(p, **kw)
+
+        got, want, full = kern(), plain(), vmem()
+        torch.cuda.synchronize()
+        vh = got.shape[1]
+        assert got.shape == want.shape == (BATCH, vh, vh, 64), label
+        assert torch.equal(got, want), f"{label}: kernel != plain"
+        assert full.shape == patches.shape[:3] + (64,) and \
+            torch.equal(full[:, :vh, :vh], got) and \
+            not full[:, vh:].any().item() and \
+            not full[:, :, vh:].any().item(), \
+            f"{label}: conv_chain_vmem's grid != the valid region, zero"
+        gh = patches.shape[1]
+        work = _work([(BATCH * gh * gh, 27, 64), (BATCH * vh * vh, 576, 64)],
+                     patches, *_kn(route_kw["weights"]),
+                     *route_kw["thresholds"])
+        ops_ms, bytes_ms = _bounds(work, got)
+        row = {"case": label, "stride": stride,
+               "ms": _time_ms(torch, kern), "graph_ms": graph_ms(kern),
+               "vmem_graph_ms": graph_ms(vmem),
+               "plain_ms": _time_ms(torch, plain),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "int_mm_ms": _int_mm_ms(torch, device, work["gemms"])}
+        beside = ""
+        if stride == 1:
+            # JAX's layout of the route's first chain against the route's
+            def route():
+                return conv_stack.conv_chain(x, **route_kw)
+
+            def with_im2col():
+                return conv_stack.conv_chain(sliding_window(x, 3, 3, 1),
+                                             **kw)
+
+            assert torch.equal(route(), got), f"{label}: != chain0-1"
+            row.update(route_graph_ms=graph_ms(route),
+                       with_im2col_graph_ms=graph_ms(with_im2col),
+                       im2col_graph_ms=graph_ms(
+                           lambda: sliding_window(x, 3, 3, 1)))
+            beside = (f"; with the im2col0 stage "
+                      f"{row['with_im2col_graph_ms']:.4f} (im2col0 alone "
+                      f"{row['im2col_graph_ms']:.4f}) "
+                      f"against the route's chain0-1 on the image "
+                      f"{row['route_graph_ms']:.4f}, which it equals")
+        print(f"conv_chain {label}: == plain (codes) and conv_chain_vmem's "
+              f"valid region, its border zero; kernel {row['ms']:.4f} ms "
+              f"(graph replay {row['graph_ms']:.4f}; conv_chain_vmem "
+              f"{row['vmem_graph_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+              f"bound {row['bound_ms']:.5f} ({row['bound_by']}), int_mm "
+              f"{row['int_mm_ms']:.4f}{beside} ({smi})")
+        rows.append(row)
+    return rows
+
+
+def _strided_overlap_rank(nets):
+    """23(c), in the one rank of an NCCL world: OverlapTPEngine ring and
+    blocking on mesh (1, 1) for each strided net; their logits."""
+    from bnn_pynq_tpu_torch.parallel import make_mesh
+    from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
+    mesh = make_mesh(data=1, model=1)
+    assert mesh.backend == "nccl"
+    out = {}
+    for name, compiled, x in nets:
+        for arm in ("ring", "blocking"):
+            eng = OverlapTPEngine(compiled, mesh, arm=arm)
+            out[f"{name} {arm}"] = (eng.logits(x, prepared=True),
+                                    eng.execution)
+            eng.close()
+    return out
+
+
+def _strided_engines(torch, device, smi):
+    """23(c): the strided nets on 'mega' and 's2d' at batch 1024 against
+    runtime="ref", their programs against the eager forward, the launches
+    counted from 0 around them; a ring step's strided partials; the
+    overlap engine's arms in a one-rank NCCL world."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import CompiledNetwork
+    from bnn_pynq_tpu_torch.models.network import (LayerPlan,
+                                                   init_random_params,
+                                                   mega_stages)
+    from bnn_pynq_tpu_torch.models.params import weight_matrix
+    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, fused_mlp
+    from bnn_pynq_tpu_torch.parallel.launch import run_world
+    from bnn_pynq_tpu_torch.parallel.overlap import conv_partial
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    rng = np.random.default_rng(23)
+    counters = {"conv_chain": conv_stack.conv_chain.launches,
+                "dense_block": conv_stack.dense_block.launches,
+                "fused_mlp": fused_mlp.fused_mlp_forward.launches}
+    nets, singles = [], {}
+    for c in counters.values():
+        c.reset()
+    for cfg in _strided_configs():
+        compiled = CompiledNetwork(
+            cfg, init_random_params(cfg, seed=23),
+            rng.uniform(0.01, 1.0, size=10).astype(np.float32),
+            rng.standard_normal(10).astype(np.float32))
+        images = rng.integers(0, 256, size=(BATCH,) + cfg.input_shape,
+                              dtype=np.uint8)
+        ref = InferenceEngine(compiled, device="cuda", runtime="ref")
+        want, want_cls = ref.logits(images), ref.classify(images)
+        times = {}
+        for route in ("mega", "s2d"):
+            eng = InferenceEngine(compiled, device="cuda", route=route)
+            label = f"{cfg.name} {route}"
+            names = [n for n, _ in mega_stages(cfg, *eng._state[:3])]
+            assert names == STRIDED_STAGES[cfg.name.rsplit("-", 1)[0]], \
+                f"{label}: stages {names}"
+            got, cls = eng.logits(images), eng.classify(images)
+            assert np.isfinite(got).all() and \
+                got.shape == (BATCH, cfg.num_classes), label
+            np.testing.assert_allclose(got, want, **TOL)
+            assert (got.argmax(1) == want.argmax(1)).all() and \
+                (cls == want_cls).all(), f"{label}: argmax or classify"
+            xd = eng.upload(eng.prepare(images))
+            for argmax in (False, True):
+                prog = _hold_program(torch, eng, _key(xd, argmax), label)
+                assert torch.equal(eng.launch_prepared(xd, argmax=argmax),
+                                   _eager(eng, xd, argmax)), \
+                    f"{label}: program != eager forward"
+                assert prog.launches["conv_chain"] > 0, label
+            times[route] = graph_ms(lambda: _eager(eng, xd, True))
+            if route == "mega":
+                singles[cfg.name] = got
+                nets.append((cfg.name, compiled, eng.prepare(images)))
+        print(f"strided {cfg.name}: stages {names}; mega and s2d at batch "
+              f"{BATCH} == runtime='ref' (logits within 1e-5, argmax, "
+              f"classify), programs == eager bit for bit; device ms a "
+              f"forward under graph replay mega {times['mega']:.4f}, s2d "
+              f"{times['s2d']:.4f} ({smi})")
+    launches = {k: c.value for k, c in counters.items()}
+    for k, n in launches.items():
+        assert n > 0, f"the strided path never launched {k}"
+    print(f"strided path: kernel launches {launches} (4 nets x 2 routes, "
+          f"eager runs and captures; counted from 0)")
+    # a ring step's strided partials: int32 at kernel 1 on patches of a
+    # channel block (widths no multiple of 32: the gather path)
+    before = conv_direct.conv2d_direct.launches.value
+    for abits in (1, 2):
+        lp = LayerPlan(kind="conv", k=9 * 16, n=64, kernel=3, stride=2)
+        codes = rng.integers(0, 2 ** abits, size=(BATCH, 17, 17, 16)) \
+            .astype(np.int8)
+        levels = rng.choice([-1, 1] if abits == 1 else [-3, -1, 1, 3],
+                            size=(9 * 16, 64)).astype(np.int8)
+        want = conv_partial(torch.from_numpy(codes),
+                            weight_matrix(torch.from_numpy(levels)), lp,
+                            abits)
+        got = conv_partial(torch.from_numpy(codes).to(device),
+                           weight_matrix(torch.from_numpy(levels).to(device)),
+                           lp, abits)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want), \
+            f"conv_partial abits {abits}: card != CPU"
+    assert conv_direct.conv2d_direct.launches.value == before + 2
+    print(f"ring step on a strided conv (overlap.conv_partial): codes "
+          f"[{BATCH}, 17, 17, 16] at stride 2, conv2d_direct at kernel 1 "
+          f"on 144-lane patches, int32 == the CPU's, abits 1 and 2")
+    t0 = time.perf_counter()
+    res = run_world(_strided_overlap_rank, 1, args=(nets,), device="cuda",
+                    timeout=PARALLEL_DEADLINE_S)[0]
+    for key, (logits, execution) in res.items():
+        want = singles[key.split(" ")[0]]
+        np.testing.assert_allclose(logits, want, **TOL)
+        assert (logits.argmax(1) == want.argmax(1)).all() and \
+            execution == "graphs", key
+    print(f"strided OverlapTPEngine: ring and blocking on (1,1) nccl, "
+          f"captured, == the single-card mega engine for the 4 nets "
+          f"(a world of 1 rank in {time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def _strided_phase(torch, smi):
+    """Phase 23: conv_chain on prebuilt patches, and strided nets on the
+    mega route, its captured programs and OverlapTPEngine."""
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)          # phase 4's draws
+    images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
+    rows = _patch_cases(torch, device, images, smi)
+    launches = _strided_engines(torch, device, smi)
+    print("strided convs " + json.dumps({"device": smi, "patches": rows,
+                                         "launches": launches}))
+    print(f"strided convs: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -3857,6 +4127,9 @@ def main(argv=None) -> int:
     # -- 22. the decoded-integer routes on library calls --------------------
     _xla_routes_phase(torch, smi)
 
+    # -- 23. strided convs: conv_chain on prebuilt patches ------------------
+    patch_rows, strided_launches = _strided_phase(torch, smi)
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
@@ -3894,6 +4167,9 @@ def main(argv=None) -> int:
                "graph_ms": r["graph_ms"],
                "library_graph_ms": r["library_graph_ms"],
                "launch_floor_ms": floor_ms}
+        if k == "conv_chain":       # on prebuilt patches (phase 23)
+            row["input_patches"] = {"cases": patch_rows,
+                                    "launches": strided_launches[k]}
         if k == "packed_matmul":    # sliced_kernel, the long-K arm
             row["sliced"] = [
                 {"case": label, "ms": ms, "graph_ms": replay, "bound_ms": bd,
