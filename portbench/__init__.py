@@ -1,0 +1,3 @@
+"""The benchmark of the PyTorch and CUDA port (`bnn_pynq_tpu_torch`):
+`python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>` from the root of a checkout."""
