@@ -20,6 +20,7 @@ import numpy as np
 
 from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+from bnn_pynq_tpu_torch.utils.profiling import span
 
 MNIST_CLASSES = tuple(str(d) for d in range(10))
 CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog",
@@ -148,11 +149,15 @@ class Classifier:
         return images
 
     def prepare(self, images) -> np.ndarray:
-        batch = self._to_batch(images)
-        if self.config.input_kind == "bipolar":
-            flat = batch.reshape(batch.shape[0], -1)
-            return np.where(flat >= 128, 1, -1).astype(np.int8)
-        return native.center_int8(batch)
+        with span("bnn.classifier.prepare") as sp:
+            with span("bnn.classifier.to_batch") as sb:
+                batch = self._to_batch(images)
+                sp.rows = sb.rows = batch.shape[0]
+            with span("bnn.classifier.center", batch.shape[0]):
+                if self.config.input_kind == "bipolar":
+                    flat = batch.reshape(batch.shape[0], -1)
+                    return np.where(flat >= 128, 1, -1).astype(np.int8)
+                return native.center_int8(batch)
 
     # -- classification ---------------------------------------------------
     def classify_images(self, images) -> np.ndarray:

@@ -98,6 +98,7 @@ from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack, int_dot,
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
+from bnn_pynq_tpu_torch.utils.profiling import span
 
 DEFAULT_BATCH_BUCKETS = (1, 16, 64, 256, 1024)
 # the JAX engine's names for its kernel runtimes, all 'kernels' here
@@ -203,17 +204,20 @@ class Program:
         self.graph, self.out = graph, out
 
     def __call__(self, xd: torch.Tensor) -> torch.Tensor:
-        self.x.copy_(xd)
-        if self.graph is None:              # the CPU: the eager forward
-            out = self.body(self.x)
-            if self.out is None:
-                self.out = out
+        with span("bnn.program.copy_in"):
+            self.x.copy_(xd)
+        with span("bnn.program.replay"):
+            if self.graph is None:          # the CPU: the eager forward
+                out = self.body(self.x)
+                if self.out is None:
+                    self.out = out
+                else:
+                    self.out.copy_(out)
             else:
-                self.out.copy_(out)
-        else:
-            self.graph.replay()
-            self.replays.add()
-        return self.out.clone()
+                self.graph.replay()
+                self.replays.add()
+        with span("bnn.program.clone"):
+            return self.out.clone()
 
 
 class _State(NamedTuple):
@@ -315,10 +319,11 @@ class InferenceEngine:
         """Pad a leading-batch array up to the next bucket size; returns
         (padded, true_batch)."""
         b = x.shape[0]
-        bucket = self._bucket(b)
-        if bucket != b:
-            pad = np.zeros((bucket - b,) + x.shape[1:], dtype=x.dtype)
-            x = np.concatenate([x, pad], axis=0)
+        with span("bnn.engine.pad", b):
+            bucket = self._bucket(b)
+            if bucket != b:
+                pad = np.zeros((bucket - b,) + x.shape[1:], dtype=x.dtype)
+                x = np.concatenate([x, pad], axis=0)
         return x, b
 
     # -- inference --------------------------------------------------------
@@ -326,11 +331,12 @@ class InferenceEngine:
         """Host→device copy of an already padded batch: prepared int8
         input, or uint32 words (as their int32 bit pattern)."""
         x = np.asarray(x_padded)
-        if x.dtype == np.uint32:
-            t = words_to_tensor(x)
-        else:
-            t = torch.from_numpy(np.require(x, requirements=("C", "W")))
-        return t.to(self.device)
+        with span("bnn.engine.upload", x.shape[0]):
+            if x.dtype == np.uint32:
+                t = words_to_tensor(x)
+            else:
+                t = torch.from_numpy(np.require(x, requirements=("C", "W")))
+            return t.to(self.device)
 
     def _forward(self, params: Params, xd: torch.Tensor, argmax: bool,
                  words: bool) -> torch.Tensor:
@@ -383,19 +389,21 @@ class InferenceEngine:
         sign words, unpacked to ±1 on the device first (any route). The
         'kernels' runtime runs the program of xd's shape and the variant,
         captured here at its first use."""
-        if self.runtime == "ref":
-            return self._forward(self._state[:3], xd, argmax, words)
-        key = (tuple(xd.shape), xd.dtype, argmax, words)
-        with self._lock:
-            state = self._state
-            prog = state.programs.get(key)
-            if prog is None:
-                prog = self._add_program(state, key, xd)
-            return prog(xd)
+        with span("bnn.engine.launch", xd.shape[0]):
+            if self.runtime == "ref":
+                return self._forward(self._state[:3], xd, argmax, words)
+            key = (tuple(xd.shape), xd.dtype, argmax, words)
+            with self._lock:
+                state = self._state
+                prog = state.programs.get(key)
+                if prog is None:
+                    prog = self._add_program(state, key, xd)
+                return prog(xd)
 
     def fetch(self, dev_out: torch.Tensor) -> np.ndarray:
         """Device output → numpy (waits for the device)."""
-        return dev_out.cpu().numpy()
+        with span("bnn.engine.fetch", dev_out.shape[0]):
+            return dev_out.cpu().numpy()
 
     def logits_device(self, x: np.ndarray, *, prepared: bool = False,
                       argmax: bool = False) -> Tuple[torch.Tensor, int]:
@@ -422,19 +430,20 @@ class InferenceEngine:
         launches and the fetch."""
         x = np.asarray(x)
         b = x.shape[0]
-        outs = []
-        spent = 0.0
-        for lo, hi in self._chunks(b):
-            xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
-            xc, n = self._pad_to_bucket(xc)
+        with span("bnn.engine.run", b):
+            outs = []
+            spent = 0.0
+            for lo, hi in self._chunks(b):
+                xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
+                xc, n = self._pad_to_bucket(xc)
+                t0 = time.perf_counter()
+                outs.append((self.launch_prepared(
+                    self.upload(xc), argmax=argmax, words=words), n))
+                spent += time.perf_counter() - t0
             t0 = time.perf_counter()
-            outs.append((self.launch_prepared(self.upload(xc), argmax=argmax,
-                                              words=words), n))
-            spent += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        parts = [self.fetch(out)[:n] for out, n in outs]
-        self.usecPerImage = (spent + time.perf_counter() - t0) * 1e6 / b
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+            parts = [self.fetch(out)[:n] for out, n in outs]
+            self.usecPerImage = (spent + time.perf_counter() - t0) * 1e6 / b
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def logits(self, x: np.ndarray, *, prepared: bool = False) -> np.ndarray:
         """Float logits [B, num_classes]."""
