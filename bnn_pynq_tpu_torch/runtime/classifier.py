@@ -9,6 +9,12 @@ tables; `available_params` lists artifact files on the search path.
 
 Accepts numpy uint8 arrays ([H,W,C], [H,W], or batches) and PIL images
 (anything with `.convert`; PIL itself is not imported).
+
+`classify_images` and `classify_image_details` hand the engine the uint8
+batch at the network's input size (a view of the caller's array where it
+already is one); the engine uploads it as it is and centres or binarizes
+it inside its program. `prepare` is the host preparation, JAX's
+contract: centred int8 (or ±1 for bipolar nets).
 """
 
 from __future__ import annotations
@@ -133,7 +139,7 @@ class Classifier:
                     for im in images])
             else:
                 images = np.asarray(images)
-        images = images.astype(np.uint8)
+        images = np.asarray(images, dtype=np.uint8)
         if images.ndim == 2:
             images = images[None, :, :, None]
         elif images.ndim == 3:
@@ -148,7 +154,17 @@ class Classifier:
             images = native.resize_nn(images, h, w)
         return images
 
+    def _batch(self, images) -> np.ndarray:
+        """The uint8 batch the engine prepares on the device."""
+        with span("bnn.classifier.prepare") as sp:
+            with span("bnn.classifier.to_batch") as sb:
+                batch = self._to_batch(images)
+                sp.rows = sb.rows = batch.shape[0]
+        return batch
+
     def prepare(self, images) -> np.ndarray:
+        """Images → the engine's input on the host: centred int8, or ±1
+        for bipolar nets."""
         with span("bnn.classifier.prepare") as sp:
             with span("bnn.classifier.to_batch") as sb:
                 batch = self._to_batch(images)
@@ -161,16 +177,14 @@ class Classifier:
 
     # -- classification ---------------------------------------------------
     def classify_images(self, images) -> np.ndarray:
-        x = self.prepare(images)
-        return self.engine.classify(x, prepared=True)
+        return self.engine.classify(self._batch(images), prepared=False)
 
     def classify_image(self, image) -> int:
         return int(self.classify_images(image)[0])
 
     def classify_image_details(self, image) -> np.ndarray:
         """Raw logits for one image."""
-        x = self.prepare(image)
-        return self.engine.logits(x, prepared=True)[0]
+        return self.engine.logits(self._batch(image), prepared=False)[0]
 
     def class_name(self, index: int) -> str:
         return self.classes[int(index)]

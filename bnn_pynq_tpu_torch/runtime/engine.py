@@ -39,12 +39,22 @@ than int8 codes.
 `upload` + `launch_prepared` split a launch into the host→device copy and
 the run on the device-resident batch.
 
+Input paths, by what the caller hands over:
+- prepared int8 (`prepared=True`, or `prepare_host` in `prepare`):
+  centred levels or ±1 codes, uploaded as they are;
+- raw uint8 pixels (`logits` / `classify` with `prepared=False`, the
+  path `Classifier` takes): uploaded as the caller gave them, padded with
+  128, and centred or binarized by `prepare_device` inside the program,
+  in front of the route: no host pass over the pixels;
+- packed words (above): unpacked on the device.
+
 Batches above the largest bucket: a conv net runs them one largest bucket
 at a time, as the JAX engine does (`lax.map` over 1024-image chunks): each
-chunk is prepared, padded to its own bucket, uploaded and launched before
-any result is fetched, so the host prepares a chunk while the device runs
-the one before. An MLP runs one forward on the batch padded to a multiple
-of the largest bucket (its one kernel takes any number of rows).
+chunk is prepared (on the host unless it is raw uint8), padded to its own
+bucket, uploaded and launched before any result is fetched, so the host
+prepares a chunk while the device runs the one before. An MLP runs one
+forward on the batch padded to a multiple of the largest bucket (its one
+kernel takes any number of rows).
 
 Captured programs, the port's form of the JAX engine's one jitted
 program per batch bucket: a 'kernels' engine runs each forward as a
@@ -115,7 +125,7 @@ ROUTES = MEGA_ROUTES + tuple(XLA_ROUTES) + ("mxu", "mxu_rm", "vpu", "direct")
 def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
     """uint8 images → engine input: binarized ±1 for bipolar nets, centred
     int8 for image nets (the host half of the reference's
-    `binarizeAndPack`)."""
+    `binarizeAndPack`). Its device twin for uint8 is `prepare_device`."""
     x = np.asarray(x)
     if config.input_kind == "bipolar":
         flat = x.reshape(x.shape[0], -1)
@@ -125,6 +135,18 @@ def prepare_host(config: NetworkConfig, x: np.ndarray) -> np.ndarray:
     if x.dtype == np.uint8:
         return (x.astype(np.int32) - 128).astype(np.int8)
     return x.astype(np.int8)
+
+
+def prepare_device(config: NetworkConfig, xd: torch.Tensor) -> torch.Tensor:
+    """uint8 images on the device → engine input, `prepare_host`'s uint8
+    semantics: `[B, K]` ±1 (`x >= 128`) for bipolar nets, centred int8
+    `x − 128` of the same shape for image nets. The bytes are read as
+    int8 (`x − 256` where `x >= 128`), so centring is one op, the top bit
+    flipped; binarizing is two, −1 − 2·(y >> 7)."""
+    y = xd.view(torch.int8)
+    if config.input_kind == "bipolar":
+        return torch.rsub(y.reshape(y.shape[0], -1) >> 7, -1, alpha=2)
+    return y ^ -128
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -316,20 +338,24 @@ class InferenceEngine:
         return -(-b // self.batch_buckets[-1]) * self.batch_buckets[-1]
 
     def _pad_to_bucket(self, x: np.ndarray):
-        """Pad a leading-batch array up to the next bucket size; returns
+        """Pad a leading-batch array up to the next bucket size, uint8
+        pixels with 128 (they centre to 0), anything else with 0; returns
         (padded, true_batch)."""
         b = x.shape[0]
         with span("bnn.engine.pad", b):
             bucket = self._bucket(b)
             if bucket != b:
-                pad = np.zeros((bucket - b,) + x.shape[1:], dtype=x.dtype)
+                pad = np.full((bucket - b,) + x.shape[1:],
+                              128 if x.dtype == np.uint8 else 0,
+                              dtype=x.dtype)
                 x = np.concatenate([x, pad], axis=0)
         return x, b
 
     # -- inference --------------------------------------------------------
     def upload(self, x_padded: np.ndarray) -> torch.Tensor:
         """Host→device copy of an already padded batch: prepared int8
-        input, or uint32 words (as their int32 bit pattern)."""
+        input, raw uint8 pixels, or uint32 words (as their int32 bit
+        pattern)."""
         x = np.asarray(x_padded)
         with span("bnn.engine.upload", x.shape[0]):
             if x.dtype == np.uint32:
@@ -341,10 +367,13 @@ class InferenceEngine:
     def _forward(self, params: Params, xd: torch.Tensor, argmax: bool,
                  words: bool) -> torch.Tensor:
         """The eager forward on `params` (layers, out_scale, out_bias):
-        what a program captures, and what runtime='ref' runs."""
+        what a program captures, and what runtime='ref' runs. uint8 input
+        is raw pixels, prepared here by `prepare_device`."""
         layers, out_scale, out_bias = params
         if words:
             xd = unpack_bits(xd, int(np.prod(self.config.input_shape)))
+        elif xd.dtype == torch.uint8:
+            xd = prepare_device(self.config, xd)
         if self.runtime == "kernels" and self.route in MEGA_ROUTES:
             out = forward_mega(self.config, layers, xd, out_scale, out_bias)
         else:
@@ -426,15 +455,22 @@ class InferenceEngine:
     def _run(self, x: np.ndarray, *, argmax: bool, words: bool = False,
              prepared: bool = True):
         """Prepare (unless prepared), pad, upload and launch every chunk of
-        the batch, then fetch. `usecPerImage` covers the uploads, the
-        launches and the fetch."""
+        the batch, then fetch. Unprepared uint8 goes up raw, to be
+        prepared inside the program; any other dtype is prepared on the
+        host. `usecPerImage` covers the uploads, the launches and the
+        fetch."""
         x = np.asarray(x)
         b = x.shape[0]
+        raw = not prepared and x.dtype == np.uint8
         with span("bnn.engine.run", b):
             outs = []
             spent = 0.0
             for lo, hi in self._chunks(b):
-                xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
+                if raw:
+                    with span("bnn.engine.raw_input", hi - lo):
+                        xc = x[lo:hi]
+                else:
+                    xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
                 xc, n = self._pad_to_bucket(xc)
                 t0 = time.perf_counter()
                 outs.append((self.launch_prepared(
@@ -496,11 +532,17 @@ class InferenceEngine:
 
     def warmup(self, batch: int = 1, *, serving: bool = True):
         """Run the engine's programs once at `batch`'s bucket: builds the
-        kernels (first use in the process) before live traffic. serving
-        also runs what the server dispatches: the device-argmax launch
-        and, for bipolar nets, the packed-words launches."""
+        kernels (first use in the process) before live traffic: logits of
+        prepared int8, logits and classify of raw uint8 (what `Classifier`
+        sends). serving also runs what the server dispatches: the
+        device-argmax launch and, for bipolar nets, the packed-words
+        launches."""
         dummy = np.zeros(input_shape(self.config, batch), dtype=np.int8)
         self.logits(dummy, prepared=True)
+        pixels = np.zeros((batch,) + tuple(self.config.input_shape),
+                          dtype=np.uint8)
+        self.logits(pixels, prepared=False)
+        self.classify(pixels, prepared=False)
         if serving:
             outs = [self.logits_device(dummy, prepared=True, argmax=True)[0]]
             if self.config.input_kind == "bipolar":

@@ -2741,7 +2741,8 @@ def _graph_pool_bytes(torch, route="mega"):
     grown = torch.cuda.memory_reserved() - reserved0
     in_pool = _pool_bytes(torch, eng._state.pool)
     print(f"programs memory: cnv-w1a1 {route}, {len(eng.programs)} programs "
-          f"(buckets {list(eng.batch_buckets)}, logits and argmax), reserved "
+          f"(buckets {list(eng.batch_buckets)}, logits and argmax of int8 "
+          f"and of raw uint8), reserved "
           f"bytes grew {grown} over the captures; the shared pool's segments "
           f"{in_pool[0]} bytes in {in_pool[1]}")
 
@@ -3698,11 +3699,14 @@ def _strided_engines(torch, device, smi):
             np.testing.assert_allclose(got, want, **TOL)
             assert (got.argmax(1) == want.argmax(1)).all() and \
                 (cls == want_cls).all(), f"{label}: argmax or classify"
-            xd = eng.upload(eng.prepare(images))
+            # logits and classify of uint8 made the raw upload's programs
+            xd, xr = eng.upload(eng.prepare(images)), eng.upload(images)
             for argmax in (False, True):
-                prog = _hold_program(torch, eng, _key(xd, argmax), label)
-                assert torch.equal(eng.launch_prepared(xd, argmax=argmax),
-                                   _eager(eng, xd, argmax)), \
+                prog = _hold_program(torch, eng, _key(xr, argmax), label)
+                want_out = _eager(eng, xd, argmax)
+                assert torch.equal(eng.launch_prepared(xr, argmax=argmax),
+                                   want_out) and \
+                    torch.equal(_eager(eng, xr, argmax), want_out), \
                     f"{label}: program != eager forward"
                 assert prog.launches["conv_chain"] > 0, label
             times[route] = graph_ms(lambda: _eager(eng, xd, True))
@@ -3868,8 +3872,9 @@ def main(argv=None) -> int:
     pred = eng.classify(images)
     torch.cuda.synchronize()
     launches = {k: c.value for k, c in counters.items()}
-    # the forward's first use: one eager run, the capture, one replay
-    prog = _hold_program(torch, eng, ((BATCH, 32, 32, 3), torch.int8, True,
+    # the forward's first use: one eager run, the capture, one replay, all
+    # on the raw uint8 upload, centred inside the program
+    prog = _hold_program(torch, eng, ((BATCH, 32, 32, 3), torch.uint8, True,
                                       False), "main path")
     print(f"main path: cnv-w1a1 classify batch {BATCH}, launches {launches} "
           f"(the eager run before the capture and the capture); the "
@@ -3880,6 +3885,8 @@ def main(argv=None) -> int:
         assert n == 2 * prog.launches[k], (k, n, prog.launches)
     assert prog.replays.value == 1
     assert pred.shape == (BATCH,) and pred.min() >= 0 and pred.max() < 10
+    # the host-prepared int8 batch, a program of its own: the same classes
+    assert (eng.classify(eng.prepare(images), prepared=True) == pred).all()
     eng = _engine_check(torch, "cnv-w1a1", images, "cnv-w1a1")
     assert (eng.classify(images) == pred).all()
 
@@ -3956,7 +3963,7 @@ def main(argv=None) -> int:
         arm_launches = {r: c.value for r, c in arms.items()}
         launches["packed_matmul"] = sum(arm_launches.values())
         vlib = _library_moved("packed path", lib_before)
-        vprog = _hold_program(torch, veng, ((BATCH, 32, 32, 3), torch.int8,
+        vprog = _hold_program(torch, veng, ((BATCH, 32, 32, 3), torch.uint8,
                                             True, False), "packed path")
         print(f"packed path: cnv-w1a1 route=vpu classify batch {BATCH}, "
               f"packed_matmul launches {arm_launches}, plain calls "
@@ -4072,7 +4079,7 @@ def main(argv=None) -> int:
               f"; library calls {dlib} (conv0 and the 3 dense layers on "
               f"cuBLASLt's int8 GEMM, no int_matmul_ref)")
         # the first use: the eager run before the capture, the capture
-        dprog = _hold_program(torch, deng, ((BATCH, 32, 32, 3), torch.int8,
+        dprog = _hold_program(torch, deng, ((BATCH, 32, 32, 3), torch.uint8,
                                             True, False), "direct path")
         assert dprog.launches["conv2d_direct"] == 5, \
             "direct path: 5 conv layers a forward"

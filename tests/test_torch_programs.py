@@ -57,7 +57,7 @@ def test_one_program_per_shape_and_variant_equals_jax(route):
     eng.logits(_images((7, 28, 28), 2))           # the same bucket
     keys = sorted((k[0][0], k[2], k[3]) for k in eng.programs)
     assert keys == [(8, False, False), (8, False, True), (8, True, False)]
-    xd = eng.upload(eng._pad_to_bucket(eng.prepare(x))[0])
+    xd = eng.upload(eng._pad_to_bucket(x)[0])     # raw, as logits sent it
     for argmax in (False, True):
         prog = eng.programs[(tuple(xd.shape), xd.dtype, argmax, False)]
         assert prog.graph is None and prog.launches == {}    # the CPU

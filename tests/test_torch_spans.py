@@ -1,6 +1,7 @@
 """The port's spans (utils/profiling.py::span): off unless a profiler
 records on the calling thread; under `profiling.trace` every step of
-`Classifier.classify_images` is in `span_totals()` with its calls and
+`Classifier.classify_images` (and of `Classifier.prepare`, the host
+preparation it no longer runs) is in `span_totals()` with its calls and
 rows, children within their parents, and in the exported trace.json each
 child's interval inside its parent's."""
 
@@ -20,7 +21,7 @@ BATCH = 6
 BUCKETS = (2, 4)
 # child → parent, as `classify_images` nests them
 PARENT = {"bnn.classifier.to_batch": "bnn.classifier.prepare",
-          "bnn.classifier.center": "bnn.classifier.prepare",
+          "bnn.engine.raw_input": "bnn.engine.run",
           "bnn.engine.pad": "bnn.engine.run",
           "bnn.engine.upload": "bnn.engine.run",
           "bnn.engine.launch": "bnn.engine.run",
@@ -91,8 +92,8 @@ def test_span_totals_under_trace(traced, net):
     totals, _, (chunks, padded) = traced[net]
     want = {"bnn.classifier.prepare": (1, BATCH),
             "bnn.classifier.to_batch": (1, BATCH),
-            "bnn.classifier.center": (1, BATCH),
             "bnn.engine.run": (1, BATCH),
+            "bnn.engine.raw_input": (chunks, BATCH),
             "bnn.engine.pad": (chunks, BATCH),
             "bnn.engine.upload": (chunks, padded),
             "bnn.engine.launch": (chunks, padded),
@@ -132,6 +133,26 @@ def test_trace_file_nests_spans(traced, net):
         for a, b in by_name[child]:
             assert any(p <= a + eps and b <= q + eps
                        for p, q in by_name[parent]), (child, a, b)
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_prepare_spans_under_trace(net, clean, tmp_path):
+    """`Classifier.prepare`, the host preparation, records `prepare` ⊃
+    `to_batch`, `center`, each call with the batch's rows, the children
+    within their parent."""
+    clf = _classifier(net)
+    x = _images(clf)
+    with profiling.trace(str(tmp_path)):
+        clf.prepare(x)
+    totals = profiling.span_totals()
+    names = ("bnn.classifier.prepare", "bnn.classifier.to_batch",
+             "bnn.classifier.center")
+    assert set(totals) == set(names)
+    for name in names:
+        assert (totals[name]["calls"], totals[name]["rows"]) == (1, BATCH)
+    prep = totals["bnn.classifier.prepare"]["total_s"]
+    assert 0 < totals["bnn.classifier.to_batch"]["total_s"] + \
+        totals["bnn.classifier.center"]["total_s"] <= prep
 
 
 def test_other_thread_records_nothing(clean, tmp_path):
