@@ -1,6 +1,7 @@
-"""The control of `correct`: the reference put in the program's place,
-with the configuration's float32 output arithmetic (scale and bias on the
-int32 accumulators) computed in bfloat16, the nearest precision below.
+"""The control of `correct`: the configuration's plain reference (its
+`reference` module) put in the program's place, with its float32 output
+arithmetic (for `bnn`, scale and bias on the int32 accumulators) computed
+in bfloat16, the nearest precision below.
 
     python3 portbench/control.py --workload cnv-w1a1.resident \\
         --seeds 11,12,13
@@ -24,14 +25,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def readings(cell, seed: int, device: str) -> dict:
     import torch
     from portbench import harness
-    from portbench.reference import bnn, judge
+    from portbench.reference import judge
     ctx = harness.make_ctx(cell, seed, 1.0, device)
     inp = cell.kind.inputs(ctx)
     x = cell.kind.reference_inputs(inp)
-    net = bnn.load(ctx.artifact)
-    acc = bnn.accumulators(net, x, device=device)
-    ref = bnn.logits(net, acc).cpu().numpy()
-    ctl = bnn.logits(net, acc, torch.bfloat16).float().argmax(1).cpu()
+    reference = cell.reference
+    net = reference.load(ctx.artifact)
+    ref = reference.forward(net, x, device=device).cpu().numpy()
+    ctl = reference.forward(net, x, device=device, dtype=torch.bfloat16) \
+        .float().argmax(1).cpu()
     ids = torch.arange(x.shape[0]).numpy()
     widest, invalid = judge.widest_gap(ref, [(ids, ctl.numpy())])
     return {"seed": seed, "images": int(x.shape[0]),

@@ -6,7 +6,17 @@ configuration, traffic mix or metric is a new file:
 - `BENCHMARK.json` (the checkout's root): the cell's configuration,
   traffic, chips and metrics;
 - `portbench/configs/<config>.json`: the configuration as it is run (its
-  artifact, topology, precision and the limit of each compared number);
+  artifact, topology, precision, the limit of each compared number, and
+  under `reference` the name of its plain reference);
+- `portbench/reference/<reference>.py`: the configuration's plain
+  reference, which imports nothing of the program and provides
+  `load(artifact) -> net` (its own decoding of the artifact),
+  `check(net, config)` (raises ValueError unless the artifact is the
+  configuration the file states) and
+  `forward(net, x, *, device, dtype=torch.float32) -> logits [N, classes]`
+  (every input, blocked by the reference itself; `dtype` the precision of
+  the output arithmetic: float32 as the configuration states, lower for
+  the control);
 - `portbench/traffic/<traffic>.json`: the traffic mix, whose `kind` names
   the loop `portbench/traffic/<kind>.py` that drives it;
 - `portbench/metrics/<metric>.py`: one reader per metric, `read(rec)`,
@@ -58,6 +68,7 @@ class Cell:
     config: dict
     traffic: dict
     kind: object                      # the traffic kind's module
+    reference: object                 # the configuration's reference module
     end_to_end: List[dict]            # BENCHMARK.json entries, in order
     per_layer: List[dict]
 
@@ -75,6 +86,7 @@ def load_module(path: Path):
             .replace("-", "_")
         spec = importlib.util.spec_from_file_location(modname, path)
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[modname] = mod    # dataclasses look their module up
         spec.loader.exec_module(mod)
         _modules[path] = mod
     return _modules[path]
@@ -95,7 +107,12 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                        f"{sorted(cells)}")
     w = cells[name]
     bdir = root / "portbench"
-    config = _read_json(bdir / "configs" / f"{w['config']}.json")
+    config_path = bdir / "configs" / f"{w['config']}.json"
+    config = _read_json(config_path)
+    if "reference" not in config:
+        raise ValueError(f"{config_path} names no plain reference "
+                         f"(its key 'reference')")
+    reference = load_module(bdir / "reference" / f"{config['reference']}.py")
     traffic = _read_json(bdir / "traffic" / f"{w['traffic']}.json")
     kind = load_module(bdir / "traffic" / f"{traffic['kind']}.py")
     e2e = [m for m in bench["end_to_end"]
@@ -104,8 +121,8 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
-    return Cell(name, w["chips"], w["config"], config, traffic, kind, e2e,
-                per_layer)
+    return Cell(name, w["chips"], w["config"], config, traffic, kind,
+                reference, e2e, per_layer)
 
 
 def metric_reader(name: str, root: Path = ROOT) -> Callable:
@@ -366,22 +383,11 @@ def build_program() -> None:
 def make_ctx(cell: Cell, seed: int, seconds: float, device: str,
              overrides: dict = None, fault: Callable = None,
              root: Path = ROOT) -> Ctx:
-    """The cell's context for one seed; checks that the artifact is the
-    configuration the file states."""
+    """The cell's context for one seed; the configuration's reference
+    checks that the artifact is the configuration the file states."""
     import torch
-    from portbench.reference import bnn
     artifact = str(Path(root) / cell.config["artifact"])
-    net = bnn.load(artifact)
-    stated = (cell.config["wbits"], cell.config["abits"],
-              cell.config["input_kind"], tuple(cell.config["input_shape"]),
-              cell.config["num_classes"])
-    if (net.wbits, net.abits, net.input_kind, net.input_shape,
-            net.num_classes) != stated or \
-            [(x.kind, x.out) for x in net.layers if x.kind != "pool"] != \
-            [(s["kind"], s.get("out_ch", s.get("out_features")))
-             for s in cell.config["layers"] if s["kind"] != "pool"]:
-        raise ValueError(f"{artifact} is not the configuration "
-                         f"{cell.config_name} states")
+    cell.reference.check(cell.reference.load(artifact), cell.config)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % (1 << 64))
     rng = np.random.default_rng(seed % (1 << 64))
@@ -430,11 +436,10 @@ def judge(cell: Cell, ctx: Ctx, ref_inputs, win: Window) -> dict:
     against it: the widest gap in logits over the answers that name a
     class, the answers that name none, and the answers that never came
     or raised. Each is correct at or under its limit."""
-    from portbench.reference import bnn, judge as jg
-    net = bnn.load(ctx.artifact)
-    acc = bnn.accumulators(net, ref_inputs, device=ctx.device)
-    ref = bnn.logits(net, acc).cpu().numpy()
-    widest, invalid = jg.widest_gap(ref, win.answers)
+    from portbench.reference import judge as jg
+    ref = cell.reference.forward(cell.reference.load(ctx.artifact),
+                                 ref_inputs, device=ctx.device)
+    widest, invalid = jg.widest_gap(ref.cpu().numpy(), win.answers)
     return {
         "widest_gap": {"value": widest,
                        "limit": cell.config["limits"]["widest_gap"]},

@@ -23,7 +23,8 @@ packed along K (bit or 2-bit field i of word j is row 32j + i or 16j + i),
 levels `2 b - 1` for W1A1 and `2 c - 3` for the 2-bit codes of the other
 schemes. K runs over (ki, kj, c) for a conv.
 
-Imports numpy and torch only.
+A reference module of the benchmark: `load`, `check` and `forward`
+(the contract in `portbench/harness.py`). Imports numpy and torch only.
 """
 
 from __future__ import annotations
@@ -121,6 +122,20 @@ def load(path: str) -> Net:
                out_bias=arrays["out_bias"].astype(np.float32))
 
 
+def check(net: Net, config: dict) -> None:
+    """Raise ValueError unless the artifact is the configuration `config`
+    states: its precisions, input, classes and layer widths."""
+    stated = (config["wbits"], config["abits"], config["input_kind"],
+              tuple(config["input_shape"]), config["num_classes"])
+    if (net.wbits, net.abits, net.input_kind, net.input_shape,
+            net.num_classes) != stated or \
+            [(x.kind, x.out) for x in net.layers if x.kind != "pool"] != \
+            [(s["kind"], s.get("out_ch", s.get("out_features")))
+             for s in config["layers"] if s["kind"] != "pool"]:
+        raise ValueError(f"{config['artifact']} is not the configuration "
+                         f"{config['name']} states")
+
+
 def input_levels(net: Net, x: torch.Tensor) -> torch.Tensor:
     """uint8 pixels or int8 frames [B, H, W, C] (or [B, H*W*C]) -> float64
     levels [B, H, W, C]."""
@@ -190,3 +205,10 @@ def logits(net: Net, acc: torch.Tensor,
     scale = torch.from_numpy(net.out_scale).to(acc.device, dtype)
     bias = torch.from_numpy(net.out_bias).to(acc.device, dtype)
     return acc.to(dtype) * scale + bias
+
+
+def forward(net: Net, x: torch.Tensor, *, device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Logits [N, classes] of every input, computed on `device` in blocks,
+    with the output arithmetic in `dtype`."""
+    return logits(net, accumulators(net, x, device=device), dtype)

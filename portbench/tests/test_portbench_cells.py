@@ -1,5 +1,7 @@
-"""Cells found by name, a new cell and metric added as files only, and
-the comparison that decides `correct`: sound runs pass; the control and
+"""Cells found by name, a new cell, metric and reference added as files
+only, and the comparison that decides `correct`: sound runs pass; the
+judge and the control use the reference the configuration names; the
+control and
 each fault a classifier cell can have fail. (A step that leaves its state
 unchanged needs a state, and an exchange between chips needs chips: no
 cell here has either.) The CPU runs use the kernels' plain versions at
@@ -11,10 +13,12 @@ import json
 import shutil
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from portbench import control, harness
+from portbench.reference import bnn, judge
 
 CPU_SIZES = {
     "cnv-w1a1.resident": {"pool_batches": 2, "batch": 16},
@@ -80,9 +84,9 @@ def test_every_cell_resolves(root):
             assert callable(harness.metric_reader(m["name"], root))
 
 
-def test_new_cell_and_metric_are_files_only(tmp_path):
-    """A later change adds a traffic mix and a metric as new files and an
-    entry in BENCHMARK.json; the harness finds both without an edit."""
+def _copy_bench(tmp_path):
+    """The benchmark copied under `tmp_path`, with a tiny resident mix
+    added; returns the bytes of every file of `portbench/` before it."""
     shutil.copy(harness.ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(harness.BENCH_DIR, tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -91,6 +95,32 @@ def test_new_cell_and_metric_are_files_only(tmp_path):
     (tmp_path / "portbench/traffic/resident-tiny.json").write_text(
         json.dumps({"kind": "resident", "pool_batches": 1, "batch": 8,
                     "in_flight": 2, "route": "mega"}))
+    return before
+
+
+def _add_config(tmp_path, name, **changes):
+    """A new configuration `name`: cnv-w1a1's file with `changes` (a
+    value None drops the key), and a cell `<name>.tiny` on it."""
+    bdir = tmp_path / "portbench"
+    config = json.loads((bdir / "configs/cnv-w1a1.json").read_text())
+    config.update(name=name, **changes)
+    config = {k: v for k, v in config.items() if v is not None}
+    (bdir / "configs" / f"{name}.json").write_text(json.dumps(config))
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": name, "source": "s", "file":
+                             f"portbench/configs/{name}.json",
+                             "reduced": [], "why": "a test configuration"})
+    bench["workloads"].append({"name": f"{name}.tiny", "config": name,
+                               "traffic": "resident-tiny", "chips": 1,
+                               "why": "a test cell"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return f"{name}.tiny"
+
+
+def test_new_cell_and_metric_are_files_only(tmp_path):
+    """A later change adds a traffic mix and a metric as new files and an
+    entry in BENCHMARK.json; the harness finds both without an edit."""
+    before = _copy_bench(tmp_path)
     (tmp_path / "portbench/metrics/dummy_images.py").write_text(
         "def read(rec):\n    return float(rec.window.images)\n")
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
@@ -112,6 +142,86 @@ def test_new_cell_and_metric_are_files_only(tmp_path):
     assert line["metrics"]["dummy_images"]["value"] >= 8
     for rel, data in before.items():
         assert (tmp_path / rel).read_bytes() == data
+
+
+# appended to a byte copy of bnn.py: its logits with the classes rolled
+ROLLED = b'''
+
+_forward = forward
+
+
+def forward(net, x, *, device, dtype=torch.float32):
+    return torch.roll(_forward(net, x, device=device, dtype=dtype), 1, 1)
+'''
+
+
+@pytest.mark.parametrize("tail,correct", [(b"", True), (ROLLED, False)],
+                         ids=["copy", "rolled"])
+def test_new_reference_is_files_only(tmp_path, tail, correct):
+    """A later change adds a configuration that names a reference of its
+    own, the reference and a cell on it as new files and entries; the
+    judge uses that reference: a sound run reads correct against a byte
+    copy of bnn.py and not correct against its logits rolled by one."""
+    before = _copy_bench(tmp_path)
+    ref_dir = tmp_path / "portbench/reference"
+    (ref_dir / "bnn_copy.py").write_bytes(
+        (ref_dir / "bnn.py").read_bytes() + tail)
+    name = _add_config(tmp_path, "cnv-w1a1-copy", reference="bnn_copy")
+    cell = harness.load_cell(name, root=tmp_path)
+    assert cell.reference.__file__ == str(ref_dir / "bnn_copy.py")
+    res = harness.run(cell, SEED, 0.3, False, t_start=time.perf_counter(),
+                      device="cpu", root=tmp_path)
+    line = harness.report(res, False, "cpu", None, root=tmp_path)
+    assert line["correct"] is correct, line["checks"]
+    assert line["attempted"] > 0 and line["failed"] == 0
+    for rel, data in before.items():
+        assert (tmp_path / rel).read_bytes() == data
+
+
+@pytest.mark.parametrize("changes,error,match", [
+    ({"reference": None}, ValueError, "cnv-w1a1-bad.json names no plain"),
+    ({"reference": "nonesuch"}, FileNotFoundError,
+     "no such benchmark file: .*nonesuch.py"),
+    ({"num_classes": 12}, ValueError, "is not the configuration"),
+], ids=["no_key", "no_module", "other_artifact"])
+def test_reference_fault_fails_before_setup(tmp_path, monkeypatch, changes,
+                                            error, match):
+    """A configuration that names no reference, or one that is not there,
+    fails in load_cell; an artifact that is not the configuration the
+    file states fails the reference's check in make_ctx. Neither reaches
+    the kind's inputs or set-up."""
+    _copy_bench(tmp_path)
+    name = _add_config(tmp_path, "cnv-w1a1-bad", **changes)
+
+    def reached(*args):
+        raise AssertionError("set-up reached")
+    with pytest.raises(error, match=match):
+        cell = harness.load_cell(name, root=tmp_path)
+        monkeypatch.setattr(cell.kind, "inputs", reached)
+        monkeypatch.setattr(cell.kind, "setup", reached)
+        harness.run(cell, SEED, 0.3, False, t_start=time.perf_counter(),
+                    device="cpu", root=tmp_path)
+
+
+def test_control_through_named_reference(root):
+    """control.readings through the configuration's reference gives the
+    numbers of the direct calls of bnn (accumulators, then logits in
+    float32 and in bfloat16)."""
+    cell = harness.load_cell("lfc-w1a1.serve", root=root)
+    assert cell.config["reference"] == "bnn"
+    r = control.readings(cell, SEED + 3, "cpu")
+    ctx = harness.make_ctx(cell, SEED + 3, 1.0, "cpu")
+    x = cell.kind.reference_inputs(cell.kind.inputs(ctx))
+    net = bnn.load(ctx.artifact)
+    acc = bnn.accumulators(net, x, device="cpu")
+    ref = bnn.logits(net, acc).numpy()
+    ctl = bnn.logits(net, acc, torch.bfloat16).float().argmax(1).numpy()
+    widest, invalid = judge.widest_gap(ref, [(np.arange(len(x)), ctl)])
+    assert r == {"seed": SEED + 3, "images": 16384,
+                 "control_widest_gap": widest,
+                 "control_changed": int((ctl != ref.argmax(1)).sum()),
+                 "invalid_class": invalid, "limit": 0.0}
+    assert widest > 0
 
 
 def _run(root, name, fault=None, seconds=1.0):

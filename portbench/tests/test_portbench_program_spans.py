@@ -15,7 +15,6 @@ from test_portbench_cells import CPU_SIZES, SEED
 
 # each metric, the cell that reports it, and its reading of `_registry()`
 SPANS = {"to_batch_ms_per_kimg": ("cnv-w1a1.bulk", 2.5),
-         "center_ms_per_kimg": ("cnv-w1a1.bulk", 1.5),
          "upload_ms_per_kimg": ("cnv-w1a1.bulk", 0.2),
          "launch_host_us": ("cnv-w1a1.resident", 50.0),
          "fetch_copy_us": ("cnv-w1a1.resident", 30.0)}
@@ -29,12 +28,10 @@ def clean():
 
 
 def _registry():
-    """2.5 ms per 1024 rows in to_batch, 1.5 in center, 0.2 in upload,
-    50 us a call in launch and 30 in fetch."""
+    """2.5 ms per 1024 rows in to_batch, 0.2 in upload, 50 us a call in
+    launch and 30 in fetch."""
     return {"bnn.classifier.to_batch": {"calls": 2, "total_s": 0.005,
                                         "rows": 2048},
-            "bnn.classifier.center": {"calls": 2, "total_s": 0.003,
-                                      "rows": 2048},
             "bnn.engine.upload": {"calls": 8, "total_s": 0.0016,
                                   "rows": 8192},
             "bnn.engine.launch": {"calls": 40, "total_s": 0.002,

@@ -43,13 +43,6 @@ def setup(ctx, inp: Inputs):
 def window(state, inp: Inputs, ctx, tr):
     from portbench.harness import Window
     clf = state["classifier"]
-    if tr.enabled:
-        prepare = clf.prepare
-
-        def timed_prepare(images):
-            with tr.span("pb.prepare"):
-                return prepare(images)
-        clf.prepare = timed_prepare
     pool = inp.images
     npool, batch = pool.shape[0], pool.shape[1]
     served = [[] for _ in range(npool)]
