@@ -16,7 +16,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, ConvSpec,
+                                              DenseSpec, DepthwiseSpec,
                                               NetworkConfig, PoolSpec)
 
 FORMAT_VERSION = 1
@@ -28,9 +29,10 @@ class CompiledNetwork:
     (the fields of `bnn_pynq_tpu.compiler.finnthesizer.CompiledNetwork`).
 
     layers: one dict per config layer — `{}` for a pool; `w_int8` (int8
-    levels, first conv of an int8-input net) or `w_packed` (uint32 words
-    packed along K), and `thr` (int32 [nthr, N]) on every layer but the
-    last."""
+    levels, first conv of an int8-input net, and every layer of a
+    separable net: [K, N], a depthwise conv's [K², C]) or `w_packed`
+    (uint32 words packed along K), and `thr` (int32 [nthr, N]) on every
+    layer but the last (an average pool's alone: `{"thr": ...}`)."""
     config: NetworkConfig
     layers: List[Dict[str, np.ndarray]]
     out_scale: np.ndarray                 # float32 [num_classes]
@@ -39,15 +41,28 @@ class CompiledNetwork:
 
 
 def config_to_json(cfg: NetworkConfig) -> dict:
+    """The manifest's form of a config. A layer's `pad` and `wbits` are
+    written only where they are set (MobileNet's), so the BNN-PYNQ
+    configs' manifests stay the JAX package's byte for byte."""
     layers = []
     for s in cfg.layers:
         if isinstance(s, ConvSpec):
-            layers.append({"kind": "conv", "out_ch": s.out_ch,
-                           "kernel": s.kernel, "stride": s.stride})
+            d = {"kind": "conv", "out_ch": s.out_ch, "kernel": s.kernel,
+                 "stride": s.stride}
+        elif isinstance(s, DepthwiseSpec):
+            d = {"kind": "dwconv", "kernel": s.kernel, "stride": s.stride,
+                 "pad": s.pad}
         elif isinstance(s, PoolSpec):
-            layers.append({"kind": "pool", "window": s.window})
+            d = {"kind": "pool", "window": s.window}
+        elif isinstance(s, AvgPoolSpec):
+            d = {"kind": "avgpool", "window": s.window}
         else:
-            layers.append({"kind": "dense", "out_features": s.out_features})
+            d = {"kind": "dense", "out_features": s.out_features}
+        if getattr(s, "pad", 0) and "pad" not in d:
+            d["pad"] = s.pad
+        if getattr(s, "wbits", 0):
+            d["wbits"] = s.wbits
+        layers.append(d)
     return {"name": cfg.name, "wbits": cfg.wbits, "abits": cfg.abits,
             "input_kind": cfg.input_kind,
             "input_shape": list(cfg.input_shape), "layers": layers,
@@ -58,11 +73,20 @@ def config_from_json(d: dict) -> NetworkConfig:
     specs = []
     for s in d["layers"]:
         if s["kind"] == "conv":
-            specs.append(ConvSpec(s["out_ch"], s["kernel"], s["stride"]))
+            specs.append(ConvSpec(s["out_ch"], s["kernel"], s["stride"],
+                                  s.get("pad", 0), s.get("wbits", 0)))
+        elif s["kind"] == "dwconv":
+            if (s["kernel"], s["pad"]) != (DepthwiseSpec.kernel,
+                                           DepthwiseSpec.pad):
+                raise ValueError(f"a depthwise conv is 3×3 with pad 1, got "
+                                 f"kernel {s['kernel']}, pad {s['pad']}")
+            specs.append(DepthwiseSpec(s["stride"], s.get("wbits", 0)))
         elif s["kind"] == "pool":
             specs.append(PoolSpec(s["window"]))
+        elif s["kind"] == "avgpool":
+            specs.append(AvgPoolSpec(s["window"]))
         else:
-            specs.append(DenseSpec(s["out_features"]))
+            specs.append(DenseSpec(s["out_features"], s.get("wbits", 0)))
     return NetworkConfig(
         name=d["name"], wbits=d["wbits"], abits=d["abits"],
         input_kind=d["input_kind"], input_shape=tuple(d["input_shape"]),

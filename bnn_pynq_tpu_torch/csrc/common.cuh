@@ -10,7 +10,7 @@ namespace bnn {
 
 constexpr int kThreads = 256;               // threads per block, every kernel
 constexpr int kVec = 16;                    // bytes per vector load
-constexpr int kMaxThr = 3;                  // thresholds per channel (abits <= 2)
+constexpr int kMaxThr = 15;                 // thresholds per channel (abits <= 4)
 constexpr int kDefaultSmem = 48 * 1024;     // above this: opt in per kernel
 constexpr int kMaxSmem = 227 * 1024;        // H100: 232,448 bytes a block
 
@@ -18,9 +18,18 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Four code bytes {0..3} → levels 2c - off, byte-wise (2c <= 6: no carry).
-__device__ __forceinline__ unsigned codes_to_levels4(unsigned u, int off) {
-  return __vsub4(u + u, 0x01010101u * static_cast<unsigned>(off));
+// An activation code c stands for the level mul·c − off: 2c − 1 (abits 1),
+// 2c − 3 (abits 2), and c itself for MobileNet's unsigned 4-bit codes
+// (abits 4), which the kernels therefore read as levels.
+inline bool abits_ok(int abits) {
+  return abits == 1 || abits == 2 || abits == 4;
+}
+inline int level_off(int abits) { return abits == 1 ? 1 : abits == 2 ? 3 : 0; }
+inline bool codes_are_levels(int abits) { return abits == 4; }
+
+// The threshold counts the epilogues are built for: 1-3 (abits <= 2) and 15.
+inline bool nthr_ok(int nthr) {
+  return (nthr >= 1 && nthr <= 3) || nthr == kMaxThr;
 }
 
 // Dynamic shared memory above 48 KB needs an opt-in per kernel.

@@ -438,7 +438,7 @@ int chain_args(ChainArgs& a, const void* x, int b, int h, int w, int c,
                const void* const* wsum_ptrs, const void* const* thr_ptrs,
                int n_layers, int nthr, int abits, void* out) {
   if (n_layers < 1 || n_layers > kChainMaxLayers || nthr < 1 ||
-      nthr > kMaxThr || (abits != 1 && abits != 2) || b < 0 || c < 1 ||
+      nthr > 3 || (abits != 1 && abits != 2) || b < 0 || c < 1 ||
       ksize < 1 || h - n_layers * (ksize - 1) < 1 ||
       w - n_layers * (ksize - 1) < 1) {
     return cudaErrorInvalidValue;

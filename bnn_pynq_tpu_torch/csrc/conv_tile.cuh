@@ -104,7 +104,8 @@ __device__ __forceinline__ void gather_patches(const ConvArgs& a, int p0,
 // Within 128 registers a thread either way. The weight column chunks are
 // spread over the grid's second axis where the launcher gave it one (few
 // tiles, many chunks), else a block passes over its tiles once per chunk.
-template <int OUT>
+// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh).
+template <int OUT, bool WIDE>
 __global__ void __launch_bounds__(2 * kThreads, 1)
 conv_kernel(const ConvArgs a) {
   extern __shared__ __align__(16) int8_t smem[];
@@ -243,11 +244,10 @@ conv_kernel(const ConvArgs a) {
                          static_cast<int32_t*>(a.out), ep.n_out, row0, rows,
                          col0, cols, a.out_vec, lane);
         } else {
-          item_store_codes(acc, thr_s + n0, cols_pad, ep.nthr, stage,
-                           static_cast<int8_t*>(a.out), ep.n_out, row0, rows,
-                           col0, cols,
-                           a.out_vec && col0 % kVec == 0 && cols % kVec == 0,
-                           lane);
+          item_store_codes<8, WIDE>(
+              acc, thr_s + n0, cols_pad, ep.nthr, stage,
+              static_cast<int8_t*>(a.out), ep.n_out, row0, rows, col0, cols,
+              a.out_vec && col0 % kVec == 0 && cols % kVec == 0, lane);
         }
       }
       __syncthreads();   // the buffers are free for the next tile
@@ -275,13 +275,13 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
                 const void* wsum, const void* thr, int nthr, int abits,
                 void* out, cudaStream_t stream) {
   if (b < 0 || c < 1 || ksize < 1 || h < ksize || w < ksize || n_out < 1 ||
-      (abits != 1 && abits != 2) ||
-      k32 != round_up(ksize * ksize * c, kMmaK)) {
+      !abits_ok(abits) || k32 != round_up(ksize * ksize * c, kMmaK)) {
     return cudaErrorInvalidValue;
   }
-  if (OUT == kConvCodes ? (nthr < 1 || nthr > kMaxThr) : nthr != 0) {
+  if (OUT == kConvCodes ? !nthr_ok(nthr) : nthr != 0) {
     return cudaErrorInvalidValue;
   }
+  if (codes_are_levels(abits)) input_levels = 1;
   const int oh = h - ksize + 1;
   const int ow = w - ksize + 1;
   const long long pixels = static_cast<long long>(b) * oh * ow;
@@ -310,7 +310,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   a.ep.wsum = static_cast<const int32_t*>(wsum);
   a.ep.nthr = nthr;
   a.ep.n_out = n_out;
-  a.ep.level_off = abits == 1 ? 1 : 3;
+  a.ep.level_off = level_off(abits);
   a.out_vec = OUT == kConvCodes
                   ? n_out % kVec == 0 &&
                         reinterpret_cast<uintptr_t>(out) % kVec == 0
@@ -357,7 +357,11 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   smem = smem_of(a.tile, warps);   // also sets the buffer sizes in `a`
   const int threads = 32 * warps;
 
-  cudaError_t err = allow_smem(conv_kernel<OUT>, smem);
+  auto kernel = conv_kernel<OUT, false>;
+  if constexpr (OUT == kConvCodes) {
+    if (nthr == kMaxThr) kernel = conv_kernel<OUT, true>;
+  }
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0, resident = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
@@ -366,7 +370,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
     return err;
   }
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &resident, conv_kernel<OUT>, threads, smem)) != cudaSuccess) {
+           &resident, kernel, threads, smem)) != cudaSuccess) {
     return err;
   }
   if (resident < 1) return cudaErrorInvalidValue;
@@ -377,7 +381,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   const int chunks = (n_out + a.n_chunk - 1) / a.n_chunk;
   const int grid_y = ntiles * chunks <= room ? chunks : 1;
   const dim3 grid(static_cast<unsigned>(ntiles < room ? ntiles : room), grid_y);
-  conv_kernel<OUT><<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

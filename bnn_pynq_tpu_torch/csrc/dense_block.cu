@@ -21,6 +21,8 @@
 //   stage, 2 blocks an SM), the accumulators stay in registers;
 // - codes are copied raw and the thresholds folded to match (mma_tile.cuh);
 //   the output codes leave as 16-byte stores through a staging buffer;
+// - MobileNet's 1×1 convs run here on B·H·W rows of unsigned 4-bit codes,
+//   which are their own levels (no correction) and take 15 thresholds;
 // - rows whose width is not a multiple of 16 bytes are staged by byte loads;
 //   N above 256 runs as column chunks on the grid's second axis; the ragged
 //   last rows are masked at the store.
@@ -53,6 +55,8 @@ struct DenseArgs {
   EpilogueArgs ep;
 };
 
+// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh).
+template <bool WIDE>
 __global__ void __launch_bounds__(kThreads, 2)
 dense_kernel(const DenseArgs a) {
   extern __shared__ __align__(16) int8_t smem[];
@@ -148,10 +152,11 @@ dense_kernel(const DenseArgs a) {
   if (!active) return;
 
   const int col0 = nc0 + n0;
-  item_store_codes(acc, thr_s + n0, tile_cols, a.ep.nthr, stage, a.out,
-                   a.ep.n_out, static_cast<size_t>(row0 + mi * kItemRows),
-                   min(kItemRows, a.m - row0 - mi * kItemRows), col0, cols,
-                   a.out_vec && cols % kVec == 0, lane);
+  item_store_codes<8, WIDE>(
+      acc, thr_s + n0, tile_cols, a.ep.nthr, stage, a.out, a.ep.n_out,
+      static_cast<size_t>(row0 + mi * kItemRows),
+      min(kItemRows, a.m - row0 - mi * kItemRows), col0, cols,
+      a.out_vec && cols % kVec == 0, lane);
 }
 
 }  // namespace
@@ -167,8 +172,8 @@ int bnn_dense_block(const void* x, int m, int k0, int input_levels,
                     const void* thr, int nthr, int abits, void* out,
                     void* stream) {
   using namespace bnn;
-  if (m < 0 || k0 < 1 || n_out < 1 || nthr < 1 || nthr > kMaxThr ||
-      (abits != 1 && abits != 2) || k32 != round_up(k0, kMmaK)) {
+  if (m < 0 || k0 < 1 || n_out < 1 || !nthr_ok(nthr) || !abits_ok(abits) ||
+      k32 != round_up(k0, kMmaK)) {
     return cudaErrorInvalidValue;
   }
   if (m == 0) return cudaSuccess;
@@ -186,8 +191,8 @@ int bnn_dense_block(const void* x, int m, int k0, int input_levels,
   a.ep.wsum = static_cast<const int32_t*>(wsum);
   a.ep.nthr = nthr;
   a.ep.n_out = n_out;
-  a.ep.level_off = abits == 1 ? 1 : 3;
-  a.ep.codes_in = !input_levels;
+  a.ep.level_off = level_off(abits);
+  a.ep.codes_in = !input_levels && !codes_are_levels(abits);
   a.out_vec = n_out % kVec == 0 && reinterpret_cast<uintptr_t>(out) % kVec == 0;
 
   const int tile_rows = kWarps / a.col_warps * kItemRows;
@@ -195,12 +200,12 @@ int bnn_dense_block(const void* x, int m, int k0, int input_levels,
   const size_t smem =
       static_cast<size_t>(kStages) * (tile_rows + tile_cols) * kSlicePitch +
       epilogue_smem(nthr, tile_cols);
-  cudaError_t err = allow_smem(dense_kernel, smem);
+  const auto kernel = nthr == kMaxThr ? dense_kernel<true> : dense_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + tile_rows - 1) / tile_rows,
                   (n_out + kMaxCols - 1) / kMaxCols);
-  dense_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

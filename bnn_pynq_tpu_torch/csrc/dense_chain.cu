@@ -45,7 +45,8 @@
 //   are pitched ≡ 16 (mod 32) bytes so the next layer's ldmatrix reads them
 //   in place;
 // - the last layer turns its raw accumulator into the true one,
-//   2·acc − off·wsum, and applies scale and bias as a separate multiply and
+//   2·acc − off·wsum (acc itself on MobileNet's 4-bit codes, which are
+//   their own levels), and applies scale and bias as a separate multiply and
 //   add, as the JAX kernel does (an FMA would flip argmax ties); its few
 //   columns (10) are masked, not padded.
 // Rows past the batch's end repeat its last row and are masked at the store.
@@ -79,6 +80,8 @@ struct MlpArgs {
   int n_layers;
   int nthr;
   int level_off;
+  int codes_in;          // x holds 1- or 2-bit codes (level 2c − off); else
+                         // 4-bit codes, their own levels
   int total_slices;      // ring tiles over all layers and passes
   int pitch[2];          // bytes per row of the two activation tiles
   int thr_total;         // int32s of folded thresholds, all layers
@@ -150,7 +153,7 @@ __device__ __forceinline__ void tile_mma(ItemAcc& acc, unsigned a0,
 // memory.
 template <int NJ>
 __device__ __forceinline__ void item_store_logits(
-    const ItemAcc& acc, const MlpLayer& L, int level_off, float* out,
+    const ItemAcc& acc, const MlpLayer& L, int mul, int level_off, float* out,
     const float* scale, const float* bias, size_t row0, int rows, int col0,
     int cols, int lane) {
   const int g = lane >> 2;
@@ -183,12 +186,12 @@ __device__ __forceinline__ void item_store_logits(
         for (int h = 0; h < 2; ++h) {
           const int rr = 16 * mb + 8 * h + g;
           if (rr < rows) {
-            // two roundings, as JAX computes it; |2·acc − sub| < 2^24, so
-            // the conversion is exact
+            // two roundings, as JAX computes it; |mul·acc − sub| < 2^24,
+            // so the conversion is exact
             out[(row0 + rr) * L.n + col] = __fadd_rn(
-                __fmul_rn(
-                    __int2float_rn(2 * acc.c[mb][j][2 * h + c] - sub[j][c]),
-                    s),
+                __fmul_rn(__int2float_rn(mul * acc.c[mb][j][2 * h + c] -
+                                         sub[j][c]),
+                          s),
                 b);
           }
         }
@@ -248,6 +251,8 @@ __device__ __forceinline__ void producer_warp(const MlpArgs& a, int lane,
   }
 }
 
+// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh).
+template <bool WIDE>
 __global__ void __launch_bounds__(kMlpThreads, 1) mlp_kernel(const MlpArgs a) {
   extern __shared__ __align__(128) int8_t smem[];
   const int lane = threadIdx.x & 31;
@@ -281,7 +286,8 @@ __global__ void __launch_bounds__(kMlpThreads, 1) mlp_kernel(const MlpArgs a) {
   const int thr_layers = a.out_codes ? a.n_layers : a.n_layers - 1;
   for (int l = 0; l < thr_layers; ++l) {
     const MlpLayer& L = a.layer[l];
-    const EpilogueArgs e = {L.thr, L.wsum, a.nthr, L.n, a.level_off, 1};
+    const EpilogueArgs e = {L.thr, L.wsum, a.nthr, L.n, a.level_off,
+                            a.codes_in};
     stage_thresholds(thr_s + L.thr_off, L.thr_pad, e, 0, L.n, kThreads);
   }
   if (a.vec_rows) {
@@ -359,20 +365,20 @@ __global__ void __launch_bounds__(kMlpThreads, 1) mlp_kernel(const MlpArgs a) {
         const bool vec = cols % kVec == 0 && (!last || a.out_vec);
         const int32_t* thr = thr_s + L.thr_off + col0;
         if (cw == 32) {
-          item_store_codes<4>(acc, thr, L.thr_pad, a.nthr, stage, dst,
+          item_store_codes<4, WIDE>(acc, thr, L.thr_pad, a.nthr, stage, dst,
                               pitch_out, dst_row0, dst_rows, col0, cols, vec,
                               lane);
         } else {
-          item_store_codes<2>(acc, thr, L.thr_pad, a.nthr, stage, dst,
+          item_store_codes<2, WIDE>(acc, thr, L.thr_pad, a.nthr, stage, dst,
                               pitch_out, dst_row0, dst_rows, col0, cols, vec,
                               lane);
         }
       } else if (cw == 32) {
-        item_store_logits<4>(acc, L, a.level_off, a.out, a.scale, a.bias,
-                             row0, rows, col0, cols, lane);
+        item_store_logits<4>(acc, L, a.codes_in ? 2 : 1, a.level_off, a.out,
+                             a.scale, a.bias, row0, rows, col0, cols, lane);
       } else {
-        item_store_logits<2>(acc, L, a.level_off, a.out, a.scale, a.bias,
-                             row0, rows, col0, cols, lane);
+        item_store_logits<2>(acc, L, a.codes_in ? 2 : 1, a.level_off, a.out,
+                             a.scale, a.bias, row0, rows, col0, cols, lane);
       }
     }
   }
@@ -386,8 +392,8 @@ int launch_mlp(const void* x, int m, int k0, const void* const* wp,
                const int* ns, int n_layers, int nthr, int abits,
                const void* scale, const void* bias, void* out_logits,
                void* out_codes, cudaStream_t stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || nthr < 1 || nthr > kMaxThr ||
-      (abits != 1 && abits != 2) || m < 0 || k0 < 1 ||
+  if (n_layers < 1 || n_layers > kMaxLayers || !nthr_ok(nthr) ||
+      !abits_ok(abits) || m < 0 || k0 < 1 ||
       (out_logits == nullptr) == (out_codes == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -400,7 +406,8 @@ int launch_mlp(const void* x, int m, int k0, const void* const* wp,
   a.vec_rows = k0 % kVec == 0 && reinterpret_cast<uintptr_t>(x) % kVec == 0;
   a.n_layers = n_layers;
   a.nthr = nthr;
-  a.level_off = abits == 1 ? 1 : 3;
+  a.codes_in = !codes_are_levels(abits);
+  a.level_off = a.codes_in ? level_off(abits) : 0;
   int width[2] = {0, 0};          // the widest input of each activation tile
   int pass_cols = 0;
   for (int l = 0; l < n_layers; ++l) {
@@ -441,10 +448,11 @@ int launch_mlp(const void* x, int m, int k0, const void* const* wp,
       static_cast<size_t>(kMlpRows) * (a.pitch[0] + a.pitch[1]) +
       static_cast<size_t>(a.thr_total) * 4 +
       static_cast<size_t>(kWarps) * kStageBytes + 8 * (kMlpStages + 1);
-  cudaError_t err = allow_smem(mlp_kernel, smem);   // too wide: invalid value
+  const auto kernel = nthr == kMaxThr ? mlp_kernel<true> : mlp_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);   // too wide: invalid value
   if (err != cudaSuccess) return err;
   const int blocks = (m + kMlpRows - 1) / kMlpRows;
-  mlp_kernel<<<blocks, kMlpThreads, smem, stream>>>(a);
+  kernel<<<blocks, kMlpThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

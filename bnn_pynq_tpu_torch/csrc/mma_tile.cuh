@@ -52,7 +52,8 @@
 // copy raw codes into shared memory with cp.async, run the mma on them, and
 // the epilogue corrects for it with the per-column weight sums prepared on
 // the host (models/params.py), folded into the thresholds once per block
-// (stage_thresholds). Exact.
+// (stage_thresholds). Exact. Unsigned 4-bit codes (0..15, abits 4) are
+// their own levels: the launchers take them as levels, with no correction.
 #pragma once
 
 #include "common.cuh"
@@ -229,8 +230,8 @@ struct EpilogueArgs {
   const int32_t* wsum;   // [n_out] column sums of the weight levels
   int nthr;
   int n_out;
-  int level_off;         // 1 or 3
-  int codes_in;          // the A operand held codes, not levels
+  int level_off;         // 1 or 3 (abits 1, 2); 0 for 4-bit codes
+  int codes_in;          // the A operand held 1- or 2-bit codes, not levels
 };
 
 constexpr int kStagePitch = kItemCols + kPitchPad;        // 80 bytes
@@ -273,19 +274,33 @@ __device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
 
 // The lane's four codes of n8 block j of m16 block mb: [h][c] for item row
 // 16·mb + 8·h + g, column 8·j + 2·t + c.
+__device__ __forceinline__ void block_codes_step(const ItemAcc& acc, int mb,
+                                                 int j, const int32_t* thr_k,
+                                                 int (&code)[2][2]) {
+  const int2 th = *reinterpret_cast<const int2*>(thr_k + 8 * j);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    code[h][0] += acc.c[mb][j][2 * h] >= th.x ? 1 : 0;
+    code[h][1] += acc.c[mb][j][2 * h + 1] >= th.y ? 1 : 0;
+  }
+}
+
+// 1-3 thresholds unrolled whole; 15 (4-bit codes) three at a time, so that
+// their loads do not crowd the accumulators out of registers.
 template <int NTHR>
 __device__ __forceinline__ void block_codes(const ItemAcc& acc, int mb, int j,
                                             const int32_t* thr_lane,
                                             int cols_pad, int (&code)[2][2]) {
   code[0][0] = code[0][1] = code[1][0] = code[1][1] = 0;
+  if constexpr (NTHR <= 3) {
 #pragma unroll
-  for (int k = 0; k < NTHR; ++k) {
-    const int2 th =
-        *reinterpret_cast<const int2*>(thr_lane + k * cols_pad + 8 * j);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      code[h][0] += acc.c[mb][j][2 * h] >= th.x ? 1 : 0;
-      code[h][1] += acc.c[mb][j][2 * h + 1] >= th.y ? 1 : 0;
+    for (int k = 0; k < NTHR; ++k) {
+      block_codes_step(acc, mb, j, thr_lane + k * cols_pad, code);
+    }
+  } else {
+#pragma unroll 3
+    for (int k = 0; k < NTHR; ++k) {
+      block_codes_step(acc, mb, j, thr_lane + k * cols_pad, code);
     }
   }
 }
@@ -358,12 +373,20 @@ __device__ __forceinline__ void item_store_codes_n(
   }
 }
 
-// The same with the number of thresholds (1..3) chosen at run time.
-template <int NJ = 8>
+// The same with the number of thresholds (1..3) chosen at run time; WIDE:
+// kMaxThr of them (4-bit codes). The kernels take WIDE as a template
+// argument of their own, so that 1- and 2-bit nets run a kernel compiled
+// without the 15-threshold epilogue (common.cuh nthr_ok: no other count).
+template <int NJ = 8, bool WIDE = false>
 __device__ __forceinline__ void item_store_codes(
     const ItemAcc& acc, const int32_t* thr_s, int cols_pad, int nthr,
     int8_t* stage, int8_t* out, int n_out, size_t row0, int rows, int col0,
     int cols, bool vec, int lane) {
+  if constexpr (WIDE) {
+    item_store_codes_n<kMaxThr, NJ>(acc, thr_s, cols_pad, stage, out, n_out,
+                                    row0, rows, col0, cols, vec, lane);
+    return;
+  }
   if (nthr == 1) {
     item_store_codes_n<1, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
                               rows, col0, cols, vec, lane);

@@ -702,7 +702,7 @@ int bnn_packed_matmul(const void* a, int m, int kw, const void* w, int n,
   const int per_word = 32 / (bits == 1 || bits == 2 ? bits : 1);
   if ((bits != 1 && bits != 2) || (popc && bits != 1) || m < 0 || n < 1 ||
       k < 1 || kw != (k + per_word - 1) / per_word ||
-      (thr == nullptr) != (nthr == 0) || nthr < 0 || nthr > kMaxThr) {
+      (thr == nullptr) != (nthr == 0) || nthr < 0 || nthr > 3) {
     return cudaErrorInvalidValue;
   }
   if (m == 0) return cudaSuccess;

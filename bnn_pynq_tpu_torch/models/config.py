@@ -14,19 +14,55 @@ Topologies (SURVEY.md C9 «bnn/src/network/…/hw/top.cpp», FINN paper):
   conv3x3(128), pool2; conv3x3(256), conv3x3(256); fc(512), fc(512),
   fc(classes). 32×32 RGB int8 input, all convs VALID.
   Spatial trace: 32→30→28→14→12→10→5→3→1.
+
+Beside them, outside `AVAILABLE_CONFIGS` (which stays equal to the JAX
+package's), `mobilenet_v1()`: MobileNet-v1 W4A4 of FINN's model zoo
+(Xilinx/finn-examples `mobilenetv1-w4a4`, built from Brevitas's
+`quant_mobilenet_v1`; topology: Howard et al., arXiv:1704.04861,
+Table 1): conv3×3 s2 (32) with 8-bit weights on the int8 image, 13
+depthwise-separable blocks (a depthwise 3×3 conv, then a 1×1 pointwise
+conv) with 4-bit weights, SAME zero padding (pad 1) on every 3×3 conv,
+unsigned 4-bit activations (level = code), a thresholded 7×7 average
+pool and a 1024→classes dense layer with 8-bit weights. Only the `mega`
+route and the reference forward run it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple, Union
+from dataclasses import dataclass, fields
+from typing import ClassVar, Tuple, Union
 
 
-@dataclass(frozen=True)
+def _repr_set(self) -> str:
+    """The dataclass repr without the MobileNet-only fields `pad` and
+    `wbits` where they hold their default, so that the BNN-PYNQ configs
+    print as the JAX package's do."""
+    args = ", ".join(f"{f.name}={getattr(self, f.name)!r}"
+                     for f in fields(self)
+                     if f.name not in ("pad", "wbits")
+                     or getattr(self, f.name) != f.default)
+    return f"{type(self).__name__}({args})"
+
+
+@dataclass(frozen=True, repr=False)
 class ConvSpec:
     out_ch: int
     kernel: int = 3
     stride: int = 1
+    pad: int = 0                  # zero padding on each side (1: SAME 3×3)
+    wbits: int = 0                # the layer's weight width; 0: the net's
+    __repr__ = _repr_set
+
+
+@dataclass(frozen=True, repr=False)
+class DepthwiseSpec:
+    """A per-channel 3×3 conv (groups = channels), SAME-padded: the only
+    kernel size and padding the port's depthwise conv takes."""
+    kernel: ClassVar[int] = 3
+    pad: ClassVar[int] = 1
+    stride: int = 1
+    wbits: int = 0
+    __repr__ = _repr_set
 
 
 @dataclass(frozen=True)
@@ -35,11 +71,20 @@ class PoolSpec:
 
 
 @dataclass(frozen=True)
+class AvgPoolSpec:
+    """A thresholded average pool: the int32 sum of each window's codes,
+    then a MultiThreshold (the artifact's thresholds carry the divisor)."""
+    window: int = 7
+
+
+@dataclass(frozen=True, repr=False)
 class DenseSpec:
     out_features: int
+    wbits: int = 0
+    __repr__ = _repr_set
 
 
-LayerSpec = Union[ConvSpec, PoolSpec, DenseSpec]
+LayerSpec = Union[ConvSpec, DepthwiseSpec, PoolSpec, AvgPoolSpec, DenseSpec]
 
 
 @dataclass(frozen=True)
@@ -65,6 +110,14 @@ class NetworkConfig:
     def nthr(self) -> int:
         """Thresholds per channel for the activation quantizer."""
         return (1 << self.abits) - 1
+
+    @property
+    def separable(self) -> bool:
+        """Layers that only the `mega` route and the reference forward
+        run: depthwise or padded convs, average pools, 4-bit codes."""
+        return self.abits == 4 or any(
+            isinstance(s, (DepthwiseSpec, AvgPoolSpec)) or
+            getattr(s, "pad", 0) for s in self.layers)
 
     def scheme(self) -> str:
         return f"W{self.wbits}A{self.abits}"
@@ -99,6 +152,30 @@ def cnv(wbits: int = 1, abits: int = 1, num_classes: int = 10,
                 ConvSpec(256), ConvSpec(256),
                 DenseSpec(512), DenseSpec(512), DenseSpec(num_classes)),
         num_classes=num_classes, dataset=dataset)
+
+
+# MobileNet-v1's separable blocks at width multiplier 1: (pointwise
+# width, depthwise stride), Table 1 of arXiv:1704.04861
+MOBILENET_V1_BLOCKS = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
+                       (512, 2), (512, 1), (512, 1), (512, 1), (512, 1),
+                       (512, 1), (1024, 2), (1024, 1))
+
+
+def mobilenet_v1(width: float = 1.0, num_classes: int = 1000) -> NetworkConfig:
+    """MobileNet-v1 W4A4 on 224×224×3 int8 image levels: 28 convs, every
+    width scaled by `width` (1/16 gives channels 2 to 64, for tests)."""
+    def ch(n):
+        return max(1, int(n * width))
+    layers = [ConvSpec(ch(32), kernel=3, stride=2, pad=1, wbits=8)]
+    for n, s in MOBILENET_V1_BLOCKS:
+        layers += [DepthwiseSpec(stride=s, wbits=4),
+                   ConvSpec(ch(n), kernel=1, stride=1, wbits=4)]
+    layers += [AvgPoolSpec(7), DenseSpec(num_classes, wbits=8)]
+    return NetworkConfig(
+        name=("mobilenetv1-w4a4" if (width, num_classes) == (1.0, 1000)
+              else f"mobilenetv1-w4a4-x{width:g}-c{num_classes}"),
+        wbits=4, abits=4, input_kind="int8", input_shape=(224, 224, 3),
+        layers=tuple(layers), num_classes=num_classes, dataset="imagenet")
 
 
 AVAILABLE_CONFIGS = {

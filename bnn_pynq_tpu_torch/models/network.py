@@ -29,6 +29,16 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
   sliding window, an exact int matmul and a MultiThreshold. The port's
   independent reference.
 
+MobileNet-v1 W4A4 (`config.separable`: depthwise and SAME-padded convs, a
+thresholded average pool, unsigned 4-bit codes) runs on `mega` and
+`forward_ref` alone; the packed, direct and decoded-integer routes raise
+NotImplementedError for it. Its `mega` stages: `im2col0` (the padded,
+strided image patches) → `chain0-0` (`conv_chain` on them) → per
+separable block `dw{i}` (`depthwise_conv`) and `pw{i}` (`dense_block` on
+the B·H·W rows of codes) → `gap{i}` (the int32 window sum and its
+MultiThreshold) → `mlp_tail` (`fused_mlp_forward_padded`: the classifier
+with scale and bias).
+
 `layers` is the first element of `params_from_numpy`'s result: per config
 layer `{}` (pool) or `{"w": WeightMatrix, "w_packed": int32 words [Kw, N]
 (packed layers only), "w_int8": int8 [K, N] K-contiguous, "thr": int32
@@ -46,13 +56,15 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
+from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, ConvSpec,
+                                              DenseSpec, DepthwiseSpec,
                                               NetworkConfig, PoolSpec)
 from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, conv_weight_matrix,
                                          maxpool2d, pack_along_last,
                                          sliding_window)
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
+from bnn_pynq_tpu_torch.ops.depthwise import depthwise_acc, depthwise_conv
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward_padded
 from bnn_pynq_tpu_torch.ops.int_dot import int_conv2d, int_matmul
 from bnn_pynq_tpu_torch.ops.matmul import packed_matmul_padded
@@ -65,12 +77,19 @@ from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
 @dataclass(frozen=True)
 class LayerPlan:
     kind: str                     # 'dense' | 'conv' | 'conv_int8' | 'pool'
-    k: int = 0                    # contraction length (dense/conv)
+                                  # | 'dwconv' | 'avgpool'
+    k: int = 0                    # contraction length (dense/conv; K² for
+                                  # a depthwise conv)
     n: int = 0                    # output features/channels
     kernel: int = 0
     stride: int = 1
     window: int = 0
     last: bool = False            # last compute layer → int32 logits
+    pad: int = 0                  # zero padding on each side
+
+
+def _out_size(n: int, kernel: int, stride: int, pad: int) -> int:
+    return (n + 2 * pad - kernel) // stride + 1
 
 
 def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
@@ -79,7 +98,7 @@ def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
     plans = []
     specs = config.layers
     last_compute = max(i for i, s in enumerate(specs)
-                       if not isinstance(s, PoolSpec))
+                       if not isinstance(s, (PoolSpec, AvgPoolSpec)))
     flat = False
     for i, spec in enumerate(specs):
         if isinstance(spec, ConvSpec):
@@ -88,12 +107,22 @@ def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
             k = spec.kernel * spec.kernel * c
             plans.append(LayerPlan(kind=kind, k=k, n=spec.out_ch,
                                    kernel=spec.kernel, stride=spec.stride,
-                                   last=(i == last_compute)))
-            h = (h - spec.kernel) // spec.stride + 1
-            w = (w - spec.kernel) // spec.stride + 1
+                                   last=(i == last_compute), pad=spec.pad))
+            h = _out_size(h, spec.kernel, spec.stride, spec.pad)
+            w = _out_size(w, spec.kernel, spec.stride, spec.pad)
             c = spec.out_ch
+        elif isinstance(spec, DepthwiseSpec):
+            plans.append(LayerPlan(kind="dwconv", k=spec.kernel ** 2, n=c,
+                                   kernel=spec.kernel, stride=spec.stride,
+                                   last=(i == last_compute), pad=spec.pad))
+            h = _out_size(h, spec.kernel, spec.stride, spec.pad)
+            w = _out_size(w, spec.kernel, spec.stride, spec.pad)
         elif isinstance(spec, PoolSpec):
             plans.append(LayerPlan(kind="pool", window=spec.window))
+            h //= spec.window
+            w //= spec.window
+        elif isinstance(spec, AvgPoolSpec):
+            plans.append(LayerPlan(kind="avgpool", n=c, window=spec.window))
             h //= spec.window
             w //= spec.window
         elif isinstance(spec, DenseSpec):
@@ -121,6 +150,8 @@ def init_random_params(config: NetworkConfig, seed: int = 0):
     `np.random.default_rng(seed)` in the same order, so one (config, seed)
     gives equal arrays in both packages. `params_from_numpy` takes them.
     """
+    refuse_separable(config, "init_random_params (its artifact comes from "
+                     "portbench/configs/make_mobilenetv1_w4a4.py)")
     rng = np.random.default_rng(seed)
     bits = config.bits
     params = []
@@ -181,6 +212,8 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
                 out_bias: torch.Tensor) -> List[Stage]:
     """The kernel route as (name, fn) stages; folding the fns over
     `prepare_input(config, x)` gives float32 logits [B, num_classes]."""
+    if config.separable:
+        return _separable_stages(config, layers, out_scale, out_bias)
     plan = make_plan(config)
     abits = config.abits
     if config.input_kind == "bipolar":
@@ -282,6 +315,73 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
     return stages
 
 
+def _separable_stages(config: NetworkConfig, layers, out_scale, out_bias):
+    """MobileNet's stages: an image conv on its prebuilt padded, strided
+    patches, then depthwise and pointwise convs, a thresholded average
+    pool and the classifier, on unsigned 4-bit codes (their own levels,
+    which the pool sums and the depthwise kernel reads)."""
+    abits = config.abits
+    if abits != 4:
+        raise NotImplementedError(
+            f"mega route: a separable network with abits={abits} (4 only)")
+    stages: List[Stage] = []
+    plan = make_plan(config)
+    for idx, (lp, p) in enumerate(zip(plan, layers)):
+        if lp.kind == "conv_int8" and not lp.last:
+            stages.append((f"im2col{idx}", partial(
+                _padded_patches, kernel=lp.kernel, stride=lp.stride,
+                pad=lp.pad)))
+            stages.append((f"chain{idx}-{idx}", partial(
+                conv_chain, weights=[p["w"]], thresholds=[p["thr"]],
+                kernel=lp.kernel, abits=abits, input_patches=True,
+                input_levels=True)))
+        elif lp.kind == "dwconv" and not lp.last:
+            stages.append((f"dw{idx}", partial(
+                depthwise_conv, w=p["w"], thr=p["thr"], stride=lp.stride,
+                abits=abits)))
+        elif lp.kind == "conv" and lp.kernel == 1 and lp.stride == 1 and \
+                not lp.pad and not lp.last:
+            stages.append((f"pw{idx}", partial(
+                _pointwise, w=p["w"], thr=p["thr"], abits=abits)))
+        elif lp.kind == "avgpool":
+            stages.append((f"gap{idx}", partial(
+                _avgpool_threshold, window=lp.window, thr=p["thr"])))
+        elif lp.kind == "dense" and lp.last and idx == len(plan) - 1:
+            stages.append(("mlp_tail", partial(
+                _mlp_tail, weights=[p["w"]], thresholds=[],
+                out_scale=out_scale, out_bias=out_bias, abits=abits)))
+        else:
+            raise NotImplementedError(
+                f"mega route: no stage for layer {idx} ({lp}) of a "
+                "separable network")
+    return stages
+
+
+def _padded_patches(x, *, kernel, stride, pad):
+    """Zero-padded image → the conv's patches [B, OH, OW, K²·C]."""
+    x = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    return sliding_window(x, kernel, kernel, stride)
+
+
+def _pointwise(a, *, w, thr, abits):
+    """A 1×1 conv as `dense_block` on the B·H·W rows of codes."""
+    b, h, wd, c = a.shape
+    rows = dense_block(a.reshape(b * h * wd, c), [w], [thr], abits=abits)
+    return rows.reshape(b, h, wd, w.kn.shape[1])
+
+
+def _avgpool_threshold(a, *, window, thr):
+    """The thresholded average pool over the whole map: the int32 sum of
+    each channel's codes (levels: unsigned 4-bit), then a MultiThreshold
+    of its thresholds (which carry the divisor), as one compare and one
+    sum on the device → int8 codes [B, C]."""
+    if a.shape[1] != window or a.shape[2] != window:
+        raise NotImplementedError(f"average pool {window}×{window} over a "
+                                  f"{a.shape[1]}×{a.shape[2]} map")
+    s = a.sum(dim=(1, 2), dtype=torch.int32)
+    return (s[:, None, :] >= thr).sum(dim=1, dtype=torch.int8)
+
+
 def _conv_block(a, *, w, thr, kernel, stride, abits, levels):
     patches = sliding_window(a, kernel, kernel, stride)
     b, oh, ow, k = patches.shape
@@ -316,6 +416,7 @@ def forward(config: NetworkConfig, layers, x: torch.Tensor, *,
        int8 nets: int8 levels [B, H, W, C].
     route: 'vpu' (W1A1 only), 'mxu' or 'mxu_rm' (see ops/matmul.py).
     """
+    refuse_separable(config, f"the packed route {route!r}")
     plan = make_plan(config)
     bits = config.bits
     packed_input = config.input_kind == "bipolar" and x.dtype == torch.int32
@@ -366,15 +467,27 @@ def forward_ref(config: NetworkConfig, layers,
 def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
                act: torch.Tensor) -> torch.Tensor:
     """One layer of `forward_ref`: pool, or sliding window + exact int
-    matmul + MultiThreshold (int32 accumulators on the last layer)."""
+    matmul + MultiThreshold (int32 accumulators on the last layer); a
+    depthwise conv's sum of shifted products; an average pool's window
+    sum."""
     if lp.kind == "pool":
         return maxpool2d(act, lp.window)
+    if lp.kind == "avgpool":
+        vals = codes_to_values(act, config.abits).to(torch.int32)
+        acc = vals.reshape(act.shape[0], -1, act.shape[-1]).sum(
+            dim=1, dtype=torch.int32)
+        return multithreshold(acc, p["thr"])
     if lp.kind == "conv_int8":
         vals = act        # raw int8 image, already levels
     else:
         if act.ndim > 2 and lp.kind == "dense":
             act = act.reshape(act.shape[0], -1)
         vals = codes_to_values(act, config.abits)
+    if lp.kind == "dwconv":
+        acc = depthwise_acc(vals, p["w"].kn, stride=lp.stride)
+        return acc if lp.last else multithreshold(acc, p["thr"])
+    if lp.pad:
+        vals = torch.nn.functional.pad(vals, (0, 0) + (lp.pad,) * 4)
     if lp.kind in ("conv", "conv_int8"):
         patches = sliding_window(vals, lp.kernel, lp.kernel, lp.stride)
         b, oh, ow, k = patches.shape
@@ -395,6 +508,7 @@ def decode_params(config: NetworkConfig, layers):
     layout `int_matmul` takes without a copy; `w_hwio` is then
     channels-last for `int_conv2d` too (O outermost), and
     `conv_weight_matrix` of it a view."""
+    refuse_separable(config, "decode_params (the decoded-integer routes)")
     out = []
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "pool":
@@ -432,6 +546,7 @@ def forward_xla(config: NetworkConfig, decoded, x: torch.Tensor, *,
     if conv_mode not in CONV_MODES:
         raise ValueError(f"unknown conv_mode {conv_mode!r}; one of "
                          f"{CONV_MODES}")
+    refuse_separable(config, "the decoded-integer routes")
     act = prepare_input(config, x)
     for lp, p in zip(make_plan(config), decoded):
         act = xla_layer(config, lp, p, act, conv_mode=conv_mode,
@@ -479,6 +594,7 @@ def forward_direct(config: NetworkConfig, layers,
     first conv and dense layers are `xla_layer`'s: `int_matmul` on the
     K-contiguous `w_int8`, where JAX's `forward_direct` runs XLA's int8
     dot."""
+    refuse_separable(config, "the direct route")
     act = prepare_input(config, x)
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "conv":
@@ -488,6 +604,15 @@ def forward_direct(config: NetworkConfig, layers,
         else:
             act = xla_layer(config, lp, p, act)
     return act
+
+
+def refuse_separable(config: NetworkConfig, what: str) -> None:
+    """The one check of what runs a separable net: `what` (a route or a
+    function of one) does not, so a separable `config` raises."""
+    if config.separable:
+        raise NotImplementedError(
+            f"{config.name}: {what} runs no depthwise or padded conv, "
+            "average pool or 4-bit code; use route='mega' or runtime='ref'")
 
 
 def input_shape(config: NetworkConfig, batch: int) -> Tuple[int, ...]:

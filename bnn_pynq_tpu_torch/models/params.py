@@ -112,8 +112,9 @@ def params_from_numpy(config: NetworkConfig,
     """Decode a CompiledNetwork's numpy layers onto `device`.
 
     Returns `(layers, out_scale, out_bias)`: per config layer `{}` for a
-    pool, else `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr"
-    where the artifact has none, i.e. on the last layer), plus
+    pool, `{"thr": int32 [nthr, C]}` for an average pool, else
+    `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr" where the
+    artifact has none, i.e. on the last layer), plus
     `"w_packed"`, the artifact's uint32 words [Kw, N] as an int32 tensor,
     on every packed layer (all but an 8-bit first conv), and `"w_int8"`,
     the levels [K, N] stored K-contiguous (`ops/int_dot.py::k_contiguous`):
@@ -133,6 +134,10 @@ def params_from_numpy(config: NetworkConfig,
     for lp, p in zip(plan, layers):
         if lp.kind == "pool":
             out.append({})
+            continue
+        if lp.kind == "avgpool":
+            out.append({"thr": torch.from_numpy(
+                np.array(p["thr"], dtype=np.int32)).to(device)})
             continue
         if "w_int8" in p:
             w_lev = np.array(p["w_int8"], dtype=np.int8)

@@ -55,6 +55,8 @@ _SIGNATURES = {
     # abits, out, stream
     "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                        _I, _P, _P),
+    # x, b, h, w, c, stride, wt, thr, nthr, abits, out, stream
+    "bnn_dw_conv": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P),
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
     "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
     # x, b, h, w, c, ksize, wt, tiles, k32, n_out, wsum, thr, nthr, abits,

@@ -43,7 +43,8 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
                       abits: int) -> torch.Tensor:
     """Run a whole quantized MLP.
 
-    x_codes: int8 activation codes [B, K0] ({0,1} abits=1 / {0..3} abits=2).
+    x_codes: int8 activation codes [B, K0] ({0,1} abits=1 / {0..3} abits=2
+    / {0..15} abits=4, their own levels).
     weights: WeightMatrix per layer (models/params.py), levels [K_i, N_i].
     thresholds: int32 [nthr, N_i] for all but the last layer.
     out_scale/out_bias: float32 [ncls].
@@ -115,16 +116,17 @@ def check_chain(x, weights, thresholds) -> None:
 
 def check_cuda_operands(x, weights, thresholds, *extra) -> None:
     """What the CUDA launchers take: one CUDA device, contiguous operands,
-    the kernels' weight layouts, nthr in 1..3, at most MAX_LAYERS layers."""
+    the kernels' weight layouts, nthr in 1..3 or 15, at most MAX_LAYERS
+    layers."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}; tensors must be "
                          "on the CPU (plain version) or on CUDA")
     if len(weights) > MAX_LAYERS:
         raise ValueError(f"{len(weights)} layers > kernel max {MAX_LAYERS}")
     nthrs = {t.shape[0] for t in thresholds}
-    if len(nthrs) > 1 or not nthrs <= {1, 2, 3}:
+    if len(nthrs) > 1 or not nthrs <= {1, 2, 3, 15}:
         raise ValueError(f"threshold counts {sorted(nthrs)}: the kernels "
-                         "take one count in 1..3 for the whole chain")
+                         "take one count, 1..3 or 15, for the whole chain")
     tensors = [x, *thresholds, *extra]
     for w in weights:
         tensors += [w.nk32, w.wsum, w.tiles]

@@ -4,7 +4,9 @@ Port of `bnn_pynq_tpu/ops/thresholds.py`. Given an integer accumulator
 `acc` and per-channel ascending thresholds `thr[nthr, N]`, the output code
 is `code[..., n] = Σ_t (acc[..., n] >= thr[t, n])`, in {0..nthr}:
 1-bit activations have nthr=1 (level 2c-1), 2-bit ones nthr=3 (level
-2c-3). Every compare is int32 against int32; nothing goes through float.
+2c-3), and MobileNet's unsigned 4-bit ones nthr=15 (level = code, the
+output of a `QuantReLU`). Every compare is int32 against int32; nothing
+goes through float.
 """
 
 from __future__ import annotations
@@ -19,12 +21,22 @@ THR_ALWAYS = -(1 << 30)
 
 
 def level_offset(abits: int) -> int:
-    """Level = 2·code − offset: {0,1} → ±1 (abits=1), {0..3} → ±1, ±3."""
+    """Level = level_scale·code − offset: {0,1} → ±1 (abits=1), {0..3} →
+    ±1, ±3 (abits=2), {0..15} → itself (abits=4, unsigned)."""
     if abits == 1:
         return 1
     if abits == 2:
         return 3
+    if abits == 4:
+        return 0
     raise ValueError(f"unsupported abits={abits}")
+
+
+def level_scale(abits: int) -> int:
+    """The code's multiplier in its level: 2 for the bipolar 1- and 2-bit
+    codes, 1 for unsigned 4-bit ones."""
+    level_offset(abits)               # raises on an unsupported width
+    return 1 if abits == 4 else 2
 
 
 def multithreshold(acc: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -40,6 +52,7 @@ def multithreshold(acc: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
 
 def codes_to_values(codes: torch.Tensor, abits: int) -> torch.Tensor:
     """Codes → the integer levels the next layer consumes (int8):
-    abits=1: {0,1} → {-1,+1}; abits=2: {0..3} → {-3,-1,1,3}."""
+    abits=1: {0,1} → {-1,+1}; abits=2: {0..3} → {-3,-1,1,3}; abits=4:
+    {0..15} → themselves."""
     off = level_offset(abits)
-    return (2 * codes.to(torch.int8) - off).to(torch.int8)
+    return (level_scale(abits) * codes.to(torch.int8) - off).to(torch.int8)

@@ -12,7 +12,9 @@ Runtimes:
   tensor runs follows from its device, not from the name. The engine
   keeps the resolved name in `runtime`. Routes (models/network.py):
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
-    fused_mlp stage list. 's2d', the JAX package's default, computes the
+    fused_mlp stage list (and MobileNet-v1's depthwise_conv: MobileNet
+    runs on this route and 'ref' alone, the others raise
+    NotImplementedError). 's2d', the JAX package's default, computes the
     same function in a TPU layout, so it runs this stage list too;
   - 'xla' and 'xlaconv', the JAX package's other decoded-integer routes:
     `forward_xla` with conv_mode 'patches' and 'native', as JAX maps them,
@@ -101,10 +103,10 @@ from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
 from bnn_pynq_tpu_torch.models.network import (decode_params, forward,
                                                forward_direct, forward_mega,
                                                forward_ref, forward_xla,
-                                               input_shape)
+                                               input_shape, refuse_separable)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
-from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack, int_dot,
-                                    matmul, ref)
+from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
+                                    depthwise, int_dot, matmul, ref)
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
@@ -155,7 +157,8 @@ def kernel_launches() -> Dict[str, int]:
            "conv_chain": conv_stack.conv_chain.launches.value,
            "dense_block": conv_stack.dense_block.launches.value,
            "conv2d_direct": conv_direct.conv2d_direct.launches.value,
-           "conv_chain_direct": conv_direct.conv_chain_direct.launches.value}
+           "conv_chain_direct": conv_direct.conv_chain_direct.launches.value,
+           "depthwise_conv": depthwise.depthwise_conv.launches.value}
     out.update({f"packed_matmul[{r}]": c.value
                 for r, c in matmul.packed_matmul.launches.items()})
     return out
@@ -267,6 +270,8 @@ class InferenceEngine:
             runtime = "kernels"
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
+        if runtime == "kernels" and route not in ("mega", "s2d"):
+            refuse_separable(compiled.config, f"route {route!r}")
         if route == "vpu" and runtime == "kernels" and \
                 compiled.config.bits != 1:
             raise ValueError("route='vpu' (XNOR popcount) requires a W1A1 "

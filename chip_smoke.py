@@ -228,6 +228,21 @@ Phases (every check raises, so any failure exits non-zero):
    partials of a strided conv (`overlap.conv_partial`) equal to the CPU's;
    OverlapTPEngine ring and blocking in a one-rank NCCL world equal to the
    single-card engine.
+24. MobileNet-v1 W4A4 (portbench/configs/mobilenetv1-w4a4.npz) at batch
+   256 on seeded int8 224×224×3 images, as the benchmark's
+   `mobilenetv1-w4a4.resident` runs it: each kernel stage of its 'mega'
+   forward against its plain version on the stage's own input, bit for
+   bit — the 8-bit image conv on its padded stride-2 patches (conv_chain),
+   the 13 depthwise convs (depthwise_conv, `dw_kernel`, 15 thresholds),
+   the 13 pointwise convs on 4-bit codes (dense_block on B·H·W rows) and
+   the 1024 → 1000 classifier (fused_mlp) — each with its time by events
+   and under graph replay, its plain time and its bound, summed by kernel;
+   then InferenceEngine on 'mega': the launches of its first use read from
+   zero (the eager run and the capture, each 1 conv_chain, 13
+   depthwise_conv, 13 dense_block, 1 fused_mlp), the program's capture
+   equal to the eager forward's, logits equal to the stage walk's and to
+   runtime="ref" on the card bit for bit, argmax and `classify` of the
+   uint8 pixels equal. The depthwise kernel gets a row of its own.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -3773,6 +3788,153 @@ def _strided_phase(torch, smi):
     return rows, launches
 
 
+# -- phase 24: MobileNet-v1 W4A4 ---------------------------------------------
+
+MOBILENET = os.path.join(HERE, "portbench", "configs", "mobilenetv1-w4a4.npz")
+MOBILENET_BATCH = 256         # the batch of the benchmark's resident cell
+# the kernel launches of one MobileNet-v1 forward on 'mega': the image conv
+# on its patches, 13 depthwise and 13 pointwise convs, the classifier
+MOBILENET_LAUNCHES = {"conv_chain": 1, "depthwise_conv": 13,
+                      "dense_block": 13, "fused_mlp": 1}
+
+
+def _mobilenet_stage_cases(torch, act, stages):
+    """(stage name, kernel name, wrapper fn, plain fn, kernel input, work)
+    for each stage of MobileNet's 'mega' forward that launches a kernel,
+    on `act`, the input of its first stage; `stages` walk on as each case
+    runs, each fed the previous stage's output (the prebuilt patches and
+    the pool are tensor ops, run between the cases)."""
+    from bnn_pynq_tpu_torch.ops import conv_stack, depthwise, fused_mlp
+    for name, fn in stages:
+        kw = dict(fn.keywords)
+        if name.startswith("dw"):
+            arg, kname = act, "depthwise_conv"
+            kern, plain = (depthwise.depthwise_conv,
+                           depthwise.depthwise_conv_plain)
+            b, h, w, c = act.shape
+            oh, ow = -(-h // kw["stride"]), -(-w // kw["stride"])
+            work = _work([], act, kw["w"].kn, kw["thr"],
+                         ops=2 * 9 * b * oh * ow * c)
+        elif name.startswith("pw"):
+            arg, kname = act.reshape(-1, act.shape[-1]), "dense_block"
+            kern, plain = conv_stack.dense_block, conv_stack.dense_block_plain
+            kw = dict(weights=[kw["w"]], thresholds=[kw["thr"]],
+                      abits=kw["abits"])
+            work = _work(_dense_gemms(len(arg), kw["weights"]), arg,
+                         kw["weights"][0].kn, kw["thresholds"][0])
+        elif name.startswith("chain"):
+            arg, kname = act, "conv_chain"
+            kern, plain = conv_stack.conv_chain, conv_stack.conv_chain_plain
+            b, oh, ow, k = act.shape
+            work = _work([(b * oh * ow, k, kw["weights"][0].kn.shape[1])],
+                         act, kw["weights"][0].kn, kw["thresholds"][0])
+        elif name == "mlp_tail":
+            arg, kname = act.reshape(act.shape[0], -1), "fused_mlp"
+            kern, plain = (fused_mlp.fused_mlp_forward,
+                           fused_mlp.fused_mlp_forward_plain)
+            work = _work(_dense_gemms(len(arg), kw["weights"]), arg,
+                         *_kn(kw["weights"]), kw["out_scale"],
+                         kw["out_bias"])
+        else:
+            act = fn(act)
+            continue
+        yield (name, kname, functools.partial(kern, arg, **kw),
+               functools.partial(plain, arg, **kw), arg, work)
+        act = fn(act)
+
+
+def _mobilenet_phase(torch, smi):
+    """Phase 24: MobileNet-v1 W4A4 at batch 256 (the benchmark's
+    `mobilenetv1-w4a4.resident`): each kernel stage of its 'mega' forward
+    bit for bit against its plain version on the stage's own input, timed;
+    then InferenceEngine on 'mega', its captured program's launches (the
+    counters zeroed just before its first use), logits equal to the stage
+    walk's and to runtime='ref' on the card, classes and uint8 pixels.
+    Returns (the depthwise kernel's row result, its launches)."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.network import mega_stages, prepare_input
+    from bnn_pynq_tpu_torch.models.params import params_from_numpy
+    from bnn_pynq_tpu_torch.ops import conv_stack, depthwise, fused_mlp
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    compiled = load_artifact(MOBILENET)
+    cfg = compiled.config
+    layers, scale, bias = params_from_numpy(
+        cfg, compiled.layers, compiled.out_scale, compiled.out_bias, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3_000_000_241)
+    x = torch.randint(-128, 128, (MOBILENET_BATCH,) + cfg.input_shape,
+                      dtype=torch.int8, device=device, generator=gen)
+
+    # -- 24(a): the kernels against their plain versions, stage by stage --
+    sums = {k: _new_result() for k in MOBILENET_LAUNCHES}
+    walked = None
+    for name, kname, kern, plain, arg, work in _mobilenet_stage_cases(
+            torch, prepare_input(cfg, x),
+            mega_stages(cfg, layers, scale, bias)):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"mobilenet {name}: {kname} != plain"
+        if got.dtype == torch.int8:
+            assert 0 <= int(got.min()) and int(got.max()) <= 15, name
+        ms, replay_ms = _time_ms(torch, kern), graph_ms(kern)
+        plain_ms = _time_ms(torch, plain, calls=1)
+        r = sums[kname]
+        ops_ms, bytes_ms = _bounds(work, got)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("ops_ms", ops_ms), ("bytes_ms", bytes_ms),
+                       ("bound_ms", max(ops_ms, bytes_ms))):
+            r[key] += v
+        r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
+        print(f"mobilenet {name} {kname} {tuple(arg.shape)}: == plain; "
+              f"kernel {ms:.4f} ms (graph replay {replay_ms:.4f}), plain "
+              f"{plain_ms:.4f}, bound {max(ops_ms, bytes_ms):.5f} "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+        walked = got
+    for kname, r in sums.items():
+        print(f"mobilenet {kname}, its {MOBILENET_LAUNCHES[kname]} "
+              f"layer(s) at batch {MOBILENET_BATCH}: kernel {r['ms']:.4f} "
+              f"ms (graph replay {r['graph_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} "
+              f"(operations {r['ops_ms']:.5f}, bytes {r['bytes_ms']:.5f}) "
+              f"({smi})")
+
+    # -- 24(b): the engine's captured program ------------------------------
+    counters = {"conv_chain": conv_stack.conv_chain.launches,
+                "depthwise_conv": depthwise.depthwise_conv.launches,
+                "dense_block": conv_stack.dense_block.launches,
+                "fused_mlp": fused_mlp.fused_mlp_forward.launches}
+    eng = InferenceEngine(compiled, device="cuda", route="mega")
+    for c in counters.values():
+        c.reset()
+    logits = eng.fetch(eng.launch_prepared(x))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    prog = _hold_program(torch, eng, ((MOBILENET_BATCH,) + cfg.input_shape,
+                                      torch.int8, False, False),
+                         "mobilenet")
+    assert prog.launches == MOBILENET_LAUNCHES, prog.launches
+    assert launches == {k: 2 * n for k, n in MOBILENET_LAUNCHES.items()}, \
+        launches
+    np.testing.assert_array_equal(logits, walked.cpu().numpy())
+    ref = InferenceEngine(compiled, device="cuda", runtime="ref")
+    np.testing.assert_array_equal(ref.fetch(ref.launch_prepared(x)), logits)
+    cls = eng.fetch(eng.launch_prepared(x, argmax=True))
+    np.testing.assert_array_equal(cls, logits.argmax(1))
+    pixels = (x.cpu().numpy().view(np.uint8) ^ 0x80)       # p - 128 == x
+    np.testing.assert_array_equal(eng.classify(pixels), cls)
+    print(f"mobilenet engine 'mega' batch {MOBILENET_BATCH}: launches "
+          f"{launches} (the eager run before the capture and the capture); "
+          f"the program's capture {prog.launches} == the eager forward's; "
+          f"logits == the stage walk's == runtime='ref' bit for bit, "
+          f"argmax and classify of the uint8 pixels equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return sums["depthwise_conv"], launches["depthwise_conv"]
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -4137,6 +4299,10 @@ def main(argv=None) -> int:
     # -- 23. strided convs: conv_chain on prebuilt patches ------------------
     patch_rows, strided_launches = _strided_phase(torch, smi)
 
+    # -- 24. MobileNet-v1 W4A4: the depthwise kernel and 4-bit codes --------
+    results["depthwise_conv"], launches["depthwise_conv"] = \
+        _mobilenet_phase(torch, smi)
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
@@ -4148,16 +4314,21 @@ def main(argv=None) -> int:
            "conv2d_direct": ("bnn_pynq_tpu_torch/csrc/conv_direct.cu",
                              "bnn_pynq_tpu/ops/conv_direct.py:54"),
            "conv_chain_direct": ("bnn_pynq_tpu_torch/csrc/conv_direct.cu",
-                                 "bnn_pynq_tpu/ops/conv_direct.py:170")}
+                                 "bnn_pynq_tpu/ops/conv_direct.py:170"),
+           "depthwise_conv": ("bnn_pynq_tpu_torch/csrc/depthwise.cu",
+                              "none (the JAX package runs no depthwise "
+                              "conv)")}
     for name, line in PROBE_LINES.items():
         src[name] = ("bnn_pynq_tpu_torch/csrc/mosaic_probes.cu",
                      f"tools/mosaic_probes.py:{line}")
     results["packed_matmul"] = packed
     kernels = []
     print("kernel rows (launches: counted in the run of its path, phases "
-          "4, 8, 12 and 14; an engine's forward counts twice, the eager run "
-          "before its capture and the capture, then replays; ms summed over "
-          "that path's calls at batch 1024; library: the one PyTorch call "
+          "4, 8, 12, 14 and 24; an engine's forward counts twice, the eager "
+          "run before its capture and the capture, then replays; ms summed "
+          "over that path's calls at batch 1024, depthwise_conv's "
+          f"(dw_kernel) over MobileNet-v1's at {MOBILENET_BATCH}; library: "
+          "the one PyTorch call "
           "that computes the same function, where there is one; int_mm: "
           "torch._int_mm on the same M x K x N, dot only, no im2col, no "
           f"thresholds; launch floor {floor_ms:.5f} ms):")
@@ -4174,6 +4345,8 @@ def main(argv=None) -> int:
                "graph_ms": r["graph_ms"],
                "library_graph_ms": r["library_graph_ms"],
                "launch_floor_ms": floor_ms}
+        if k == "depthwise_conv":   # MobileNet-v1's 13 layers (phase 24)
+            row.update(kernel="dw_kernel", batch=MOBILENET_BATCH)
         if k == "conv_chain":       # on prebuilt patches (phase 23)
             row["input_patches"] = {"cases": patch_rows,
                                     "launches": strided_launches[k]}
@@ -4192,7 +4365,8 @@ def main(argv=None) -> int:
         lib = "none" if row["library_ms"] is None else \
             (f"{row['library_ms']:.4f} (graph replay "
              f"{row['library_graph_ms']:.5f})")
-        print(f"  {k}: launches {row['launches']}, bound_ms "
+        name = f"{k} ({row['kernel']})" if "kernel" in row else k
+        print(f"  {name}: launches {row['launches']}, bound_ms "
               f"{row['bound_ms']:.5f} ({row['bound_by']}), kernel_ms "
               f"{row['ms']:.4f}{graph}, plain_ms {row['plain_ms']:.4f}, "
               f"library_ms {lib}, int_mm_ms {int_mm}")
