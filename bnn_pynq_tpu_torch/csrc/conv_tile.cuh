@@ -120,7 +120,8 @@ conv_kernel(const ConvArgs a) {
   int8_t* wsm = smem;
   int32_t* const thr_s = reinterpret_cast<int32_t*>(
       smem + static_cast<size_t>(a.n_chunk) * a.w_pitch);
-  int8_t* const stages = reinterpret_cast<int8_t*>(thr_s + thr_rows * cols_pad);
+  int8_t* const stages =
+      reinterpret_cast<int8_t*>(thr_s + thr_words<WIDE>(thr_rows, cols_pad));
   int8_t* const stage = stages + warp * kStageBytes;
   // patch rows, two input-row buffers, and the byte offset of each tile
   // pixel's first tap within the activation buffer
@@ -148,7 +149,7 @@ conv_kernel(const ConvArgs a) {
     if constexpr (OUT == kConvAcc) {
       stage_acc_correction(thr_s, cols_pad, ep, nc0, ncols);
     } else {
-      stage_thresholds(thr_s, cols_pad, ep, nc0, ncols);
+      stage_thresholds<WIDE>(thr_s, cols_pad, ep, nc0, ncols);
     }
     {
       const unsigned dst = smem_addr(wsm);

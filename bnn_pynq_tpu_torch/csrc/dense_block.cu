@@ -22,7 +22,8 @@
 // - codes are copied raw and the thresholds folded to match (mma_tile.cuh);
 //   the output codes leave as 16-byte stores through a staging buffer;
 // - MobileNet's 1×1 convs run here on B·H·W rows of unsigned 4-bit codes,
-//   which are their own levels (no correction) and take 15 thresholds;
+//   which are their own levels (no correction) and take 15 thresholds,
+//   sorted on the host and searched in 4 compares (mma_tile.cuh);
 // - rows whose width is not a multiple of 16 bytes are staged by byte loads;
 //   N above 256 runs as column chunks on the grid's second axis; the ragged
 //   last rows are masked at the store.
@@ -32,7 +33,13 @@
 // read the wrapper's host enqueue at this size), against 0.206 ms for the
 // dp4a chain kernel it replaces (8 rows a block, the whole weight matrix
 // streamed from L2 by each). What is left: 144 blocks on 132 SMs, and every
-// block re-reads the weights from L2. PERF.md §6-§7.
+// block re-reads the weights from L2. MobileNet-v1 W4A4's 13 1×1 convs at
+// batch 256 (chip_smoke.py phase 24): 1.52 ms under graph replay, 2.73
+// with each of the 15 thresholds compared, against 0.362 ms by bytes. What
+// is left there: at K = 32-128 (0.61 of the 1.52 ms) a block's life is one
+// to four k32 steps between its prologue and an epilogue of some 18
+// instructions a code; at K = 512 each 64-row block re-reads 128 KB of
+// weights from L2. PERF.md §6-§7.
 #include "mma_tile.cuh"
 
 namespace bnn {
@@ -68,8 +75,9 @@ dense_kernel(const DenseArgs a) {
   const int stage_bytes = (tile_rows + tile_cols) * kSlicePitch;
   int32_t* const thr_s =
       reinterpret_cast<int32_t*>(smem + kStages * stage_bytes);
-  int8_t* const stage = reinterpret_cast<int8_t*>(thr_s + a.ep.nthr * tile_cols) +
-                        warp * kStageBytes;
+  int8_t* const stage =
+      reinterpret_cast<int8_t*>(thr_s + thr_words<WIDE>(a.ep.nthr, tile_cols)) +
+      warp * kStageBytes;
   const int row0 = blockIdx.x * tile_rows;
   const int nc0 = blockIdx.y * kMaxCols;
   const int ncols = min(tile_cols, a.ep.n_out - nc0);
@@ -130,7 +138,8 @@ dense_kernel(const DenseArgs a) {
 
   ItemAcc acc;
   item_clear(acc);
-  stage_thresholds(thr_s, tile_cols, a.ep, nc0, ncols);   // read after the loop
+  // read after the loop
+  stage_thresholds<WIDE>(thr_s, tile_cols, a.ep, nc0, ncols);
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nslices) load_slice(s);
     cp_async_commit();

@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1) mlp_kernel(const MlpArgs a) {
     const MlpLayer& L = a.layer[l];
     const EpilogueArgs e = {L.thr, L.wsum, a.nthr, L.n, a.level_off,
                             a.codes_in};
-    stage_thresholds(thr_s + L.thr_off, L.thr_pad, e, 0, L.n, kThreads);
+    stage_thresholds<WIDE>(thr_s + L.thr_off, L.thr_pad, e, 0, L.n, kThreads);
   }
   if (a.vec_rows) {
     mbar_wait(in_bar, 0);
@@ -427,7 +427,8 @@ int launch_mlp(const void* x, int m, int k0, const void* const* wp,
       // an item's epilogue reads 64 columns of thresholds from its first
       L.thr_off = a.thr_total;
       L.thr_pad = round_up(L.n, kItemCols) + kItemCols;
-      a.thr_total += nthr * L.thr_pad;
+      a.thr_total += nthr == kMaxThr ? thr_words<true>(nthr, L.thr_pad)
+                                     : thr_words<false>(nthr, L.thr_pad);
     }
     a.total_slices += n_passes(L) * n_slices(L);
     width[l & 1] = width[l & 1] > L.k32 ? width[l & 1] : L.k32;

@@ -54,6 +54,20 @@
 // the host (models/params.py), folded into the thresholds once per block
 // (stage_thresholds). Exact. Unsigned 4-bit codes (0..15, abits 4) are
 // their own levels: the launchers take them as levels, with no correction.
+//
+// 15 thresholds (4-bit codes) are searched, not each compared: the code is
+// the count of a column's thresholds at or below the accumulator, which does
+// not depend on their order, so the host sorts each column's 15 ascending
+// (models/params.py) and the epilogue finds the count in 4 compares,
+//   pos += acc >= t[pos + s − 1] ? s : 0   for s = 8, 4, 2, 1,
+// exact with ties and with the never / always sentinels (block_codes). The
+// last three reads depend on the accumulator, so the 8 lanes that share a
+// column (one per row g) may read 8 different thresholds of it at once. A
+// 15-row table is staged with a row pitch ≡ 2 (mod 32) words and, within
+// each 8 columns, column 2t + c in slot 4c + t (search_slot): threshold k
+// of a lane's column c then lies in bank 2k + t + 4c (+ a constant), so the
+// 4 column groups t × the thresholds one step can read (k ≡ s − 1 mod 2s)
+// fall in 32 different banks, and no search step waits on a bank conflict.
 #pragma once
 
 #include "common.cuh"
@@ -237,25 +251,77 @@ struct EpilogueArgs {
 constexpr int kStagePitch = kItemCols + kPitchPad;        // 80 bytes
 constexpr int kStageBytes = 16 * kStagePitch;             // one m16 block
 constexpr int kThrNever = 0x7fffffff;
+constexpr int kSearchSkew = 2;   // words a searched row adds to its columns
+
+// The row pitch, in words, of a searched table staged over cols_pad
+// columns (a multiple of 32): ≡ 2 (mod 32).
+__host__ __device__ constexpr int search_pitch(int cols_pad) {
+  return cols_pad + kSearchSkew;
+}
+
+// int32 words of a staged table of `rows` thresholds over cols_pad columns
+// (WIDE: searched), rounded up to 16 bytes so that what the kernel stages
+// after it stays aligned.
+template <bool WIDE>
+__host__ __device__ inline int thr_words(int rows, int cols_pad) {
+  return WIDE ? round_up(rows * search_pitch(cols_pad), 4) : rows * cols_pad;
+}
+
+// The slot of staged column n (searched tables): 2t + c → 4c + t within
+// each 8 columns.
+__device__ __forceinline__ int search_slot(int n) {
+  return (n & ~7) | ((n & 1) << 2) | ((n >> 1) & 3);
+}
 
 // Shared memory the epilogue of a block needs: the folded thresholds of
 // `cols` staged columns (rounded up to whole items) and one output staging
 // buffer per warp.
 inline size_t epilogue_smem(int nthr, int cols, int warps = kWarps) {
-  return static_cast<size_t>(nthr) * round_up(cols, kItemCols) * 4 +
+  const int cols_pad = round_up(cols, kItemCols);
+  const int words = nthr == kMaxThr ? thr_words<true>(nthr, cols_pad)
+                                    : thr_words<false>(nthr, cols_pad);
+  return static_cast<size_t>(words) * 4 +
          static_cast<size_t>(warps) * kStageBytes;
 }
 
 // Stage the thresholds of columns [nc0, nc0 + ncols) in shared memory, as
-// thr_s[k · cols_pad + n], folded onto the raw accumulator: with codes in,
+// thr_s[k · cols_pad + n] (WIDE: thr_s[k · search_pitch + search_slot(n)]),
+// folded onto the raw accumulator: with codes in,
 //   2·acc − off·wsum ≥ thr  ⟺  acc ≥ ceil((thr + off·wsum) / 2),
 // in 64 bits and clamped (|acc| < 2^24, so a clamped threshold compares as
-// the true one). Columns past ncols never pass. The caller synchronizes.
-// `threads`: how many of the block's first threads take part.
+// the true one; the fold keeps a column's order). Columns past ncols never
+// pass. The caller synchronizes. `threads`: how many of the block's first
+// threads take part. WIDE: a thread a column, its 15 loads issued before
+// any store (a store to shared memory may alias a later load for all the
+// compiler knows, which would serialize them).
+template <bool WIDE = false>
 __device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
                                                  const EpilogueArgs& e,
                                                  int nc0, int ncols,
                                                  int threads) {
+  if constexpr (WIDE) {
+    const int pitch = search_pitch(cols_pad);
+    for (int n = threadIdx.x; n < cols_pad; n += threads) {
+      long long x[kMaxThr];
+#pragma unroll
+      for (int k = 0; k < kMaxThr; ++k) {
+        x[k] = n < ncols ? __ldg(e.thr + k * e.n_out + nc0 + n) : kThrNever;
+      }
+      const long long w = n < ncols && e.codes_in
+                              ? static_cast<long long>(e.level_off) *
+                                    __ldg(e.wsum + nc0 + n)
+                              : 0;
+      int32_t* const col = thr_s + search_slot(n);
+#pragma unroll
+      for (int k = 0; k < kMaxThr; ++k) {
+        long long v = x[k];
+        if (n < ncols && e.codes_in) v = (v + w + 1) >> 1;
+        v = v > kThrNever ? kThrNever : (v < -kThrNever - 1 ? -kThrNever - 1 : v);
+        col[k * pitch] = static_cast<int32_t>(v);
+      }
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < e.nthr * cols_pad; i += threads) {
     const int k = i / cols_pad;
     const int n = i - k * cols_pad;
@@ -285,8 +351,10 @@ __device__ __forceinline__ void block_codes_step(const ItemAcc& acc, int mb,
   }
 }
 
-// 1-3 thresholds unrolled whole; 15 (4-bit codes) three at a time, so that
-// their loads do not crowd the accumulators out of registers.
+// 1-3 thresholds unrolled whole, each compared. 15 (4-bit codes), sorted in
+// each column: searched in 4 steps. thr_lane: the lane's first column at
+// threshold 0 (1-3: column 2t, its second the next word; 15: slot t, its
+// second 4 slots on); cols_pad: the words between thresholds.
 template <int NTHR>
 __device__ __forceinline__ void block_codes(const ItemAcc& acc, int mb, int j,
                                             const int32_t* thr_lane,
@@ -298,16 +366,34 @@ __device__ __forceinline__ void block_codes(const ItemAcc& acc, int mb, int j,
       block_codes_step(acc, mb, j, thr_lane + k * cols_pad, code);
     }
   } else {
-#pragma unroll 3
-    for (int k = 0; k < NTHR; ++k) {
-      block_codes_step(acc, mb, j, thr_lane + k * cols_pad, code);
+    static_assert(NTHR == 15, "a 4-step search covers 15 thresholds");
+    // in bytes, so that a read's address is one multiply-add of pos
+    const int pb = 4 * cols_pad;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const char* const t0 = reinterpret_cast<const char*>(
+          thr_lane + 8 * j + 4 * c);
+      const char* const t1 = t0 + pb;
+      const char* const t3 = t0 + 3 * pb;
+      const int mid = *reinterpret_cast<const int*>(t0 + 7 * pb);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = acc.c[mb][j][2 * h + c];
+        int pos = a >= mid ? 8 : 0;
+        pos += a >= *reinterpret_cast<const int*>(t3 + pos * pb) ? 4 : 0;
+        pos += a >= *reinterpret_cast<const int*>(t1 + pos * pb) ? 2 : 0;
+        pos += a >= *reinterpret_cast<const int*>(t0 + pos * pb) ? 1 : 0;
+        code[h][c] = pos;
+      }
     }
   }
 }
 
 // Threshold the item's accumulators and store int8 codes.
-//   thr_s: the staged thresholds at the item's first column (stride
-//     cols_pad between thresholds); stage: this warp's kStageBytes;
+//   thr_s: the staged thresholds at the item's first column (a multiple of
+//     8), cols_pad the table's staged columns (the stride between
+//     thresholds; search_pitch of it for 15); stage: this warp's
+//     kStageBytes;
 //   out + row0 · n_out + col0: the output of item row 0, column 0;
 //   rows, cols: the item's real rows (1..32) and columns (1..64).
 // Where whole 16-byte runs of a row can be stored (vec: n_out, col0 and
@@ -322,7 +408,9 @@ __device__ __forceinline__ void item_store_codes_n(
     bool vec, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int32_t* thr_lane = thr_s + 2 * t;
+  constexpr bool kSearch = NTHR == kMaxThr;
+  const int32_t* thr_lane = thr_s + (kSearch ? t : 2 * t);
+  if constexpr (kSearch) cols_pad = search_pitch(cols_pad);
   if (vec) {
     int8_t* st = stage + g * kStagePitch + 2 * t;
     const int r = lane >> 2;                  // this lane's row of a store
@@ -400,10 +488,11 @@ __device__ __forceinline__ void item_store_codes(
 }
 
 // The same with every thread of the block taking part.
+template <bool WIDE = false>
 __device__ __forceinline__ void stage_thresholds(int32_t* thr_s, int cols_pad,
                                                  const EpilogueArgs& e,
                                                  int nc0, int ncols) {
-  stage_thresholds(thr_s, cols_pad, e, nc0, ncols, blockDim.x);
+  stage_thresholds<WIDE>(thr_s, cols_pad, e, nc0, ncols, blockDim.x);
 }
 
 // For an epilogue that keeps the accumulator: stage, for columns

@@ -23,6 +23,7 @@ from bnn_pynq_tpu_torch.models.network import make_plan
 from bnn_pynq_tpu_torch.ops.int_dot import k_contiguous
 from bnn_pynq_tpu_torch.ops.matmul import unpack_levels as unpack_words
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
+from bnn_pynq_tpu_torch.ops.thresholds import sort_thresholds
 
 # The tensor-core kernels (csrc/mma_tile.cuh) consume K in steps of 32
 # bytes, the depth of one int8 mma, so their weight copy pads K with zero
@@ -114,7 +115,9 @@ def params_from_numpy(config: NetworkConfig,
     Returns `(layers, out_scale, out_bias)`: per config layer `{}` for a
     pool, `{"thr": int32 [nthr, C]}` for an average pool, else
     `{"w": WeightMatrix, "thr": int32 [nthr, N]}` (no "thr" where the
-    artifact has none, i.e. on the last layer), plus
+    artifact has none, i.e. on the last layer; a 15-row table with each
+    channel sorted ascending, `ops/thresholds.py::sort_thresholds`, which
+    the kernels' search needs; 1-3 rows as the artifact has them), plus
     `"w_packed"`, the artifact's uint32 words [Kw, N] as an int32 tensor,
     on every packed layer (all but an 8-bit first conv), and `"w_int8"`,
     the levels [K, N] stored K-contiguous (`ops/int_dot.py::k_contiguous`):
@@ -137,7 +140,7 @@ def params_from_numpy(config: NetworkConfig,
             continue
         if lp.kind == "avgpool":
             out.append({"thr": torch.from_numpy(
-                np.array(p["thr"], dtype=np.int32)).to(device)})
+                sort_thresholds(p["thr"])).to(device)})
             continue
         if "w_int8" in p:
             w_lev = np.array(p["w_int8"], dtype=np.int8)
@@ -152,8 +155,7 @@ def params_from_numpy(config: NetworkConfig,
             q["w_packed"] = words_to_tensor(
                 np.array(p["w_packed"], dtype=np.uint32)).to(device)
         if "thr" in p:
-            q["thr"] = torch.from_numpy(
-                np.array(p["thr"], dtype=np.int32)).to(device)
+            q["thr"] = torch.from_numpy(sort_thresholds(p["thr"])).to(device)
         out.append(q)
     scale = torch.from_numpy(np.array(out_scale, dtype=np.float32)).to(device)
     bias = torch.from_numpy(np.array(out_bias, dtype=np.float32)).to(device)

@@ -33,7 +33,7 @@ from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.ops.fused_mlp import check_cuda_operands
 from bnn_pynq_tpu_torch.ops.ref import conv2d_int_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
-                                               multithreshold)
+                                               count_search, multithreshold)
 
 
 def _conv_levels(vals, w, thr, kernel: int, stride: int = 1):
@@ -85,7 +85,8 @@ def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
     x_codes: int8 activation codes [B, H, W, C] ({0,1} abits=1, {0..3}
        abits=2).
     w: WeightMatrix (models/params.py), levels [K²·C, O] in (ki,kj,c) order.
-    thr: int32 [nthr, O], or None for int32 accumulators (stride 1 only).
+    thr: int32 [nthr, O], or None for int32 accumulators (stride 1 only);
+       15 rows ascending in each channel on a CUDA tensor (searched).
     Returns [B, OH, OW, O]: int8 codes, or int32 without `thr`.
 
     On a CUDA tensor the kernel keeps, in shared memory, the input rows of
@@ -127,6 +128,8 @@ def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
         None if thr is None else thr.data_ptr(),
         0 if thr is None else thr.shape[0], abits, out.data_ptr(), stream)
     conv2d_direct.launches.add()
+    if thr is not None:
+        count_search(thr)
     return out
 
 

@@ -32,7 +32,7 @@ from bnn_pynq_tpu_torch.ops.fused_mlp import (check_chain,
                                               check_cuda_operands)
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
-                                               multithreshold)
+                                               count_search, multithreshold)
 
 
 def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
@@ -66,7 +66,9 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
        is then the product over the patch lanes at each pixel and keeps
        the grid.
     weights: WeightMatrix per layer, levels [K²C_j, C_{j+1}] in (ki,kj,c)
-       order. thresholds: int32 [nthr, C_{j+1}] per layer.
+       order. thresholds: int32 [nthr, C_{j+1}] per layer; a 15-row
+       table ascending in each channel on a CUDA tensor (the kernel
+       searches it; `models/params.py` sorts them so).
     Returns int8 codes [B, H - n(K-1), W - n(K-1), C_last], n the layers
     that convolve in here (all of them, or all but layer 0 with
     `input_patches`).
@@ -120,6 +122,7 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
                  thr.shape[0], abits, out.data_ptr(), stream)
         conv_chain.launches.add()
+        count_search(thr)
         act = out
     return act
 
@@ -166,7 +169,9 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
 
     x_codes: int8 [M, K0] codes (or levels if `input_levels`).
     weights: WeightMatrix per layer [K_i, N_i]; thresholds: int32
-    [nthr, N_i] per layer. Returns int8 codes [M, N_last].
+    [nthr, N_i] per layer; a 15-row table ascending in each channel on a
+    CUDA tensor (the kernel searches it; `models/params.py` sorts them so).
+    Returns int8 codes [M, N_last].
     """
     if len(thresholds) != len(weights):
         raise ValueError("one threshold table per layer")
@@ -187,6 +192,7 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
                  thr.shape[0], abits, out.data_ptr(), stream)
         dense_block.launches.add()
+        count_search(thr)
         act = out
     return act
 

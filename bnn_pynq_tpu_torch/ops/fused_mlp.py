@@ -21,7 +21,7 @@ import torch
 from bnn_pynq_tpu_torch.ops import _build
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
-                                               multithreshold)
+                                               count_search, multithreshold)
 
 MAX_LAYERS = 8   # csrc/dense_chain.cu kMaxLayers
 
@@ -46,7 +46,8 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
     x_codes: int8 activation codes [B, K0] ({0,1} abits=1 / {0..3} abits=2
     / {0..15} abits=4, their own levels).
     weights: WeightMatrix per layer (models/params.py), levels [K_i, N_i].
-    thresholds: int32 [nthr, N_i] for all but the last layer.
+    thresholds: int32 [nthr, N_i] for all but the last layer (15 rows:
+    ascending in each channel on a CUDA tensor, as in `conv_stack`).
     out_scale/out_bias: float32 [ncls].
     Returns float32 logits [B, ncls]. A CPU tensor runs the plain version;
     a CUDA tensor launches the kernel.
@@ -78,6 +79,8 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
              out_bias.data_ptr(), out.data_ptr(),
              torch.cuda.current_stream(x_codes.device).cuda_stream)
     fused_mlp_forward.launches.add()
+    if len(thresholds):
+        count_search(thresholds[0])
     return out
 
 

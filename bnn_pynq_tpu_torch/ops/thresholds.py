@@ -7,11 +7,25 @@ is `code[..., n] = Σ_t (acc[..., n] >= thr[t, n])`, in {0..nthr}:
 2c-3), and MobileNet's unsigned 4-bit ones nthr=15 (level = code, the
 output of a `QuantReLU`). Every compare is int32 against int32; nothing
 goes through float.
+
+The code is a count, so it does not depend on the order of a channel's
+thresholds; the kernels' 15-threshold epilogue (`csrc/mma_tile.cuh`)
+relies on the order all the same: it searches each channel's thresholds,
+4 compares in place of 15, and needs them ascending. `sort_thresholds`
+puts them so where parameters go onto a device (`models/params.py`), and
+`threshold_search` counts the launches that search.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from bnn_pynq_tpu_torch.ops._build import LaunchCounter
+
+# The threshold count the kernels search instead of comparing each (4-bit
+# codes); 1-3 thresholds are compared one by one, in any order.
+SEARCHED_THRESHOLDS = 15
 
 # Sentinel thresholds for degenerate channels (gamma == 0 in BN folding):
 # acc is always < THR_NEVER and always >= THR_ALWAYS for any realistic
@@ -37,6 +51,29 @@ def level_scale(abits: int) -> int:
     codes, 1 for unsigned 4-bit ones."""
     level_offset(abits)               # raises on an unsupported width
     return 1 if abits == 4 else 2
+
+
+def sort_thresholds(thr: np.ndarray) -> np.ndarray:
+    """int32 [nthr, N] → the same table with each channel's thresholds
+    ascending where nthr is SEARCHED_THRESHOLDS; any other table as it is.
+    Gives the same codes as `thr` under `multithreshold`."""
+    thr = np.array(thr, dtype=np.int32)
+    if thr.ndim == 2 and thr.shape[0] == SEARCHED_THRESHOLDS:
+        thr.sort(axis=0)
+    return thr
+
+
+# Kernel launches whose epilogue searched 15 sorted thresholds a channel
+# (`conv_stack.conv_chain`, `conv_stack.dense_block`,
+# `conv_direct.conv2d_direct`, `fused_mlp.fused_mlp_forward`);
+# runtime/engine.py::kernel_launches reports it.
+threshold_search = LaunchCounter()
+
+
+def count_search(thr: torch.Tensor) -> None:
+    """Count one kernel launch on `thr`, if its epilogue searches it."""
+    if thr.shape[0] == SEARCHED_THRESHOLDS:
+        threshold_search.add()
 
 
 def multithreshold(acc: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:

@@ -106,7 +106,8 @@ from bnn_pynq_tpu_torch.models.network import (decode_params, forward,
                                                input_shape, refuse_separable)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
 from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
-                                    depthwise, int_dot, matmul, ref)
+                                    depthwise, int_dot, matmul, ref,
+                                    thresholds)
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from bnn_pynq_tpu_torch.ops.packing import (packed_len, unpack_bits,
                                             words_to_tensor)
@@ -158,7 +159,8 @@ def kernel_launches() -> Dict[str, int]:
            "dense_block": conv_stack.dense_block.launches.value,
            "conv2d_direct": conv_direct.conv2d_direct.launches.value,
            "conv_chain_direct": conv_direct.conv_chain_direct.launches.value,
-           "depthwise_conv": depthwise.depthwise_conv.launches.value}
+           "depthwise_conv": depthwise.depthwise_conv.launches.value,
+           "threshold_search": thresholds.threshold_search.value}
     out.update({f"packed_matmul[{r}]": c.value
                 for r, c in matmul.packed_matmul.launches.items()})
     return out

@@ -3796,6 +3796,9 @@ MOBILENET_BATCH = 256         # the batch of the benchmark's resident cell
 # on its patches, 13 depthwise and 13 pointwise convs, the classifier
 MOBILENET_LAUNCHES = {"conv_chain": 1, "depthwise_conv": 13,
                       "dense_block": 13, "fused_mlp": 1}
+# the launches whose epilogue searches 15 sorted thresholds: the 13 1×1
+# convs and the image conv (the depthwise kernel keeps its own compares)
+MOBILENET_SEARCHES = 14
 
 
 def _mobilenet_stage_cases(torch, act, stages):
@@ -3854,7 +3857,8 @@ def _mobilenet_phase(torch, smi):
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
     from bnn_pynq_tpu_torch.models.network import mega_stages, prepare_input
     from bnn_pynq_tpu_torch.models.params import params_from_numpy
-    from bnn_pynq_tpu_torch.ops import conv_stack, depthwise, fused_mlp
+    from bnn_pynq_tpu_torch.ops import (conv_stack, depthwise, fused_mlp,
+                                        thresholds)
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
     from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
     t0 = time.perf_counter()
@@ -3906,7 +3910,9 @@ def _mobilenet_phase(torch, smi):
     counters = {"conv_chain": conv_stack.conv_chain.launches,
                 "depthwise_conv": depthwise.depthwise_conv.launches,
                 "dense_block": conv_stack.dense_block.launches,
-                "fused_mlp": fused_mlp.fused_mlp_forward.launches}
+                "fused_mlp": fused_mlp.fused_mlp_forward.launches,
+                "threshold_search": thresholds.threshold_search}
+    want = dict(MOBILENET_LAUNCHES, threshold_search=MOBILENET_SEARCHES)
     eng = InferenceEngine(compiled, device="cuda", route="mega")
     for c in counters.values():
         c.reset()
@@ -3916,9 +3922,8 @@ def _mobilenet_phase(torch, smi):
     prog = _hold_program(torch, eng, ((MOBILENET_BATCH,) + cfg.input_shape,
                                       torch.int8, False, False),
                          "mobilenet")
-    assert prog.launches == MOBILENET_LAUNCHES, prog.launches
-    assert launches == {k: 2 * n for k, n in MOBILENET_LAUNCHES.items()}, \
-        launches
+    assert prog.launches == want, prog.launches
+    assert launches == {k: 2 * n for k, n in want.items()}, launches
     np.testing.assert_array_equal(logits, walked.cpu().numpy())
     ref = InferenceEngine(compiled, device="cuda", runtime="ref")
     np.testing.assert_array_equal(ref.fetch(ref.launch_prepared(x)), logits)

@@ -115,14 +115,35 @@ def item_mma(acc, smem, a_addr, b_addr, steps, ncols):
 
 STAGE_PITCH = ITEM_COLS + PITCH_PAD
 THR_NEVER = 0x7fffffff
+MAX_THR, SEARCH_SKEW = 15, 2
+
+
+def thr_pitch(nthr, cols_pad):
+    """Words between two thresholds of a staged column."""
+    return cols_pad + SEARCH_SKEW if nthr == MAX_THR else cols_pad
+
+
+def thr_words(nthr, cols_pad):
+    """Staged words of a table, rounded up to 16 bytes."""
+    return round_up(nthr * thr_pitch(nthr, cols_pad), 4)
+
+
+def search_slot(n):
+    """Where a searched table stages column n: 2t + c → 4c + t of its 8."""
+    return (n & ~7) | ((n & 1) << 2) | ((n >> 1) & 3)
 
 
 def stage_thresholds(cols_pad, ep, nc0, ncols):
-    """thr_s [nthr · cols_pad]: the thresholds folded onto the raw
-    accumulator (codes in: acc ≥ ceil((thr + off·wsum) / 2)), clamped."""
+    """thr_s: the thresholds folded onto the raw accumulator (codes in:
+    acc ≥ ceil((thr + off·wsum) / 2)), clamped; [nthr · cols_pad], or for
+    15 [15 · thr_pitch] with column n in search_slot(n) and the skew words
+    left as garbage."""
     thr, wsum, n_out, off, codes_in = ep
-    thr_s = np.empty(thr.shape[0] * cols_pad, np.int64)
-    for i in range(thr_s.size):
+    nthr = thr.shape[0]
+    pitch = thr_pitch(nthr, cols_pad)
+    thr_s = np.random.default_rng(nc0).integers(
+        -2 ** 31, 2 ** 31, size=nthr * pitch)
+    for i in range(nthr * cols_pad):
         k, n = divmod(i, cols_pad)
         x = THR_NEVER
         if n < ncols:
@@ -130,8 +151,34 @@ def stage_thresholds(cols_pad, ep, nc0, ncols):
             if codes_in:
                 x = (x + off * int(wsum[nc0 + n]) + 1) >> 1
             x = min(max(x, -THR_NEVER - 1), THR_NEVER)
-        thr_s[i] = x
+        thr_s[k * pitch + search_slot(n) if nthr == MAX_THR else i] = x
     return thr_s
+
+
+def block_codes(acc, mb, j, thr_s, cols_pad, nthr):
+    """code [h][c][lane]: 1-3 thresholds compared one by one, 15 searched
+    (each column ascending): pos += acc >= t[pos + s - 1] ? s : 0."""
+    t = LANES & 3
+    code = np.zeros((2, 2, 32), np.int64)
+    if nthr != MAX_THR:
+        for k in range(nthr):
+            th = [thr_s[k * cols_pad + 8 * j + 2 * t + c] for c in (0, 1)]
+            for h in range(2):
+                for c in range(2):
+                    code[h, c] += acc[mb, j, :, 2 * h + c] >= th[c]
+        return code
+    pitch = thr_pitch(nthr, cols_pad)
+    for c in range(2):
+        col = 8 * j + 4 * c + t                      # the lane's slot
+        mid = thr_s[col + 7 * pitch]
+        for h in range(2):
+            a = acc[mb, j, :, 2 * h + c]
+            pos = np.where(a >= mid, 8, 0)
+            pos += np.where(a >= thr_s[col + (pos + 3) * pitch], 4, 0)
+            pos += np.where(a >= thr_s[col + (pos + 1) * pitch], 2, 0)
+            pos += np.where(a >= thr_s[col + pos * pitch], 1, 0)
+            code[h, c] = pos
+    return code
 
 
 def item_store_codes(acc, thr_s, cols_pad, nthr, out, row0, rows, col0, cols,
@@ -141,12 +188,7 @@ def item_store_codes(acc, thr_s, cols_pad, nthr, out, row0, rows, col0, cols,
     for mb in range(2):
         stage = np.full(16 * STAGE_PITCH, 0x55, np.int8)
         for j in range(8):
-            code = np.zeros((2, 2, 32), np.int64)            # [h][c][lane]
-            for k in range(nthr):
-                th = [thr_s[k * cols_pad + 8 * j + 2 * t + c] for c in (0, 1)]
-                for h in range(2):
-                    for c in range(2):
-                        code[h, c] += acc[mb, j, :, 2 * h + c] >= th[c]
+            code = block_codes(acc, mb, j, thr_s, cols_pad, nthr)
             for h in range(2):
                 for lane in range(32):
                     if vec:
@@ -222,6 +264,8 @@ class ConvEmu:
         self.halo = halo = self.c % MMA_K == 0
         self.a_pitch = padded_pitch(self.c if halo else self.k32)
         self.w_pitch = padded_pitch(self.k32)
+        if abits == 4:                 # unsigned 4-bit codes are levels
+            self.input_levels = input_levels = True
         self.off = 1 if abits == 1 else 3
         self.acc_out = thr is None
         self.ep = (None if thr is None else thr.numpy(), w.wsum.numpy(),
@@ -241,7 +285,7 @@ class ConvEmu:
             self.rows_bytes = span * self.a_pitch if halo else 0
             self.patch_bytes = 0 if halo else tile * self.a_pitch
             return self.n_chunk * self.w_pitch + \
-                nthr * round_up(self.n_chunk, ITEM_COLS) * 4 + \
+                thr_words(nthr, round_up(self.n_chunk, ITEM_COLS)) * 4 + \
                 warps * 16 * STAGE_PITCH + self.patch_bytes + \
                 2 * self.rows_bytes + tile * 4
 
@@ -430,7 +474,7 @@ def emu_dense_layer(x, input_levels, w: WeightMatrix, thr, abits):
     tile_rows, tile_cols = row_warps * ITEM_ROWS, col_warps * ITEM_COLS
     stage_bytes = (tile_rows + tile_cols) * SLICE_PITCH
     ep = (thr.numpy(), w.wsum.numpy(), n_out, 1 if abits == 1 else 3,
-          not input_levels)
+          not input_levels and abits != 4)
     out = np.full((m, n_out), -1, np.int8)
     rng = np.random.default_rng(98)
     nslices = -(-k32 // SLICE)
@@ -515,13 +559,14 @@ def _layers(rng, widths, wbits, abits, k=1, image=False):
     """Random int8 levels [k²·C_in, C_out] and sorted int32 thresholds drawn
     within one standard deviation of the accumulator, so that most codes
     depend on the dot and not on the threshold alone."""
-    wl = [-1, 1] if wbits == 1 else [-3, -1, 1, 3]
+    wl = {1: [-1, 1], 2: [-3, -1, 1, 3], 4: list(range(-7, 8))}[wbits]
     nthr = 2 ** abits - 1
     ws, ts = [], []
     for j, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
         ws.append(rng.choice(wl, size=(k * k * cin, cout)).astype(np.int8))
-        sd_a = 74 if (image and j == 0) else (1 if abits == 1 else 5 ** .5)
-        sd = int((k * k * cin) ** .5 * sd_a * (1 if wbits == 1 else 5 ** .5))
+        sd_a = 74 if (image and j == 0) else \
+            {1: 1, 2: 5 ** .5, 4: 77.5 ** .5}[abits]
+        sd = int((k * k * cin) ** .5 * sd_a * float(np.std(wl)))
         ts.append(np.sort(rng.integers(-sd, sd + 1, size=(nthr, cout)),
                           axis=0).astype(np.int32))
     return ws, ts
@@ -570,6 +615,9 @@ CONV_CASES = {
     "w1a1 tile across images": (1, 1, 5, 5, 3, [32, 8], False, 64, 1),
     "w2a2 chain of 3, default tile": (2, 2, 1, 9, 3, [32, 32, 64, 16],
                                       False, None, 2),
+    "w4a4 1x1, 15 thresholds searched": (4, 4, 2, 6, 1, [32, 72], False,
+                                         32, 2),
+    "w4a4 image C=3, 15 thresholds": (4, 4, 1, 8, 3, [3, 32], True, 32, 3),
 }
 
 
@@ -599,6 +647,9 @@ DENSE_CASES = {
     "w1a1 K=40 byte rows, levels in": (1, 1, 33, [40, 72], True),
     "w2a2 K=160 (half slice), N=136": (2, 2, 65, [160, 136], False),
     "w1a1 N=264 (two column chunks)": (1, 1, 20, [32, 264], False),
+    "w4a4 K=32, 15 thresholds searched": (4, 4, 45, [32, 64], False),
+    "w4a4 two layers, N=100": (4, 4, 37, [64, 100, 48], False),
+    "w4a4 N=264 (two column chunks)": (4, 4, 20, [32, 264], False),
 }
 
 
@@ -635,6 +686,48 @@ def test_folded_thresholds_keep_the_sentinels():
     got = emu_dense_block(x, pw, pt, abits=2)
     np.testing.assert_array_equal(got, want.numpy())
     assert (want[:, 5] == 0).all() and (want[:, 7] == 3).all()
+
+
+def test_searched_thresholds_keep_ties_and_sentinels():
+    """15 thresholds a column, ascending, with repeats and the never /
+    always ends of int32 in whole columns and in parts of them: the
+    search's codes equal the plain count's."""
+    rng = np.random.default_rng(6)
+    ws, ts = _layers(rng, [64, 72], 4, 4)
+    t = ts[0]
+    t[5:9, ::4] = t[5, ::4]                      # ties inside a column
+    t[:, 3] = -2 ** 31
+    t[:, 6] = 2 ** 31 - 1
+    t[:4, 10] = -2 ** 31
+    t[11:, 10] = 2 ** 31 - 1
+    x = torch.from_numpy(rng.integers(0, 16, size=(40, 64)).astype(np.int8))
+    pw, pt = _port(ws, [np.sort(t, axis=0)])
+    want = conv_stack.dense_block_plain(x, pw, pt, abits=4)
+    acc = x.to(torch.int64) @ pw[0].kn.to(torch.int64)
+    pt[0][7, 20] = int(acc[0, 20])               # an accumulator on a
+    pt[0][:, 20] = pt[0][:, 20].sort().values    # threshold, exactly
+    want = conv_stack.dense_block_plain(x, pw, pt, abits=4)
+    got = emu_dense_block(x, pw, pt, abits=4)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (want[:, 3] == 15).all() and (want[:, 6] == 0).all()
+    assert set(np.unique(want[:, 10].numpy())) <= set(range(4, 12))
+
+
+@pytest.mark.parametrize("cols_pad", [64, 128, 256, 384])
+def test_search_steps_load_without_bank_conflicts(cols_pad):
+    """Each step of the search reads, in every lane, one threshold of one
+    of the lane's two columns; the 8 lanes of a column group t may read 8
+    different ones. With the staged pitch and slots, every (threshold, t)
+    pair a step can read lies in a bank of its own: 32 lanes, one
+    wavefront a load."""
+    pitch = thr_pitch(MAX_THR, cols_pad)
+    for s in (8, 4, 2, 1):
+        ks = [k for k in range(MAX_THR) if k % (2 * s) == s - 1]
+        for j in range(8):
+            for c in range(2):
+                banks = {(k * pitch + search_slot(8 * j + 2 * t + c)) % 32
+                         for k in ks for t in range(4)}
+                assert len(banks) == 4 * len(ks), (s, j, c)
 
 
 def test_main_path_tiles_fit_shared_memory():

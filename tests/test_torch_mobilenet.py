@@ -31,8 +31,11 @@ from bnn_pynq_tpu_torch.models.config import (AVAILABLE_CONFIGS, get_config,
 from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
                                               weight_matrix)
 from bnn_pynq_tpu_torch.ops.depthwise import depthwise_conv
-from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values, level_offset,
-                                               level_scale, multithreshold)
+from bnn_pynq_tpu_torch.ops.thresholds import (SEARCHED_THRESHOLDS,
+                                               THR_ALWAYS, THR_NEVER,
+                                               codes_to_values, level_offset,
+                                               level_scale, multithreshold,
+                                               sort_thresholds)
 from bnn_pynq_tpu_torch.runtime.classifier import Classifier
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
 
@@ -196,6 +199,119 @@ def test_four_bit_codes():
     assert torch.equal(codes_to_values(got, 4), got)
     with pytest.raises(ValueError):
         level_offset(3)
+
+
+def _shuffled(thr, rng):
+    """The table with each channel's thresholds in random order."""
+    return rng.permuted(np.asarray(thr), axis=0).astype(np.int32)
+
+
+def test_params_sort_searched_tables(small):
+    """params_from_numpy puts every 15-row table (the convs', the pool's)
+    on the device with each channel ascending, whatever order the
+    artifact gives; the artifact's arrays are left as they were."""
+    _, compiled, _ = small
+    rng = np.random.default_rng(23)
+    layers = [dict(p) for p in compiled.layers]
+    for p in layers:
+        if "thr" in p:
+            p["thr"] = _shuffled(p["thr"], rng)
+    kept = [p["thr"].copy() for p in layers if "thr" in p]
+    got, _, _ = params_from_numpy(compiled.config, layers, compiled.out_scale,
+                                  compiled.out_bias, "cpu")
+    tables = [(p["thr"], q["thr"]) for p, q in zip(layers, got) if "thr" in p]
+    assert len(tables) == 28          # the image conv, 26 convs, the pool
+    for (thr, dev), was in zip(tables, kept):
+        assert thr.shape[0] == SEARCHED_THRESHOLDS
+        np.testing.assert_array_equal(dev.numpy(), np.sort(thr, axis=0))
+        np.testing.assert_array_equal(thr, was)
+    assert any((np.diff(t, axis=0) < 0).any() for t, _ in tables)
+
+
+@pytest.mark.parametrize("name", ["cnv-w1a1", "cnv-w2a2", "lfc-w1a2"])
+def test_params_keep_compared_tables(name):
+    """1- and 3-row tables (1- and 2-bit codes, compared one by one) reach
+    the device byte for byte as the artifact has them, in any order."""
+    compiled = load_artifact(str(ROOT / "pretrained" / f"{name}.npz"))
+    rng = np.random.default_rng(29)
+    layers = [dict(p) for p in compiled.layers]
+    for p in layers:
+        if "thr" in p:
+            p["thr"] = _shuffled(p["thr"], rng)
+    got, _, _ = params_from_numpy(compiled.config, layers, compiled.out_scale,
+                                  compiled.out_bias, "cpu")
+    nthrs = set()
+    for p, q in zip(layers, got):
+        if "thr" in p:
+            nthrs.add(p["thr"].shape[0])
+            assert q["thr"].numpy().tobytes() == p["thr"].tobytes()
+    assert nthrs == {compiled.config.nthr} and compiled.config.nthr <= 3
+
+
+def _ties(rng, nthr, n, m):
+    """A table [nthr, N] drawn from few values, with never / always
+    channels, and accumulators [M, N] drawn from the same values, their
+    neighbours and the int32 ends."""
+    vals = rng.integers(-40, 40, size=6)
+    thr = rng.choice(vals, size=(nthr, n))
+    thr[:, 0] = THR_NEVER
+    thr[:, 1] = THR_ALWAYS
+    thr[: nthr // 2, 2] = THR_ALWAYS
+    thr[nthr // 2:, 2] = THR_NEVER
+    thr[:, 3] = -2 ** 31
+    thr[:, 4] = 2 ** 31 - 1
+    pool = np.concatenate([vals, vals - 1, vals + 1,
+                           [-2 ** 31, 2 ** 31 - 1, THR_NEVER, THR_ALWAYS]])
+    acc = rng.choice(pool, size=(m, n))
+    return thr.astype(np.int32), acc.astype(np.int32)
+
+
+@pytest.mark.parametrize("nthr", [1, 3, 15])
+def test_multithreshold_is_order_free(nthr):
+    """The code counts the thresholds at or below the accumulator, so a
+    table and its sorted copy give the same codes, ties included."""
+    rng = np.random.default_rng(31 + nthr)
+    thr, acc = _ties(rng, nthr, 40, 500)
+    a = torch.from_numpy(acc)
+    want = multithreshold(a, torch.from_numpy(thr))
+    assert torch.equal(multithreshold(a, torch.from_numpy(
+        np.sort(thr, axis=0))), want)
+    assert torch.equal(multithreshold(a, torch.from_numpy(
+        sort_thresholds(thr))), want)
+    assert len(np.unique(want.numpy())) > min(nthr, 3)
+
+
+def _search(acc, thr):
+    """The kernels' 15-threshold epilogue (csrc/mma_tile.cuh::block_codes)
+    in numpy: a branch-free search of each channel's ascending table,
+    pos += acc >= t[pos + s - 1] ? s : 0 for s = 8, 4, 2, 1."""
+    cols = np.arange(acc.shape[1])
+    pos = np.where(acc >= thr[7], 8, 0)
+    for s in (4, 2, 1):
+        pos += np.where(acc >= thr[pos + s - 1, cols], s, 0)
+    return pos
+
+
+@pytest.mark.parametrize("case", ["ties", "spread", "all_equal"])
+def test_search_equals_multithreshold(case):
+    """The 4-step search on a sorted table gives multithreshold's code for
+    every accumulator: ties, accumulators on thresholds and next to them,
+    never / always channels and the int32 ends."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    thr, acc = _ties(rng, 15, 64, 700)
+    if case == "spread":
+        thr[:, 5:] = rng.integers(-10 ** 6, 10 ** 6, size=(15, 59))
+        acc[:350, 5:] = thr[rng.integers(0, 15, size=(350, 59)),
+                            np.arange(5, 64)]
+        acc[350:, 5:] = rng.integers(-2 * 10 ** 6, 2 * 10 ** 6,
+                                     size=(350, 59))
+    elif case == "all_equal":
+        thr[:, 5:] = 17
+        acc[:, 5:] = rng.integers(15, 20, size=(700, 59))
+    srt = sort_thresholds(thr)
+    want = multithreshold(torch.from_numpy(acc), torch.from_numpy(thr))
+    np.testing.assert_array_equal(_search(acc, srt), want.numpy())
+    assert set(np.unique(want.numpy())) >= {0, 15}
 
 
 def test_pool_is_floor_of_sum_over_64():

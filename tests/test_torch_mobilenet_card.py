@@ -1,7 +1,11 @@
 """MobileNet-v1 W4A4's kernels on a card, bit for bit against their plain
 versions at MobileNet's own shapes, the whole network on the `mega` route
 against the benchmark's plain reference, and CNV-W1A1's `mega` forward
-after the epilogues learned 15 thresholds. Every test takes the `card`
+after the epilogues learned 15 thresholds. The 15-threshold epilogue
+searches each channel's thresholds, which `params_from_numpy` sorts: its
+cases put shuffled tables, repeated thresholds, never / always channels
+and accumulators on a threshold through it and hold the codes to
+`multithreshold` on the table as it was. Every test takes the `card`
 fixture and skips without CUDA. Run on a machine with a card (no JAX
 needed):
 
@@ -18,8 +22,14 @@ import pytest
 import torch
 
 from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
-from bnn_pynq_tpu_torch.models.params import weight_matrix
-from bnn_pynq_tpu_torch.ops import conv_stack, depthwise, fused_mlp
+from bnn_pynq_tpu_torch.models.config import DenseSpec, NetworkConfig
+from bnn_pynq_tpu_torch.models.params import params_from_numpy, weight_matrix
+from bnn_pynq_tpu_torch.ops import (conv_direct, conv_stack, depthwise,
+                                    fused_mlp)
+from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
+from bnn_pynq_tpu_torch.ops.thresholds import (THR_ALWAYS, THR_NEVER,
+                                               multithreshold,
+                                               threshold_search)
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,47 +77,120 @@ def test_depthwise_kernel_equals_plain(card, h, c, stride):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("h,cin,cout", [(112, 32, 64), (7, 1024, 1024),
-                                        (14, 512, 512)])
-def test_pointwise_kernels_equal_plain(card, h, cin, cout):
-    """A 1x1 conv on 4-bit codes, 15 thresholds: dense_block on the rows
-    and conv_chain at kernel 1 on the map."""
+def _table(kind, rng, acc, span):
+    """A 15-row threshold table [15, N] for accumulators `acc` [M, N]:
+    "sorted" ascending in each channel; "shuffled" in random order;
+    "ties" few distinct values, repeated; "sentinels" whole channels that
+    never or always pass and channels with both ends; "on_threshold" each
+    threshold an accumulator of the batch, so that codes land on them;
+    every kind but "sorted" shuffled within each channel."""
+    n = acc.shape[1]
+    if kind == "ties":
+        t = rng.choice(rng.integers(-span, span, size=4), size=(15, n))
+    elif kind == "on_threshold":
+        t = acc[rng.integers(0, acc.shape[0], size=(15, n)),
+                np.arange(n)]
+    else:
+        t = rng.integers(-span, span, size=(15, n))
+    if kind == "sentinels":
+        t[:, 0::7] = THR_NEVER
+        t[:, 1::7] = THR_ALWAYS
+        t[:5, 2::7] = THR_ALWAYS
+        t[10:, 2::7] = THR_NEVER
+    t = np.sort(t, axis=0)
+    if kind != "sorted":
+        t = rng.permuted(t, axis=0)
+    return t.astype(np.int32)
+
+
+def _on_card(card, kn, thr, wbits=4):
+    """(WeightMatrix, thresholds) as `params_from_numpy` puts a layer of
+    these levels and this table on the card: one thresholded dense layer
+    of a 4-bit net."""
+    cin, cout = kn.shape
+    cfg = NetworkConfig(name="one-layer", wbits=4, abits=4,
+                        input_kind="int8", input_shape=(1, 1, cin),
+                        layers=(DenseSpec(cout, wbits=wbits),
+                                DenseSpec(10, wbits=8)), num_classes=10)
+    layers, _, _ = params_from_numpy(
+        cfg, [{"w_int8": kn, "thr": thr},
+              {"w_int8": np.zeros((cout, 10), np.int8)}],
+        np.ones(10, np.float32), np.zeros(10, np.float32), card)
+    return layers[0]["w"], layers[0]["thr"]
+
+
+@pytest.mark.parametrize("h,cin,cout,table", [
+    (112, 32, 64, "sorted"), (7, 1024, 1024, "sorted"),
+    (14, 512, 512, "sorted"), (56, 64, 128, "shuffled"),
+    (28, 128, 256, "ties"), (14, 256, 512, "sentinels"),
+    (7, 512, 1024, "on_threshold"), (112, 32, 72, "shuffled")])
+def test_pointwise_kernels_equal_plain(card, h, cin, cout, table):
+    """A 1x1 conv on 4-bit codes, 15 thresholds through params_from_numpy:
+    dense_block on the rows and conv_chain at kernel 1 on the map give
+    multithreshold's codes on the table as it was, each launch counted as
+    a search."""
     rng = np.random.default_rng(h + cin + cout)
-    x = torch.from_numpy(rng.integers(0, 16, size=(4, h, h, cin))
-                         .astype(np.int8))
-    kn = torch.from_numpy(rng.integers(-7, 8, size=(cin, cout))
-                          .astype(np.int8))
+    x = rng.integers(0, 16, size=(4, h, h, cin)).astype(np.int8)
+    kn = rng.integers(-7, 8, size=(cin, cout)).astype(np.int8)
+    rows = torch.from_numpy(x.reshape(-1, cin))
+    acc = int_matmul_ref(rows, torch.from_numpy(kn))
     span = int(120 * cin ** 0.5)           # about 3 deviations of the sum
-    thr = _thresholds(rng, cout, -span, span)
-    rows = x.reshape(-1, cin)
-    want = conv_stack.dense_block(rows, [weight_matrix(kn)], [thr], abits=4)
-    wd, td = weight_matrix(kn.to(card)), thr.to(card)
+    thr = _table(table, rng, acc.numpy(), span)
+    want = multithreshold(acc, torch.from_numpy(thr))
+    wd, td = _on_card(card, kn, thr)
+    before = threshold_search.value
     got = conv_stack.dense_block(rows.to(card), [wd], [td], abits=4)
-    chain = conv_stack.conv_chain(x.to(card), [wd], [td], kernel=1, abits=4)
+    chain = conv_stack.conv_chain(torch.from_numpy(x).to(card), [wd], [td],
+                                  kernel=1, abits=4)
     torch.cuda.synchronize()
+    assert threshold_search.value == before + 2
     assert torch.equal(got.cpu(), want)
     assert torch.equal(chain.cpu().reshape(-1, cout), want)
+    assert len(torch.unique(want)) > 1, "a degenerate case"
 
 
-def test_first_conv_and_classifier_equal_plain(card):
+@pytest.mark.parametrize("table", ["shuffled", "sentinels"])
+def test_conv2d_direct_searches_too(card, table):
+    """conv2d_direct on a 15-row table runs the same searched epilogue
+    (conv_tile.cuh's conv_kernel<0, true>): a 1x1 conv through
+    params_from_numpy gives multithreshold's codes, counted as a search."""
+    rng = np.random.default_rng(41)
+    x = rng.integers(0, 16, size=(2, 14, 14, 256)).astype(np.int8)
+    kn = rng.integers(-7, 8, size=(256, 512)).astype(np.int8)
+    acc = int_matmul_ref(torch.from_numpy(x.reshape(-1, 256)),
+                         torch.from_numpy(kn))
+    thr = _table(table, rng, acc.numpy(), 1920)
+    want = multithreshold(acc, torch.from_numpy(thr))
+    wd, td = _on_card(card, kn, thr)
+    before = threshold_search.value
+    got = conv_direct.conv2d_direct(torch.from_numpy(x).to(card), wd, td,
+                                    kernel=1, abits=4)
+    torch.cuda.synchronize()
+    assert threshold_search.value == before + 1
+    assert torch.equal(got.cpu().reshape(-1, 512), want)
+
+
+@pytest.mark.parametrize("table", ["sorted", "on_threshold"])
+def test_first_conv_and_classifier_equal_plain(card, table):
     """The 8-bit image conv on padded stride-2 patches (conv_chain at
-    kernel 1 on levels) and the 1024 → 1000 classifier on 4-bit codes
-    (fused_mlp, scale and bias)."""
+    kernel 1 on levels; its 15 thresholds through params_from_numpy, as
+    drawn or shuffled with codes on them) and the 1024 → 1000 classifier
+    on 4-bit codes (fused_mlp, scale and bias)."""
     rng = np.random.default_rng(7)
     img = torch.from_numpy(rng.integers(-128, 128, size=(4, 224, 224, 3))
                            .astype(np.int8))
     xp = torch.nn.functional.pad(img, (0, 0, 1, 1, 1, 1))
     from bnn_pynq_tpu_torch.ops.conv import sliding_window
     patches = sliding_window(xp, 3, 3, 2)
-    kn = torch.from_numpy(rng.integers(-127, 128, size=(27, 32))
-                          .astype(np.int8))
-    thr = _thresholds(rng, 32, -200000, 200000)
-    want = conv_stack.conv_chain(patches, [weight_matrix(kn)], [thr],
-                                 kernel=3, abits=4, input_patches=True,
-                                 input_levels=True)
-    got = conv_stack.conv_chain(patches.to(card), [weight_matrix(kn.to(card))],
-                                [thr.to(card)], kernel=3, abits=4,
-                                input_patches=True, input_levels=True)
+    kn = rng.integers(-127, 128, size=(27, 32)).astype(np.int8)
+    acc = int_matmul_ref(patches.reshape(-1, 27), torch.from_numpy(kn))
+    thr = _table(table, rng, acc.numpy(), 200000)
+    want = multithreshold(acc, torch.from_numpy(thr)).reshape(
+        patches.shape[:3] + (32,))
+    wd, td = _on_card(card, kn, thr, wbits=8)
+    got = conv_stack.conv_chain(patches.to(card), [wd], [td], kernel=3,
+                                abits=4, input_patches=True,
+                                input_levels=True)
     codes = torch.from_numpy(rng.integers(0, 12, size=(256, 1024))
                              .astype(np.int8))
     fc = torch.from_numpy(rng.integers(-127, 128, size=(1024, 1000))
@@ -147,6 +230,8 @@ def test_mobilenet_mega_equals_reference(card):
     prog = next(iter(eng.programs.values()))
     assert prog.launches.get("depthwise_conv") == 13
     assert prog.launches.get("dense_block") == 13
+    # the 13 1x1 convs and the image conv search their thresholds
+    assert prog.launches.get("threshold_search") == 14
 
 
 def test_cnv_mega_unchanged(card):
@@ -160,3 +245,6 @@ def test_cnv_mega_unchanged(card):
     want = cpu.fetch(cpu.launch_prepared(torch.from_numpy(x)))
     got = gpu.fetch(gpu.launch_prepared(torch.from_numpy(x).to(card)))
     np.testing.assert_array_equal(got, want)
+    prog = next(iter(gpu.programs.values()))
+    assert prog.launches.get("conv_chain") == 4
+    assert prog.launches.get("threshold_search", 0) == 0
