@@ -64,13 +64,13 @@ from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.ops.int_dot import int_matmul, k_contiguous
-from bnn_pynq_tpu_torch.ops.packing import packed_len
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
                                                multithreshold)
 from bnn_pynq_tpu_torch.parallel import comm
-from bnn_pynq_tpu_torch.parallel.spmd import (DEFAULT_BATCH_BUCKETS,
-                                              EXECUTIONS, Programs,
-                                              SPMDEngine)
+from bnn_pynq_tpu_torch.parallel.spmd import SPMDEngine
+from bnn_pynq_tpu_torch.runtime.engine import (DEFAULT_BATCH_BUCKETS,
+                                               EXECUTIONS, Programs,
+                                               WordsInput)
 
 ARMS = ("ring", "blocking", "auto")
 
@@ -336,10 +336,11 @@ def elapsed_s(fn, iters: int, device: torch.device) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-class OverlapTPEngine(SPMDEngine):
+class OverlapTPEngine(WordsInput, SPMDEngine):
     """Tensor-parallel engine with overlapped collectives (same logits API
-    as runtime.InferenceEngine; MLPs and conv networks; serving hooks and
-    the driving/following modes of parallel/spmd.py).
+    as runtime.InferenceEngine; MLPs and conv networks; the serving hooks
+    of runtime/engine.py's `Engine` and `WordsInput` and the
+    driving/following modes of parallel/spmd.py).
 
     arm: 'ring' (default), 'blocking', or 'auto': build both, time them on
     a calibration batch and keep the faster. The ring serializes d small
@@ -371,7 +372,7 @@ class OverlapTPEngine(SPMDEngine):
             self.arm = arm
             self.arm_reason = "forced by caller"
 
-    def _shard(self, compiled):
+    def _load(self, compiled):
         return shard_overlap_params(compiled, self.mesh)
 
     def _forward(self, params, x_local):
@@ -389,20 +390,21 @@ class OverlapTPEngine(SPMDEngine):
                 batch,) + self.config.input_shape).astype(np.int8)
         xl = self._rows(self.upload(x))
         params = self._state.params
+        fns = {name: make_overlap_tp_forward(self.config, self.mesh,
+                                             blocking=(name == "blocking"))
+               for name in ("ring", "blocking")}
         # the calibration graphs go with this call: a pool of their own
-        calibration = Programs(self.execution, self._stream)
-        times, fns, outs = [], {}, {}
-        for name in ("ring", "blocking"):
-            fn = make_overlap_tp_forward(self.config, self.mesh,
-                                         blocking=(name == "blocking"))
-            label = (f"OverlapTPEngine on mesh {dict(self.mesh.shape)}, "
-                     f"calibration batch {batch}, arm {name}")
-            run = functools.partial(calibration.run, name,
-                                    functools.partial(fn, *params), xl,
-                                    lambda label=label: label)
+        calibration = Programs(
+            self.execution, self._stream,
+            lambda name: functools.partial(fns[name], *params),
+            lambda name: f"OverlapTPEngine on mesh {dict(self.mesh.shape)}, "
+                         f"calibration batch {batch}, arm {name}",
+            comm.counts)
+        times, outs = [], {}
+        for name in fns:
+            run = functools.partial(calibration.run, name, xl)
             outs[name] = run().cpu().numpy()       # warm
             times.append(elapsed_s(run, iters, self.device))
-            fns[name] = fn
         np.testing.assert_allclose(outs["ring"], outs["blocking"],
                                    rtol=1e-5, atol=1e-5)
         # the leader's clock decides, so that every rank keeps one arm
@@ -425,33 +427,3 @@ class OverlapTPEngine(SPMDEngine):
                 f"mesh={dict(self.mesh.shape)}, arm={self.arm!r}, "
                 f"execution={self.execution!r}: "
                 f"{EXECUTIONS[self.execution]}; {self.arm_reason})")
-
-    def words_device(self, words, *, argmax: bool = False):
-        """Packed-transport twin of logits_device for bipolar nets: the
-        host ships uint32 sign-bit words and the device unpacks them
-        (`ops/packing.unpack_bits`) in front of the first layer."""
-        if self.config.input_kind != "bipolar":
-            raise ValueError("packed word input is for bipolar-input "
-                             "networks")
-        words, b = self._pad_to_bucket(np.asarray(words, dtype=np.uint32))
-        return self.launch_prepared(self.upload(words), argmax=argmax,
-                                    words=True), b
-
-    def warmup(self, batch: int = 1, *, serving: bool = True):
-        """Run the bucket's programs once before live traffic (mirror of
-        InferenceEngine.warmup); a collective call on every rank."""
-        shape = ((batch, int(np.prod(self.config.input_shape)))
-                 if self.config.input_kind == "bipolar"
-                 else (batch,) + self.config.input_shape)
-        dummy = np.zeros(shape, np.int8)
-        self.logits(dummy, prepared=True)
-        if serving:
-            outs = [self.logits_device(dummy, prepared=True, argmax=True)[0]]
-            if self.config.input_kind == "bipolar":
-                words = np.zeros((batch, packed_len(
-                    int(np.prod(self.config.input_shape)))), np.uint32)
-                outs += [self.words_device(words, argmax=am)[0]
-                         for am in (True, False)]
-            for out in outs:
-                self.fetch(out)
-        return self

@@ -30,7 +30,8 @@ every column-sharded layer, and the logits gathered over 'data'.
 Every rank returns the logits of the whole batch, gathered over 'data',
 as JAX's calls return them. The engines' serving surface, and the
 programs they run in place of JAX's jitted calls (a CUDA graph a shape
-under NCCL), are parallel/spmd.py's.
+under NCCL), are runtime/engine.py's `Engine` and `Programs`, with
+parallel/spmd.py's data split and leader.
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ from bnn_pynq_tpu_torch.ops.int_dot import k_contiguous
 from bnn_pynq_tpu_torch.ops.matmul import ROUTES, packed_matmul_padded
 from bnn_pynq_tpu_torch.ops.packing import words_to_tensor
 from bnn_pynq_tpu_torch.parallel import comm
-from bnn_pynq_tpu_torch.parallel.spmd import (DEFAULT_BATCH_BUCKETS,
-                                              Programs, SPMDEngine,
-                                              execution_of)
+from bnn_pynq_tpu_torch.parallel.spmd import SPMDEngine, execution_of
+from bnn_pynq_tpu_torch.runtime.engine import (DEFAULT_BATCH_BUCKETS,
+                                               Programs, pad_rows, to_device)
 
 Spec = Tuple[Optional[str], ...]
 MODEL_COLS: Spec = (None, "model")
@@ -206,27 +207,21 @@ def make_gspmd_engine(compiled: CompiledNetwork, mesh):
         logits = act.to(torch.float32) * scale + bias
         return comm.gather_batch(logits, dg)
 
-    execution = execution_of(mesh)
-    programs = Programs(execution, torch.cuda.Stream(device)
-                        if execution == "graphs" else None)
+    execution, dd = execution_of(mesh), mesh.shape["data"]
+    programs = Programs(
+        execution, torch.cuda.Stream(device) if execution == "graphs"
+        else None, lambda shape: local_forward,
+        lambda shape: f"make_gspmd_engine on mesh {dict(mesh.shape)} (rank "
+                      f"{dist.get_rank()}), bucket {shape[0] * dd} (local "
+                      f"input {shape} int8), variant logits", comm.counts)
 
     def logits(x_prepared):
         x = np.asarray(x_prepared, dtype=np.int8)
         b = x.shape[0]
-        dd = mesh.shape["data"]
-        pad = (-b) % dd
-        if pad:
-            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        x = pad_rows(x, -(-b // dd) * dd)
         rows = x.shape[0] // dd
-        lo = mesh.coords[0] * rows
-        xl = torch.from_numpy(np.ascontiguousarray(x[lo:lo + rows])) \
-            .to(device)
-        out = programs.run(
-            tuple(xl.shape), local_forward, xl,
-            lambda: f"make_gspmd_engine on mesh {dict(mesh.shape)} (rank "
-                    f"{dist.get_rank()}), bucket {x.shape[0]} (local input "
-                    f"{tuple(xl.shape)} int8), variant logits")
-        return out.cpu().numpy()[:b]
+        xl = to_device(x[mesh.coords[0] * rows:][:rows], device)
+        return programs.run(tuple(xl.shape), xl).cpu().numpy()[:b]
 
     logits.programs = programs
     logits.execution = execution
@@ -239,7 +234,8 @@ class TPInferenceEngine(SPMDEngine):
     """Tensor-parallel engine on the packed kernels (the logits/classify
     surface of runtime.InferenceEngine for prepared inputs, and the
     serving hooks: bucketed launch without fetch, device argmax, `fetch`
-    and the topology-checked hot swap; parallel/spmd.py)."""
+    and the topology-checked hot swap of runtime/engine.py's `Engine`;
+    parallel/spmd.py). No packed-words path, as JAX's."""
 
     def __init__(self, compiled: CompiledNetwork, mesh, route: str = "mxu",
                  batch_buckets=DEFAULT_BATCH_BUCKETS):
@@ -252,7 +248,7 @@ class TPInferenceEngine(SPMDEngine):
         super().__init__(compiled, mesh, batch_buckets)
         self._fn = make_tp_forward(self.config, mesh, route=route)
 
-    def _shard(self, compiled):
+    def _load(self, compiled):
         params = shard_params(compiled.layers, self.mesh, compiled.config)
         scale, bias = (torch.from_numpy(np.asarray(v, np.float32))
                        .to(self.device)

@@ -58,21 +58,28 @@ prepares a chunk while the device runs the one before. An MLP runs one
 forward on the batch padded to a multiple of the largest bucket (its one
 kernel takes any number of rows).
 
+One serving surface: `Engine` holds what every engine shares, this one
+and the tensor-parallel engines of parallel/ alike: the buckets and their
+padding, `upload`, `fetch`, `logits_device`, the program set and the
+swap; `WordsInput` adds `words_device` and `warmup`.
+
 Captured programs, the port's form of the JAX engine's one jitted
 program per batch bucket: a 'kernels' engine runs each forward as a
 program, one per (input shape, variant); a variant is logits, argmax,
 words-logits or words-argmax. A program holds a fixed input buffer, the
 forward and a fixed output buffer. `launch_prepared` copies the batch
 into the input, runs the forward and returns a clone of the output, so
-batches in flight never share an output. On a card the forward is a CUDA
-graph: captured at a shape's first use (or in `warmup`) after one eager
-run that builds the kernels, then replayed, one graph launch a forward.
-On the CPU the same program runs the eager forward into the same
-buffers. runtime='ref' runs the eager forward on either device. The
-graphs of one parameter set share one memory pool; `load_parameters`
-captures every program again on the new parameters before it publishes
-them. A capture that fails raises, naming the shape and the variant; the
-engine never falls back to the eager forward on a card.
+batches in flight never share an output. How a program runs is the
+engine's `execution` (`EXECUTIONS`): on a card ('graphs') the forward is
+a CUDA graph, captured at a shape's first use (or in `warmup`) after one
+eager run that builds the kernels, then replayed, one graph launch a
+forward; on the CPU ('programs') the same program runs the eager forward
+into the same buffers; runtime='ref' ('eager') runs the eager forward on
+either device and keeps no program. The graphs of one parameter set
+share one memory pool; `load_parameters` captures every program again on
+the new parameters before it publishes them. A capture that fails
+raises, naming the shape and the variant; the engine never falls back to
+the eager forward on a card.
 
 Captures and replays hold the engine's lock, and a replay runs on the
 caller's current stream (every caller in the port uses the default one),
@@ -247,20 +254,251 @@ class Program:
             return self.out.clone()
 
 
+EXECUTIONS = {
+    "graphs": "a CUDA graph a program",
+    "programs": "programs on the CPU, eager into fixed buffers",
+    "eager": "eager, no program kept: runtime='ref', or gloo, which stages "
+             "every collective through the host, where no graph can hold "
+             "it"}
+
+
+class Programs(dict):
+    """One parameter set's programs by key, in one pool, and how a call
+    runs (`execution`, see EXECUTIONS): through the key's program, made at
+    the key's first use and captured on `stream` under 'graphs'; under
+    'eager' the forward itself, with no program kept. `body(key)` is key's
+    forward, `label(key)` names it in a failed capture, `collectives`
+    counts what a capture communicates (Program's)."""
+
+    def __init__(self, execution: str, stream, body, label,
+                 collectives=dict):
+        super().__init__()
+        self.execution, self.stream = execution, stream
+        self.body, self.label, self.collectives = body, label, collectives
+        # a pool whose graphs have all been released takes no new capture
+        # (PyTorch's allocator asserts), so each set has its own
+        self.pool = torch.cuda.graph_pool_handle() \
+            if execution == "graphs" else None
+
+    def make(self, key, x: torch.Tensor) -> Program:
+        """A new program for `key` at x's shape (captured under
+        'graphs'), kept once it could capture."""
+        prog = Program(self.body(key), x, self.label(key), self.collectives)
+        if self.execution == "graphs":
+            prog.capture(self.stream, self.pool)
+        self[key] = prog
+        return prog
+
+    def run(self, key, x: torch.Tensor) -> torch.Tensor:
+        """key's forward on x, through its program."""
+        prog = self.get(key)
+        if prog is None:
+            if self.execution == "eager":
+                return self.body(key)(x)
+            prog = self.make(key, x)
+        return prog(x)
+
+
+def check_topology(old: NetworkConfig, new: NetworkConfig) -> None:
+    """Raise ValueError unless `new` has `old`'s layers and widths."""
+    if new.layers != old.layers or new.wbits != old.wbits or \
+            new.abits != old.abits:
+        raise ValueError("parameter topology mismatch; build a new "
+                         "engine for a different network")
+
+
+def pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
+    """A leading-batch array padded to `rows`: uint8 pixels with 128 (they
+    centre to 0), anything else with 0."""
+    if rows == x.shape[0]:
+        return x
+    pad = np.full((rows - x.shape[0],) + x.shape[1:],
+                  128 if x.dtype == np.uint8 else 0, dtype=x.dtype)
+    return np.concatenate([x, pad], axis=0)
+
+
+def to_device(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`; uint32 words as their int32 bit
+    pattern."""
+    if x.dtype == np.uint32:
+        return words_to_tensor(x).to(device)
+    return torch.from_numpy(np.require(x, requirements=("C", "W"))).to(device)
+
+
 class _State(NamedTuple):
-    """What the engine publishes as one unit: the parameters (`layers`:
-    `decode_params`' on the 'xla' and 'xlaconv' routes of the kernels
-    runtime, else `params_from_numpy`'s) and the programs that run on
-    them (`pool`: their graphs' memory pool)."""
-    layers: list
-    out_scale: torch.Tensor
-    out_bias: torch.Tensor
-    programs: Dict[tuple, Program]
-    pool: object
+    """What an engine publishes as one unit: its parameters and the
+    programs that run on them."""
+    params: tuple
+    programs: Programs
 
 
-class InferenceEngine:
+class Engine:
+    """The serving surface every engine shares: buckets, padding, upload,
+    fetch, the program set, and the swap that makes every program again
+    before it publishes. A subclass provides `_load(compiled)` (its
+    parameters on its device), `_forward(params, x)` (float32 logits of
+    the batch from x) and `launch_prepared`; `_data_d`, the rows a bucket
+    splits into, and `_collectives`, what a capture counts of
+    communication, are the tensor-parallel engines'."""
+    _data_d = 1
+    _collectives = dict
+
+    def __init__(self, compiled: CompiledNetwork, device: torch.device,
+                 batch_buckets: Sequence[int], execution: str, lock):
+        self.compiled = compiled
+        self.config: NetworkConfig = compiled.config
+        self.device = device
+        self.batch_buckets = tuple(sorted(batch_buckets))
+        self.execution = execution
+        self._lock = lock                   # captures, replays and swaps
+        self._stream = torch.cuda.Stream(device) \
+            if execution == "graphs" else None
+        self._state = self._new_state(compiled)
+
+    def _new_state(self, compiled: CompiledNetwork) -> _State:
+        params = self._load(compiled)       # not the state: no cycle
+
+        def body(key):
+            argmax, words = key[2:]
+            return lambda x: self._eager(params, x, argmax, words)
+        return _State(params, Programs(self.execution, self._stream, body,
+                                       self._label, self._collectives))
+
+    def _label(self, key: tuple, where: str = "", local: str = "") -> str:
+        shape, dtype, argmax, words = key
+        return (f"{where}bucket {shape[0] * self._data_d} ({local}input "
+                f"{tuple(shape)} {dtype}), variant "
+                f"{'words-' if words else ''}"
+                f"{'argmax' if argmax else 'logits'}")
+
+    def _eager(self, params, x: torch.Tensor, argmax: bool,
+               words: bool) -> torch.Tensor:
+        """The eager forward on `params`: what a program runs. words: x
+        holds host-packed sign words, unpacked to ±1 first; argmax: int32
+        classes."""
+        if words:
+            x = unpack_bits(x, int(np.prod(self.config.input_shape)))
+        out = self._forward(params, x)
+        if argmax:
+            out = out.argmax(dim=-1).to(torch.int32)
+        return out
+
+    @property
+    def programs(self) -> Programs:
+        """The published programs by (input shape, dtype, argmax, words);
+        none under 'eager'."""
+        return self._state.programs
+
+    def _publish(self, compiled: CompiledNetwork,
+                 state: Optional[_State] = None) -> None:
+        """Make every program of the published set on `state` (new
+        parameters from `compiled` if None), in sorted key order (the
+        ranks of a mesh capture their collectives in one order), then
+        publish both in one assignment; the old graphs go once the device
+        has run their last replay. The caller holds the lock."""
+        if state is None:
+            state = self._new_state(compiled)
+        old = self._state.programs
+        for key in sorted(old, key=lambda k: (k[0], str(k[1])) + k[2:]):
+            state.programs.make(key, old[key].x)
+        self._state, self.compiled = state, compiled
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- input and output -------------------------------------------------
+    def prepare(self, x: np.ndarray) -> np.ndarray:
+        return prepare_host(self.config, x)
+
+    def _bucket(self, b: int) -> int:
+        dd = self._data_d
+        for s in self.batch_buckets:
+            s = -(-s // dd) * dd            # a bucket must split over 'data'
+            if b <= s:
+                return s
+        top = -(-self.batch_buckets[-1] // dd) * dd
+        return -(-b // top) * top
+
+    def _pad_to_bucket(self, x: np.ndarray):
+        """Pad a leading-batch array up to the next bucket size
+        (`pad_rows`); returns (padded, true_batch)."""
+        b = x.shape[0]
+        with span("bnn.engine.pad", b):
+            return pad_rows(x, self._bucket(b)), b
+
+    def upload(self, x_padded: np.ndarray) -> torch.Tensor:
+        """Host→device copy of an already padded batch: prepared int8
+        input, raw uint8 pixels, or uint32 words (as their int32 bit
+        pattern)."""
+        x = np.asarray(x_padded)
+        with span("bnn.engine.upload", x.shape[0]):
+            return to_device(x, self.device)
+
+    def fetch(self, dev_out: torch.Tensor) -> np.ndarray:
+        """Device output → numpy (waits for the device)."""
+        with span("bnn.engine.fetch", dev_out.shape[0]):
+            return dev_out.cpu().numpy()
+
+    def logits_device(self, x: np.ndarray, *, prepared: bool = False,
+                      argmax: bool = False) -> Tuple[torch.Tensor, int]:
+        """Launch without fetching: returns (device_out, true_batch).
+        argmax=True gives int32 class indices computed on the device."""
+        if not prepared:
+            x = self.prepare(x)
+        x, b = self._pad_to_bucket(np.asarray(x))
+        return self.launch_prepared(self.upload(x), argmax=argmax), b
+
+
+class WordsInput:
+    """An Engine's packed-words launch (bipolar nets: host-packed sign
+    words, unpacked on the device in front of the forward) and the warmup
+    of what a server dispatches. `_raw_pixels`: warmup also runs the raw
+    uint8 pair that `Classifier` sends."""
+    _raw_pixels = False
+
+    def _check_bipolar(self) -> None:
+        if self.config.input_kind != "bipolar":
+            raise ValueError("packed word input is for bipolar-input "
+                             "networks (MLPs); conv nets take int8 images")
+
+    def words_device(self, words: np.ndarray, *,
+                     argmax: bool = False) -> Tuple[torch.Tensor, int]:
+        """Launch from host-packed uint32 words [B, Kw] without fetching:
+        the packed-transport twin of logits_device, used by the serving
+        dispatcher for bipolar nets. Returns (device_out, true_batch)."""
+        self._check_bipolar()
+        words, b = self._pad_to_bucket(np.asarray(words, dtype=np.uint32))
+        return self.launch_prepared(self.upload(words), argmax=argmax,
+                                    words=True), b
+
+    def warmup(self, batch: int = 1, *, serving: bool = True):
+        """Run the engine's programs once at `batch`'s bucket: builds the
+        kernels (first use in the process) before live traffic: logits of
+        prepared int8 (and, with `_raw_pixels`, logits and classify of
+        raw uint8). serving also runs what the server dispatches: the
+        device-argmax launch and, for bipolar nets, the packed-words
+        launches. On a tensor-parallel engine, a call on every rank."""
+        dummy = np.zeros(input_shape(self.config, batch), dtype=np.int8)
+        self.logits(dummy, prepared=True)
+        if self._raw_pixels:
+            pixels = np.zeros((batch,) + tuple(self.config.input_shape),
+                              dtype=np.uint8)
+            self.logits(pixels, prepared=False)
+            self.classify(pixels, prepared=False)
+        if serving:
+            outs = [self.logits_device(dummy, prepared=True, argmax=True)[0]]
+            if self.config.input_kind == "bipolar":
+                words = np.zeros((batch, packed_len(
+                    int(np.prod(self.config.input_shape)))), dtype=np.uint32)
+                outs += [self.words_device(words, argmax=am)[0]
+                         for am in (True, False)]
+            for out in outs:
+                self.fetch(out)
+        return self
+
+
+class InferenceEngine(WordsInput, Engine):
     """Loads a CompiledNetwork onto a device and serves classifications."""
+    _raw_pixels = True
 
     def __init__(self, compiled: CompiledNetwork, *, device="cuda",
                  runtime: str = "kernels", route: str = "mega",
@@ -288,27 +526,24 @@ class InferenceEngine:
                                "pass device='cpu' to run the plain versions")
         if device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {device}")
-        self.config: NetworkConfig = compiled.config
-        self.compiled = compiled
-        self.device = device
         self.runtime = runtime
         self.route = route
-        self.batch_buckets = tuple(sorted(batch_buckets))
         self.usecPerImage: Optional[float] = None
-        self._lock = threading.Lock()       # captures and replays
-        self._stream = torch.cuda.Stream(device) \
-            if device.type == "cuda" else None
-        self._state = self._new_state(compiled)
+        super().__init__(compiled, device, batch_buckets,
+                         "eager" if runtime == "ref" else "graphs"
+                         if device.type == "cuda" else "programs",
+                         threading.Lock())
 
-    def _new_state(self, compiled: CompiledNetwork) -> _State:
-        pool = torch.cuda.graph_pool_handle() \
-            if self.device.type == "cuda" else None
+    def _load(self, compiled: CompiledNetwork) -> Params:
+        """(layers, out_scale, out_bias) on the device: `decode_params`'
+        layers on the 'xla' and 'xlaconv' routes of the kernels runtime,
+        else `params_from_numpy`'s."""
         layers, out_scale, out_bias = params_from_numpy(
             self.config, compiled.layers, compiled.out_scale,
             compiled.out_bias, self.device)
         if self.runtime == "kernels" and self.route in XLA_ROUTES:
             layers = decode_params(self.config, layers)
-        return _State(layers, out_scale, out_bias, {}, pool)
+        return layers, out_scale, out_bias
 
     def load_parameters(self, compiled: CompiledNetwork):
         """Hot-swap parameters of the same topology. Every program already
@@ -317,106 +552,32 @@ class InferenceEngine:
         engine's lock; every launch reads that unit once, so a batch never
         mixes old and new parameters. The old graphs are released after
         the device has run their last replay."""
-        if compiled.config.layers != self.config.layers or \
-                compiled.config.wbits != self.config.wbits or \
-                compiled.config.abits != self.config.abits:
-            raise ValueError("parameter topology mismatch; build a new "
-                             "engine for a different network")
+        check_topology(self.config, compiled.config)
         state = self._new_state(compiled)
         with self._lock:
-            old = self._state
-            for key, prog in old.programs.items():
-                self._add_program(state, key, prog.x)
-            self._state = state
-            self.compiled = compiled
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        del old
+            self._publish(compiled, state)
         return self
 
-    # -- input preparation ------------------------------------------------
-    def prepare(self, x: np.ndarray) -> np.ndarray:
-        return prepare_host(self.config, x)
-
-    def _bucket(self, b: int) -> int:
-        for s in self.batch_buckets:
-            if b <= s:
-                return s
-        return -(-b // self.batch_buckets[-1]) * self.batch_buckets[-1]
-
-    def _pad_to_bucket(self, x: np.ndarray):
-        """Pad a leading-batch array up to the next bucket size, uint8
-        pixels with 128 (they centre to 0), anything else with 0; returns
-        (padded, true_batch)."""
-        b = x.shape[0]
-        with span("bnn.engine.pad", b):
-            bucket = self._bucket(b)
-            if bucket != b:
-                pad = np.full((bucket - b,) + x.shape[1:],
-                              128 if x.dtype == np.uint8 else 0,
-                              dtype=x.dtype)
-                x = np.concatenate([x, pad], axis=0)
-        return x, b
-
     # -- inference --------------------------------------------------------
-    def upload(self, x_padded: np.ndarray) -> torch.Tensor:
-        """Host→device copy of an already padded batch: prepared int8
-        input, raw uint8 pixels, or uint32 words (as their int32 bit
-        pattern)."""
-        x = np.asarray(x_padded)
-        with span("bnn.engine.upload", x.shape[0]):
-            if x.dtype == np.uint32:
-                t = words_to_tensor(x)
-            else:
-                t = torch.from_numpy(np.require(x, requirements=("C", "W")))
-            return t.to(self.device)
-
-    def _forward(self, params: Params, xd: torch.Tensor, argmax: bool,
-                 words: bool) -> torch.Tensor:
-        """The eager forward on `params` (layers, out_scale, out_bias):
-        what a program captures, and what runtime='ref' runs. uint8 input
-        is raw pixels, prepared here by `prepare_device`."""
+    def _forward(self, params: Params, xd: torch.Tensor) -> torch.Tensor:
+        """The route's logits on `params` (layers, out_scale, out_bias).
+        uint8 input is raw pixels, prepared here by `prepare_device`."""
         layers, out_scale, out_bias = params
-        if words:
-            xd = unpack_bits(xd, int(np.prod(self.config.input_shape)))
-        elif xd.dtype == torch.uint8:
+        if xd.dtype == torch.uint8:
             xd = prepare_device(self.config, xd)
         if self.runtime == "kernels" and self.route in MEGA_ROUTES:
-            out = forward_mega(self.config, layers, xd, out_scale, out_bias)
+            return forward_mega(self.config, layers, xd, out_scale, out_bias)
+        if self.runtime == "ref":
+            acc = forward_ref(self.config, layers, xd)
+        elif self.route in XLA_ROUTES:
+            acc = forward_xla(self.config, layers, xd,
+                              conv_mode=XLA_ROUTES[self.route])
+        elif self.route == "direct":
+            acc = forward_direct(self.config, layers, xd)
         else:
-            if self.runtime == "ref":
-                acc = forward_ref(self.config, layers, xd)
-            elif self.route in XLA_ROUTES:
-                acc = forward_xla(self.config, layers, xd,
-                                  conv_mode=XLA_ROUTES[self.route])
-            elif self.route == "direct":
-                acc = forward_direct(self.config, layers, xd)
-            else:
-                acc = forward(self.config, layers, xd, route=self.route)
-            # two ops, as JAX computes them: no fused multiply-add
-            out = acc.to(torch.float32) * out_scale + out_bias
-        if argmax:
-            out = out.argmax(dim=-1).to(torch.int32)
-        return out
-
-    def _add_program(self, state: _State, key: tuple,
-                     xd: torch.Tensor) -> Program:
-        """A new program for `key` on `state` (captured on a card)."""
-        shape, dtype, argmax, words = key
-        params = state[:3]                  # not the state: no cycle
-        prog = Program(
-            lambda x: self._forward(params, x, argmax, words), xd,
-            f"bucket {shape[0]} (input {tuple(shape)} {dtype}), variant "
-            f"{'words-' if words else ''}{'argmax' if argmax else 'logits'}")
-        if self.device.type == "cuda":
-            prog.capture(self._stream, state.pool)
-        state.programs[key] = prog
-        return prog
-
-    @property
-    def programs(self) -> Dict[tuple, Program]:
-        """The published programs by (input shape, dtype, argmax, words)."""
-        return self._state.programs
+            acc = forward(self.config, layers, xd, route=self.route)
+        # two ops, as JAX computes them: no fused multiply-add
+        return acc.to(torch.float32) * out_scale + out_bias
 
     def launch_prepared(self, xd: torch.Tensor, *, argmax: bool = False,
                         words: bool = False) -> torch.Tensor:
@@ -426,29 +587,9 @@ class InferenceEngine:
         'kernels' runtime runs the program of xd's shape and the variant,
         captured here at its first use."""
         with span("bnn.engine.launch", xd.shape[0]):
-            if self.runtime == "ref":
-                return self._forward(self._state[:3], xd, argmax, words)
             key = (tuple(xd.shape), xd.dtype, argmax, words)
             with self._lock:
-                state = self._state
-                prog = state.programs.get(key)
-                if prog is None:
-                    prog = self._add_program(state, key, xd)
-                return prog(xd)
-
-    def fetch(self, dev_out: torch.Tensor) -> np.ndarray:
-        """Device output → numpy (waits for the device)."""
-        with span("bnn.engine.fetch", dev_out.shape[0]):
-            return dev_out.cpu().numpy()
-
-    def logits_device(self, x: np.ndarray, *, prepared: bool = False,
-                      argmax: bool = False) -> Tuple[torch.Tensor, int]:
-        """Launch without fetching: returns (device_out, true_batch).
-        argmax=True gives int32 class indices computed on the device."""
-        if not prepared:
-            x = self.prepare(x)
-        x, b = self._pad_to_bucket(x)
-        return self.launch_prepared(self.upload(x), argmax=argmax), b
+                return self._state.programs.run(key, xd)
 
     def _chunks(self, b: int):
         """[lo, hi) ranges a batch of b runs in: one, or for a conv net
@@ -473,11 +614,7 @@ class InferenceEngine:
             outs = []
             spent = 0.0
             for lo, hi in self._chunks(b):
-                if raw:
-                    with span("bnn.engine.raw_input", hi - lo):
-                        xc = x[lo:hi]
-                else:
-                    xc = x[lo:hi] if prepared else self.prepare(x[lo:hi])
+                xc = x[lo:hi] if prepared or raw else self.prepare(x[lo:hi])
                 xc, n = self._pad_to_bucket(xc)
                 t0 = time.perf_counter()
                 outs.append((self.launch_prepared(
@@ -500,11 +637,6 @@ class InferenceEngine:
         return int(self.classify(image[None])[0])
 
     # -- packed input -----------------------------------------------------
-    def _check_bipolar(self) -> None:
-        if self.config.input_kind != "bipolar":
-            raise ValueError("packed word input is for bipolar-input "
-                             "networks (MLPs); conv nets take int8 images")
-
     def logits_packed(self, x_uint8: np.ndarray) -> np.ndarray:
         """Float logits from images binarized and bit-packed on the host;
         the device consumes the uint32 words directly in the first packed
@@ -526,40 +658,6 @@ class InferenceEngine:
         self._check_bipolar()
         return self._run(native.binarize_pack(x_uint8), argmax=False,
                          words=True)
-
-    def words_device(self, words: np.ndarray, *,
-                     argmax: bool = False) -> Tuple[torch.Tensor, int]:
-        """Launch from host-packed uint32 words [B, Kw] without fetching:
-        the packed-transport twin of logits_device, used by the serving
-        dispatcher for bipolar nets. Returns (device_out, true_batch)."""
-        self._check_bipolar()
-        words, b = self._pad_to_bucket(np.asarray(words, dtype=np.uint32))
-        return self.launch_prepared(self.upload(words), argmax=argmax,
-                                    words=True), b
-
-    def warmup(self, batch: int = 1, *, serving: bool = True):
-        """Run the engine's programs once at `batch`'s bucket: builds the
-        kernels (first use in the process) before live traffic: logits of
-        prepared int8, logits and classify of raw uint8 (what `Classifier`
-        sends). serving also runs what the server dispatches: the
-        device-argmax launch and, for bipolar nets, the packed-words
-        launches."""
-        dummy = np.zeros(input_shape(self.config, batch), dtype=np.int8)
-        self.logits(dummy, prepared=True)
-        pixels = np.zeros((batch,) + tuple(self.config.input_shape),
-                          dtype=np.uint8)
-        self.logits(pixels, prepared=False)
-        self.classify(pixels, prepared=False)
-        if serving:
-            outs = [self.logits_device(dummy, prepared=True, argmax=True)[0]]
-            if self.config.input_kind == "bipolar":
-                words = np.zeros((batch, packed_len(
-                    int(np.prod(self.config.input_shape)))), dtype=np.uint32)
-                outs += [self.words_device(words, argmax=am)[0]
-                         for am in (True, False)]
-            for out in outs:
-                self.fetch(out)
-        return self
 
     @classmethod
     def from_artifact(cls, path: str, **kw) -> "InferenceEngine":

@@ -498,7 +498,7 @@ def forward_profile(device: torch.device, name: str, route: str,
         return eng.launch_prepared(xd, argmax=True)
 
     def eager():
-        return eng._forward(eng._state[:3], xd, True, False)
+        return eng._eager(eng._state.params, xd, True, False)
 
     replay = graph_ms(eager)
     enqueue = {}

@@ -2488,7 +2488,7 @@ TRAIN_STEPS = 20          # captured against eager, bit for bit
 def _eager(eng, xd, argmax=False, words=False):
     """The engine's eager forward on its published parameters: what its
     programs capture."""
-    return eng._forward(eng._state[:3], xd, argmax, words)
+    return eng._eager(eng._state.params, xd, argmax, words)
 
 
 def _key(xd, argmax, words=False):
@@ -2754,7 +2754,7 @@ def _graph_pool_bytes(torch, route="mega"):
         eng.warmup(b)
     torch.cuda.synchronize()
     grown = torch.cuda.memory_reserved() - reserved0
-    in_pool = _pool_bytes(torch, eng._state.pool)
+    in_pool = _pool_bytes(torch, eng.programs.pool)
     print(f"programs memory: cnv-w1a1 {route}, {len(eng.programs)} programs "
           f"(buckets {list(eng.batch_buckets)}, logits and argmax of int8 "
           f"and of raw uint8), reserved "
@@ -3332,7 +3332,7 @@ def _xla_held(torch, name, x_all):
     row = {"net": name, "library_calls": want_lib}
     for batch in (BATCH, 1):
         xd = ref.upload(ref.prepare(x_all[:batch]))
-        want_acc = forward_ref(ref.config, ref._state.layers, xd)
+        want_acc = forward_ref(ref.config, ref._state.params[0], xd)
         want = ref.fetch(ref.launch_prepared(xd))
         mega = engs["mega"].fetch(engs["mega"].launch_prepared(xd))
         accs = {}
@@ -3340,7 +3340,7 @@ def _xla_held(torch, name, x_all):
             eng = engs[route]
             label = f"{name} {route} batch {batch}"
             before, lib_before = kernel_launches(), library_calls()
-            accs[route] = forward_xla(eng.config, eng._state.layers, xd,
+            accs[route] = forward_xla(eng.config, eng._state.params[0], xd,
                                       conv_mode=mode)
             torch.cuda.synchronize()
             launched = _moved(before, kernel_launches())
@@ -3705,7 +3705,7 @@ def _strided_engines(torch, device, smi):
         for route in ("mega", "s2d"):
             eng = InferenceEngine(compiled, device="cuda", route=route)
             label = f"{cfg.name} {route}"
-            names = [n for n, _ in mega_stages(cfg, *eng._state[:3])]
+            names = [n for n, _ in mega_stages(cfg, *eng._state.params)]
             assert names == STRIDED_STAGES[cfg.name.rsplit("-", 1)[0]], \
                 f"{label}: stages {names}"
             got, cls = eng.logits(images), eng.classify(images)

@@ -410,7 +410,7 @@ def test_routes_call_int_mm_and_equal_jax(case):
                                    impl="pallas", route=route,
                                    interpret=True)
             fwd = port_net.make_forward_fn(cfg, route=route)
-        layers = eng._state.layers
+        layers = eng._state.params[0]
         acc, lib, _ = glue_calls(lambda: fwd(cfg, layers, xd)
                                  if route == "direct" else fwd(layers, xd))
         assert acc.dtype == torch.int32

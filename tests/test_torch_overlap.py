@@ -18,6 +18,7 @@ from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.parallel import comm
 from bnn_pynq_tpu_torch.parallel.overlap import (
     OverlapTPEngine, reorder_dense_rows_for_csharding)
+from bnn_pynq_tpu_torch.runtime.engine import DEFAULT_BATCH_BUCKETS
 from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
 from tests.test_torch_parallel import (TOL, jax_mesh, mini_pair,
                                        random_pair, ref_engine, run_jobs)
@@ -60,6 +61,30 @@ def job_words(mesh, compiled, x):
     cls, bc = eng.words_device(words, argmax=True)
     return {"words": eng.fetch(dev)[:b], "words_cls": eng.fetch(cls)[:bc],
             "logits": eng.logits(x)}
+
+
+def job_warm(mesh, compiled, batch, serving):
+    """The program keys warmup(batch) leaves on a fresh engine."""
+    eng = OverlapTPEngine(compiled, mesh).warmup(batch, serving=serving)
+    return sorted((k[0], str(k[1]), k[2], k[3]) for k in eng.programs)
+
+
+def job_buckets(mesh, compiled):
+    """Per batch 1 .. 2 × the largest bucket: the bucket, and whether
+    `_pad_to_bucket` pads uint8 with 128 and int8 with 0 up to it."""
+    eng = OverlapTPEngine(compiled, mesh)
+    top = 2 * eng.batch_buckets[-1]
+    out = []
+    for b in range(1, top + 1):
+        pads = []
+        for dtype, fill in ((np.uint8, 128), (np.int8, 0)):
+            padded, n = eng._pad_to_bucket(np.ones((b, 2), dtype))
+            pads.append(n == b and padded.dtype == dtype and
+                        padded.shape == (eng._bucket(b), 2) and
+                        (padded[b:] == fill).all() and
+                        (padded[:b] == 1).all())
+        out.append((eng._bucket(b), all(pads)))
+    return out
 
 
 def job_serve(mesh, compiled, x, swap=None, other=None):
@@ -137,7 +162,15 @@ def world_1x4(nets):
         ("mini_ring", job_overlap, (mini, XMINI)),
         ("mini_blocking", job_overlap, (mini, XMINI, "blocking")),
         ("cnv", job_overlap, (cnv, _image_levels(4, (32, 32, 3), 5))),
+        ("buckets", job_buckets, (lfc,)),
     ])
+
+
+@pytest.fixture(scope="module")
+def world_4x1(nets):
+    lfc = nets["lfc"][1]
+    return run_jobs(4, 1, [("lfc", job_overlap, (lfc, X64)),
+                           ("buckets", job_buckets, (lfc,))])
 
 
 @pytest.fixture(scope="module")
@@ -148,6 +181,10 @@ def world_2x2(nets):
             ("forced", job_forced, (lfc,)),
             ("w1a2", job_overlap, (nets["lfc-w1a2"][1], X32)),
             ("words", job_words, (lfc, _bipolar(16, 12))),
+            ("buckets", job_buckets, (lfc,)),
+            ("warm_lfc", job_warm, (lfc, 5, True)),
+            ("warm_lfc_plain", job_warm, (lfc, 5, False)),
+            ("warm_mini", job_warm, (nets["mini11"][1], 5, True)),
             ("serve_lfc", job_serve, (lfc, _bipolar(13, 11))),
             ("serve_mini", job_serve,
              (nets["mini11"][1], _image_levels(13, (10, 10, 3), 4))),
@@ -175,7 +212,7 @@ def test_overlap_tp_matches_single_device(data, model, nets, request):
     want = ref_engine(pcomp, batch_buckets=(64,)).logits(X64, prepared=True)
     _, want_jax = _jax_overlap(jc, data, model, X64)
     np.testing.assert_allclose(want_jax, want, **TOL)
-    if (data, model) in ((1, 4), (2, 2)):
+    if (data, model) in ((1, 4), (2, 2), (4, 1)):
         res = request.getfixturevalue(f"world_{data}x{model}")
     else:
         res = run_jobs(data, model, [("lfc", job_overlap, (pcomp, X64))])
@@ -184,6 +221,54 @@ def test_overlap_tp_matches_single_device(data, model, nets, request):
         np.testing.assert_allclose(out["lfc"]["logits"], want, **TOL,
                                    err_msg=f"rank {r}")
         np.testing.assert_allclose(out["lfc"]["logits"], want_jax, **TOL)
+
+
+def _bucket_rule(b, data):
+    """The bucket of a batch of b on a 'data' axis of `data`: the smallest
+    default bucket, rounded up to a multiple of `data`, that holds b, else
+    b rounded up to a multiple of the largest."""
+    sizes = [-(-s // data) * data for s in DEFAULT_BATCH_BUCKETS]
+    return next((s for s in sizes if b <= s), -(-b // sizes[-1]) * sizes[-1])
+
+
+@pytest.mark.parametrize("data,model", [(1, 4), (2, 2), (4, 1)])
+def test_buckets_and_pads_are_the_single_card_engines(data, model, nets,
+                                                      request):
+    """Batches 1 .. 2 × the largest bucket: the tensor-parallel engine's
+    bucket is the single-card engine's rule on buckets rounded up to
+    'data' (on 'data' = 1 the single-card engine's own), and both pad
+    uint8 with 128 and anything else with 0."""
+    single = ref_engine(nets["lfc"][1])
+    top = 2 * DEFAULT_BATCH_BUCKETS[-1]
+    assert [single._bucket(b) for b in range(1, top + 1)] == \
+        [_bucket_rule(b, 1) for b in range(1, top + 1)]
+    for dtype, fill in ((np.uint8, 128), (np.int8, 0)):
+        padded, n = single._pad_to_bucket(np.ones((5, 2), dtype))
+        assert n == 5 and padded.shape == (16, 2)
+        assert (padded[5:] == fill).all() and padded.dtype == dtype
+    res = request.getfixturevalue(f"world_{data}x{model}")
+    for r, out in enumerate(res):
+        assert [bucket for bucket, _ in out["buckets"]] == \
+            [_bucket_rule(b, data) for b in range(1, top + 1)], r
+        assert all(padded for _, padded in out["buckets"]), r
+        if data == 1:
+            assert [bucket for bucket, _ in out["buckets"]] == \
+                [single._bucket(b) for b in range(1, top + 1)]
+
+
+def test_warmup_makes_the_programs_it_made_before(world_2x2):
+    """warmup(5) on mesh (2, 2): one program a variant at the local rows
+    of bucket 16; the argmax launch and, for LFC, the two packed-words
+    launches only with serving."""
+    lfc = [((8, 784), "torch.int8", False, False),
+           ((8, 784), "torch.int8", True, False)]
+    words = [((8, 25), "torch.int32", False, True),
+             ((8, 25), "torch.int32", True, True)]
+    for out in world_2x2:
+        assert out["warm_lfc"] == sorted(lfc + words)
+        assert out["warm_lfc_plain"] == lfc[:1]
+        assert out["warm_mini"] == [((8, 10, 10, 3), "torch.int8", a, False)
+                                    for a in (False, True)]
 
 
 def test_ring_and_blocking_collectives(world_1x4):

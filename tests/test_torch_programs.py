@@ -37,7 +37,7 @@ def _images(shape, seed):
 
 
 def _eager(eng, xd, argmax=False, words=False):
-    return eng._forward(eng._state[:3], xd, argmax, words)
+    return eng._eager(eng._state.params, xd, argmax, words)
 
 
 @pytest.mark.parametrize("route", ["mega", "vpu", "mxu", "direct"])
@@ -184,6 +184,29 @@ def test_serve_warms_the_bucket_of_a_full_batch():
         batcher.stop()
 
 
+@pytest.mark.parametrize("serving", [True, False])
+@pytest.mark.parametrize("net", ["cnv", "sfc"])
+def test_warmup_makes_one_program_a_dispatched_variant(net, serving):
+    """warmup(5) on the mega route with buckets (4, 8): bucket 8's programs
+    of prepared int8 logits and raw uint8 logits and classes; with
+    serving also the int8 argmax launch and, on the bipolar SFC, the
+    packed-words logits and argmax."""
+    eng = InferenceEngine.from_artifact(CNV if net == "cnv" else SFC,
+                                        device="cpu", batch_buckets=(4, 8))
+    eng.warmup(5, serving=serving)
+    pixels = (8, 32, 32, 3) if net == "cnv" else (8, 28, 28, 1)
+    int8 = (8, 32, 32, 3) if net == "cnv" else (8, 784)
+    want = {(int8, "torch.int8", False, False),
+            (pixels, "torch.uint8", False, False),
+            (pixels, "torch.uint8", True, False)}
+    if serving:
+        want.add((int8, "torch.int8", True, False))
+        if net == "sfc":
+            want |= {((8, 25), "torch.int32", a, True) for a in (False, True)}
+    assert {(k[0], str(k[1]), k[2], k[3]) for k in eng.programs} == want
+    assert len(eng.programs) == len(want)
+
+
 def test_ref_runtime_keeps_the_eager_forward():
     eng = InferenceEngine.from_artifact(SFC, device="cpu", runtime="ref")
     x = _images((3, 28, 28), 7)
@@ -205,6 +228,16 @@ def test_a_failed_capture_names_the_bucket_and_variant():
     with pytest.raises(RuntimeError, match=r"bucket 4 .* variant argmax"):
         prog.capture(Broken(), None)
     assert prog.graph is None
+    # the engine's label: the bucket, its input shape and dtype, the variant
+    eng = InferenceEngine.from_artifact(SFC, device="cpu",
+                                        batch_buckets=(8,))
+    eng.programs.execution, eng.programs.stream = "graphs", Broken()
+    with pytest.raises(RuntimeError) as e:
+        eng.logits(_images((5, 28, 28), 1))
+    assert str(e.value).startswith(
+        "CUDA graph capture of bucket 8 (input (8, 28, 28) torch.uint8), "
+        "variant logits failed")
+    assert not eng.programs
 
 
 def test_kernel_launches_reads_every_wrapper():

@@ -21,7 +21,6 @@ BATCH = 6
 BUCKETS = (2, 4)
 # child → parent, as `classify_images` nests them
 PARENT = {"bnn.classifier.to_batch": "bnn.classifier.prepare",
-          "bnn.engine.raw_input": "bnn.engine.run",
           "bnn.engine.pad": "bnn.engine.run",
           "bnn.engine.upload": "bnn.engine.run",
           "bnn.engine.launch": "bnn.engine.run",
@@ -93,7 +92,6 @@ def test_span_totals_under_trace(traced, net):
     want = {"bnn.classifier.prepare": (1, BATCH),
             "bnn.classifier.to_batch": (1, BATCH),
             "bnn.engine.run": (1, BATCH),
-            "bnn.engine.raw_input": (chunks, BATCH),
             "bnn.engine.pad": (chunks, BATCH),
             "bnn.engine.upload": (chunks, padded),
             "bnn.engine.launch": (chunks, padded),

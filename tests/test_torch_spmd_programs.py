@@ -33,9 +33,9 @@ import torch
 from bnn_pynq_tpu_torch import native
 from bnn_pynq_tpu_torch.parallel import comm
 from bnn_pynq_tpu_torch.parallel.overlap import OverlapTPEngine
-from bnn_pynq_tpu_torch.parallel.spmd import EXECUTIONS
 from bnn_pynq_tpu_torch.parallel.tp import (TPInferenceEngine,
                                             make_gspmd_engine)
+from bnn_pynq_tpu_torch.runtime.engine import EXECUTIONS
 from tests.test_torch_parallel import (TOL, images, jax_mesh, mini_pair,
                                        ref_engine, run_jobs)
 from tests.test_torch_train_sharded import (EPOCH_TOL, LOSS_TOL, LR,

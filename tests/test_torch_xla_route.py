@@ -173,10 +173,10 @@ def test_programs_equal_the_eager_forward(net, route):
     eng = InferenceEngine(CompiledNetwork(pcfg, layers, scale, bias),
                           device="cpu", route=route, batch_buckets=(4,))
     assert all(set(p) <= {"w_int8", "w_hwio", "thr"}
-               for p in eng._state.layers)
+               for p in eng._state.params[0])
     xd = eng.upload(_inputs(pcfg, 4, 5))
     for argmax in (False, True):
-        want = eng._forward(eng._state[:3], xd, argmax, False)
+        want = eng._eager(eng._state.params, xd, argmax, False)
         got = eng.launch_prepared(xd, argmax=argmax)
         again = eng.launch_prepared(xd, argmax=argmax)
         prog = eng.programs[(tuple(xd.shape), xd.dtype, argmax, False)]
@@ -198,13 +198,13 @@ def test_routes_call_the_library_only(route, calls):
     eng = InferenceEngine(compiled, device="cpu", route=route)
     xd = eng.upload(_inputs(pcfg, 2, 6))
     before = (engine_mod.library_calls(), engine_mod.kernel_launches())
-    eng._forward(eng._state[:3], xd, False, False)
+    eng._eager(eng._state.params, xd, False, False)
     moved = engine_mod._moved(before[0], engine_mod.library_calls())
     assert moved == calls
     assert engine_mod.kernel_launches() == before[1]
     refeng = InferenceEngine(compiled, device="cpu", route=route,
                              runtime="ref")
-    assert all("w" in p for p in refeng._state.layers if p)
+    assert all("w" in p for p in refeng._state.params[0] if p)
     before = engine_mod.library_calls()
     refeng.logits(_images(pcfg, 2, 6))
     assert engine_mod._moved(before, engine_mod.library_calls()) == \
