@@ -13,6 +13,8 @@ constexpr int kVec = 16;                    // bytes per vector load
 constexpr int kMaxThr = 15;                 // thresholds per channel (abits <= 4)
 constexpr int kDefaultSmem = 48 * 1024;     // above this: opt in per kernel
 constexpr int kMaxSmem = 227 * 1024;        // H100: 232,448 bytes a block
+constexpr int kSmemPerSm = 228 * 1024;      // H100: what an SM's blocks share,
+constexpr int kReservedSmem = 1024;         // ... each with this much more
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;

@@ -1,8 +1,8 @@
 // One stride-1 VALID K×K quantized conv with the MultiThreshold fused:
 // NHWC int8 codes (or raw int8 levels) in, int8 codes of the valid region
-// [B, H-K+1, W-K+1, N] out. The wrapper (ops/conv_stack.py::conv_chain)
-// launches it once per layer of a chain; the intermediate codes go through
-// device memory.
+// [B, H-K+1, W-K+1, N] out, or their 2×2 max-pool. The wrapper
+// (ops/conv_stack.py::conv_chain) launches it once per layer of a chain;
+// the intermediate codes go through device memory.
 //
 // The kernel body and its launcher are conv_tile.cuh's, shared with
 // conv_direct.cu::bnn_conv_direct; this file holds the entry point.
@@ -42,6 +42,18 @@
 //   registers against thresholds staged in shared memory; the codes leave
 //   through a per-warp staging buffer as 16-byte stores, 64 contiguous
 //   bytes a pixel; the ragged last tile is masked at the store;
+// - a layer that a 2×2 max-pool follows (CNV's conv1 and conv4, which
+//   models/network.py::forward_mega runs pooled) pools in its epilogue
+//   (kConvPool): a tile is then a run of consecutive pooled pixels of the
+//   flattened [B·OH/2·OW/2] grid, its row 4q + s the window position s of
+//   pooled pixel q, so the input rows it needs (two output rows a pooled
+//   row, plus the halo) stay one contiguous span and only the per-pixel
+//   offsets into it change; the window's four rows sit in lanes 4 and 8
+//   apart, and two shuffles leave each window's largest int32 accumulator
+//   in one lane of four, which thresholds it (the code never falls as the
+//   accumulator grows, so that is the largest code, exactly) and stores it:
+//   a quarter of the compares and of the bytes written, and the separate
+//   pool pass gone. An odd map is refused;
 // - an SM holds 16 warps: two blocks of 8 or, where shared memory has no
 //   room for the weights twice, one block of 16 on a tile twice as large.
 //   (Two halves of a block walking tiles of their own behind a named
@@ -61,14 +73,21 @@ extern "C" {
 // x: int8 [b, h, w, c] codes (levels if input_levels); wt: int8 [n_out, k32]
 // with k32 = round_up(ksize²·c, 32), zero past K; wsum: int32 [n_out], the
 // column sums of wt; thr: int32 [nthr, n_out];
-// out: int8 [b, h-ksize+1, w-ksize+1, n_out].
+// out: int8 [b, h-ksize+1, w-ksize+1, n_out], or with pool the 2×2
+// max-pool of it, [b, (h-ksize+1)/2, (w-ksize+1)/2, n_out] (both even).
 int bnn_conv_layer(const void* x, int b, int h, int w, int c, int ksize,
                    int input_levels, const void* wt, int k32, int n_out,
                    const void* wsum, const void* thr, int nthr, int abits,
-                   void* out, void* stream) {
-  return bnn::launch_conv<bnn::kConvCodes>(
-      x, b, h, w, c, ksize, input_levels, wt, k32, n_out, wsum, thr, nthr,
-      abits, out, static_cast<cudaStream_t>(stream));
+                   int pool, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool) {
+    return bnn::launch_conv<bnn::kConvPool>(x, b, h, w, c, ksize,
+                                            input_levels, wt, k32, n_out,
+                                            wsum, thr, nthr, abits, out, s);
+  }
+  return bnn::launch_conv<bnn::kConvCodes>(x, b, h, w, c, ksize,
+                                           input_levels, wt, k32, n_out,
+                                           wsum, thr, nthr, abits, out, s);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
 // The persistent implicit-GEMM conv kernel of the tensor-core convs: one
 // stride-1 VALID K×K quantized conv on NHWC int8 codes (or raw int8 levels),
-// instantiated with two epilogues:
+// instantiated with three epilogues:
 //   kConvCodes  MultiThreshold → int8 codes   (conv_chain.cu::bnn_conv_layer,
 //               conv_direct.cu::bnn_conv_direct with thresholds)
 //   kConvAcc    the int32 accumulators        (bnn_conv_direct without)
+//   kConvPool   the 2×2 max-pool of the codes (bnn_conv_layer with pool): a
+//               tile's pixels run window by window, each window's largest
+//               accumulator is thresholded (mma_tile.cuh item_store_pooled)
 // One kernel body, one launcher (launch_conv); the design and what bounds it
 // are told in conv_chain.cu.
 #pragma once
@@ -13,7 +16,7 @@
 namespace bnn {
 namespace {
 
-enum ConvOut : int { kConvCodes = 0, kConvAcc = 1 };
+enum ConvOut : int { kConvCodes = 0, kConvAcc = 1, kConvPool = 2 };
 
 struct ConvArgs {
   const int8_t* x;     // [b, h, w, c]
@@ -26,6 +29,7 @@ struct ConvArgs {
   int oh, ow;
   int pixels;          // b * oh * ow
   int tile;            // output pixels per tile, a multiple of kItemRows
+                       // (kConvPool: 4 a pooled pixel)
   int n_chunk;         // weight columns staged at once
   int halo;            // 1: input rows staged, the mma reads them in place;
                        // 0: a patch row per pixel gathered from device memory
@@ -34,24 +38,47 @@ struct ConvArgs {
   int rows_bytes;      // bytes of one input-row buffer (0 without)
   int w_pitch;         // bytes per staged weight row
   int out_vec;         // codes: out is 16-byte aligned and n_out % 16 == 0;
-                       // accumulators: 8-byte aligned and n_out % 2 == 0
+                       // accumulators: 8-byte aligned and n_out % 2 == 0;
+                       // pooled codes: 2-byte aligned and n_out % 2 == 0
   EpilogueArgs ep;
 };
 
-// The first input row (of the flattened [b·h] row space) under output pixel
-// p. The rows that pixels [p0, p1] need are input_row_of(p0) ..
+// The first input row (of the flattened [b·h] row space) under tile pixel
+// p. Tile pixels are the output pixels of the flattened [b·oh·ow] grid in
+// order; with kConvPool, window by window: pixel 4q + s is position s (row
+// s / 2, column s % 2) of the 2×2 window of pooled pixel q of the flattened
+// [b·oh/2·ow/2] grid. Either way the rows that pixels [p0, p1] need (with
+// kConvPool p0 and p1 + 1 on window bounds) are input_row_of(p0) ..
 // input_row_of(p1) + ksize − 1: contiguous in memory, images included.
+template <int OUT>
 __device__ __forceinline__ int input_row_of(const ConvArgs& a, int p) {
-  const int q = p / a.ow;               // flattened output row
-  return (q / a.oh) * a.h + q % a.oh;
+  if constexpr (OUT == kConvPool) {
+    const int ph = a.oh >> 1;
+    const int q = (p >> 2) / (a.ow >> 1);    // flattened pooled row
+    return (q / ph) * a.h + 2 * (q % ph) + ((p >> 1) & 1);
+  } else {
+    const int q = p / a.ow;               // flattened output row
+    return (q / a.oh) * a.h + q % a.oh;
+  }
+}
+
+// The output column of tile pixel p (input_row_of's order).
+template <int OUT>
+__device__ __forceinline__ int column_of(const ConvArgs& a, int p) {
+  if constexpr (OUT == kConvPool) {
+    return 2 * ((p >> 2) % (a.ow >> 1)) + (p & 1);
+  } else {
+    return p % a.ow;
+  }
 }
 
 // Start the copy of the input rows of pixels [p0, p1] into `buf`, each
 // pixel's c bytes pitched to a_pitch.
+template <int OUT>
 __device__ __forceinline__ void copy_rows_async(const ConvArgs& a, int p0,
                                                 int p1, int8_t* buf) {
-  const int first = input_row_of(a, p0);
-  const int count = input_row_of(a, p1) + a.ksize - first;
+  const int first = input_row_of<OUT>(a, p0);
+  const int count = input_row_of<OUT>(a, p1) + a.ksize - first;
   const int8_t* src = a.x + static_cast<size_t>(first) * a.w * a.c;
   const unsigned dst = smem_addr(buf);
   const int cv = a.c / kVec;
@@ -68,6 +95,7 @@ __device__ __forceinline__ void copy_rows_async(const ConvArgs& a, int p0,
 // owns one pixel and every (threads / tile)-th run of it (a tile has at
 // most as many pixels as the block has threads), neighbouring threads
 // neighbouring pixels.
+template <int OUT>
 __device__ __forceinline__ void gather_patches(const ConvArgs& a, int p0,
                                                int p1, int8_t* buf) {
   const int run = a.ksize * a.c;
@@ -76,11 +104,12 @@ __device__ __forceinline__ void gather_patches(const ConvArgs& a, int p0,
   const int r = tid % a.tile;
   if (p0 + r > p1) return;
   const int p = p0 + r;
-  const size_t row0 = input_row_of(a, p);
+  const size_t row0 = input_row_of<OUT>(a, p);
   const int sub = a.input_levels ? 0 : a.ep.level_off;
   const int mul = a.input_levels ? 1 : 2;
   for (int ki = tid / a.tile; ki < a.ksize; ki += parts) {
-    const int8_t* src = a.x + ((row0 + ki) * a.w + p % a.ow) * a.c;
+    const int8_t* src =
+        a.x + ((row0 + ki) * a.w + column_of<OUT>(a, p)) * a.c;
     int8_t* dst = buf + r * a.a_pitch + ki * run;
     // loads first, four at a time: a byte store may alias the next load
     // for all the compiler knows, and would serialize them
@@ -104,7 +133,8 @@ __device__ __forceinline__ void gather_patches(const ConvArgs& a, int p0,
 // Within 128 registers a thread either way. The weight column chunks are
 // spread over the grid's second axis where the launcher gave it one (few
 // tiles, many chunks), else a block passes over its tiles once per chunk.
-// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh).
+// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh). kConvPool
+// stores no codes through the staging buffers, so it has none.
 template <int OUT, bool WIDE>
 __global__ void __launch_bounds__(2 * kThreads, 1)
 conv_kernel(const ConvArgs a) {
@@ -122,10 +152,11 @@ conv_kernel(const ConvArgs a) {
       smem + static_cast<size_t>(a.n_chunk) * a.w_pitch);
   int8_t* const stages =
       reinterpret_cast<int8_t*>(thr_s + thr_words<WIDE>(thr_rows, cols_pad));
-  int8_t* const stage = stages + warp * kStageBytes;
+  constexpr int kStage = OUT == kConvPool ? 0 : kStageBytes;
+  int8_t* const stage = stages + warp * kStage;
   // patch rows, two input-row buffers, and the byte offset of each tile
   // pixel's first tap within the activation buffer
-  int8_t* const patches = stages + nwarps * kStageBytes;
+  int8_t* const patches = stages + nwarps * kStage;
   int8_t* const rows0 = patches + a.patch_bytes;
   int8_t* const rows1 = rows0 + a.rows_bytes;
   int* const pix_off = reinterpret_cast<int*>(rows0 + 2 * a.rows_bytes);
@@ -165,7 +196,7 @@ conv_kernel(const ConvArgs a) {
     int cur = 0;
     if (halo && tile < ntiles) {
       const int p0 = tile * a.tile;
-      copy_rows_async(a, p0, min(p0 + a.tile, a.pixels) - 1, rows0);
+      copy_rows_async<OUT>(a, p0, min(p0 + a.tile, a.pixels) - 1, rows0);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -179,22 +210,22 @@ conv_kernel(const ConvArgs a) {
         const int next = tile + tile_step;
         if (next < ntiles) {
           const int q0 = next * a.tile;
-          copy_rows_async(a, q0, min(q0 + a.tile, a.pixels) - 1,
-                          cur ? rows0 : rows1);
+          copy_rows_async<OUT>(a, q0, min(q0 + a.tile, a.pixels) - 1,
+                               cur ? rows0 : rows1);
         }
         cp_async_commit();
         cp_async_wait<1>();   // all but the copy just started have landed
       } else {
-        gather_patches(a, p0, p1, patches);
+        gather_patches<OUT>(a, p0, p1, patches);
       }
       {
-        const int first_row = halo ? input_row_of(a, p0) : 0;
+        const int first_row = halo ? input_row_of<OUT>(a, p0) : 0;
         for (int m = threadIdx.x; m <= p1 - p0; m += blockDim.x) {
           const int p = p0 + m;
-          pix_off[m] =
-              halo ? ((input_row_of(a, p) - first_row) * a.w + p % a.ow) *
-                         pix_pitch
-                   : m * pix_pitch;
+          pix_off[m] = halo ? ((input_row_of<OUT>(a, p) - first_row) * a.w +
+                               column_of<OUT>(a, p)) *
+                                  pix_pitch
+                            : m * pix_pitch;
         }
       }
       __syncthreads();
@@ -244,6 +275,12 @@ conv_kernel(const ConvArgs a) {
           item_store_acc(acc, thr_s + n0, ep.codes_in ? 2 : 1,
                          static_cast<int32_t*>(a.out), ep.n_out, row0, rows,
                          col0, cols, a.out_vec, lane);
+        } else if constexpr (OUT == kConvPool) {
+          // a tile starts on a window, and its pixels fill whole windows
+          item_store_pooled<WIDE>(acc, thr_s + n0, cols_pad, ep.nthr,
+                                  static_cast<int8_t*>(a.out), ep.n_out,
+                                  row0 / 4, rows / 4, col0, cols, a.out_vec,
+                                  lane);
         } else {
           item_store_codes<8, WIDE>(
               acc, thr_s + n0, cols_pad, ep.nthr, stage,
@@ -258,18 +295,25 @@ conv_kernel(const ConvArgs a) {
   }
 }
 
-// Upper bound of the input rows a tile needs, over all tiles of `tile` pixels.
-inline int max_tile_rows(int tile, int oh, int ow, int ksize) {
-  const int out_rows = (tile - 1) / ow + 2;
-  const int images = (tile - 1) / (oh * ow) + 2;
-  return out_rows + images * (ksize - 1);
+// Upper bound of the input rows a tile needs, over all tiles of `tile`
+// pixels. pool: the tile holds tile / 4 pooled pixels of the [oh/2, ow/2]
+// grid, and a pooled row covers two output rows.
+inline int max_tile_rows(int tile, int oh, int ow, int ksize,
+                         bool pool = false) {
+  const int f = pool ? 2 : 1;
+  const int cells = tile / (f * f);
+  const int out_rows = (cells - 1) / (ow / f) + 2;
+  const int images = (cells - 1) / ((oh / f) * (ow / f)) + 2;
+  return f * out_rows + images * (ksize - 1);
 }
 
 // Validate, size the tile and launch one conv layer.
 //   x: int8 [b, h, w, c] codes (levels if input_levels); wt: int8 [n_out, k32]
 //   with k32 = round_up(ksize²·c, 32), zero past K; wsum: int32 [n_out], the
 //   column sums of wt; kConvCodes: thr int32 [nthr, n_out], out int8
-//   [b, h-ksize+1, w-ksize+1, n_out]; kConvAcc: no thresholds, out int32.
+//   [b, h-ksize+1, w-ksize+1, n_out]; kConvAcc: no thresholds, out int32;
+//   kConvPool: thr as kConvCodes, out int8 [b, oh/2, ow/2, n_out] for the
+//   output's oh × ow, both even (an odd map is refused, not cut).
 template <int OUT>
 int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
                 int input_levels, const void* wt, int k32, int n_out,
@@ -279,12 +323,15 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
       !abits_ok(abits) || k32 != round_up(ksize * ksize * c, kMmaK)) {
     return cudaErrorInvalidValue;
   }
-  if (OUT == kConvCodes ? !nthr_ok(nthr) : nthr != 0) {
+  if (OUT == kConvAcc ? nthr != 0 : !nthr_ok(nthr)) {
     return cudaErrorInvalidValue;
   }
   if (codes_are_levels(abits)) input_levels = 1;
   const int oh = h - ksize + 1;
   const int ow = w - ksize + 1;
+  if (OUT == kConvPool && (oh % 2 != 0 || ow % 2 != 0)) {
+    return cudaErrorInvalidValue;
+  }
   const long long pixels = static_cast<long long>(b) * oh * ow;
   if (pixels > 0x7fffffffLL || static_cast<long long>(b) * h > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
@@ -312,10 +359,10 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   a.ep.nthr = nthr;
   a.ep.n_out = n_out;
   a.ep.level_off = level_off(abits);
-  a.out_vec = OUT == kConvCodes
-                  ? n_out % kVec == 0 &&
-                        reinterpret_cast<uintptr_t>(out) % kVec == 0
-                  : n_out % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const uintptr_t out_at = reinterpret_cast<uintptr_t>(out);
+  a.out_vec = OUT == kConvCodes  ? n_out % kVec == 0 && out_at % kVec == 0
+              : OUT == kConvPool ? n_out % 2 == 0 && out_at % 2 == 0
+                                 : n_out % 2 == 0 && out_at % 8 == 0;
   const int thr_rows = OUT == kConvAcc ? 1 : nthr;
 
   // A tile has an item for each warp. Size a block of 8 warps: halve the
@@ -323,7 +370,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   // shared memory (a tile of one item would be left beside them), then
   // shrink the tile, then the columns again, until it fits. Where a second
   // such block would not fit beside it, take 16 warps on twice the tile if
-  // that fits.
+  // that fits. kConvPool's epilogue has no staging buffers.
   int warps = kWarps;
   a.tile = n_out <= kItemCols ? 256 : 128;
   a.n_chunk = round_up(n_out, 8);
@@ -333,11 +380,15 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   }
   const auto smem_of = [&](int tile, int nwarps) {
     const size_t span =
-        static_cast<size_t>(max_tile_rows(tile, oh, ow, ksize)) * w;
+        static_cast<size_t>(
+            max_tile_rows(tile, oh, ow, ksize, OUT == kConvPool)) *
+        w;
     a.rows_bytes = a.halo ? static_cast<int>(span * a.a_pitch) : 0;
     a.patch_bytes = a.halo ? 0 : tile * a.a_pitch;
     return static_cast<size_t>(a.n_chunk) * a.w_pitch +
-           epilogue_smem(thr_rows, a.n_chunk, nwarps) + a.patch_bytes +
+           epilogue_smem(thr_rows, a.n_chunk,
+                         OUT == kConvPool ? 0 : nwarps) +
+           a.patch_bytes +
            2 * static_cast<size_t>(a.rows_bytes) + tile * sizeof(int);
   };
   size_t smem = 0;
@@ -350,7 +401,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
       return cudaErrorInvalidValue;
     }
   }
-  if (2 * smem > static_cast<size_t>(kMaxSmem) &&
+  if (2 * (smem + kReservedSmem) > static_cast<size_t>(kSmemPerSm) &&
       smem_of(2 * a.tile, 2 * kWarps) <= static_cast<size_t>(kMaxSmem)) {
     warps = 2 * kWarps;
     a.tile *= 2;
@@ -359,7 +410,7 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   const int threads = 32 * warps;
 
   auto kernel = conv_kernel<OUT, false>;
-  if constexpr (OUT == kConvCodes) {
+  if constexpr (OUT != kConvAcc) {
     if (nthr == kMaxThr) kernel = conv_kernel<OUT, true>;
   }
   cudaError_t err = allow_smem(kernel, smem);

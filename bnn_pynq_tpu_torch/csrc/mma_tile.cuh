@@ -3,7 +3,9 @@
 // packed_matmul.cu, mosaic_probes.cu's shifted-row dot): int8 × int8 →
 // int32 warp tiles on mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, with
 // both operands read from shared memory by ldmatrix, cp.async staging, and
-// the MultiThreshold epilogue run on the accumulator fragments.
+// the MultiThreshold epilogue run on the accumulator fragments (or, for a
+// conv that a 2×2 max-pool follows, on each window's largest of them:
+// item_store_pooled).
 // (packed_matmul.cu's popcount arm runs the same item on the 1-bit
 // m16n8k256, whose fragments are these counted in bytes; it and the decode
 // arm read A from packed words.)
@@ -484,6 +486,107 @@ __device__ __forceinline__ void item_store_codes(
   } else {
     item_store_codes_n<3, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
                               rows, col0, cols, vec, lane);
+  }
+}
+
+// The 2×2 max-pool of m16 block mb of an item whose rows are windows: item
+// row 4w + s is position s of window w. A window's four rows (g, or g + 8,
+// for the four g that differ in bits 0-1: windows g / 4 and 2 + g / 4) sit
+// in the lanes 4 and 8 apart, so two exchanges with those lanes reduce each
+// window; at each a lane keeps half of its n8 blocks and sends the other
+// half, so that lane u = g % 4 ends with the window maxima of blocks u and
+// u + 4, which it leaves in blocks 0 and 4 of acc (the others then hold
+// nothing): 24 shuffles for 32 accumulators, a quarter of them left to
+// threshold.
+__device__ __forceinline__ void pool_windows(ItemAcc& acc, int mb, int lane) {
+  const bool odd = lane & 4;      // bit 0 of u: keeps the odd blocks
+  const bool high = lane & 8;     // bit 1 of u: keeps blocks 2 and 3 of 4
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {     // block 2·jp ← block 2·jp + odd
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lo = acc.c[mb][2 * jp][e], hi = acc.c[mb][2 * jp + 1][e];
+      const int other = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 4);
+      acc.c[mb][2 * jp][e] = max(odd ? hi : lo, other);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {        // block 4·k ← block 4·k + u
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int lo = acc.c[mb][4 * k][e], hi = acc.c[mb][4 * k + 2][e];
+      const int other = __shfl_xor_sync(0xffffffffu, high ? lo : hi, 8);
+      acc.c[mb][4 * k][e] = max(high ? hi : lo, other);
+    }
+  }
+}
+
+// Pool the item's 2×2 windows, threshold each window's largest accumulator
+// and store int8 codes: the code never falls as the accumulator grows (it
+// counts the thresholds at or below it, folded onto the raw accumulator
+// alike for every row of a column), so the largest accumulator's code is
+// the largest of the four codes, exactly. Overwrites acc.
+//   thr_s, cols_pad: as item_store_codes_n's;
+//   out + win0 · n_out + col0: the output of the item's window 0, column 0;
+//   windows, cols: the item's real windows (1..8) and columns (1..64);
+//   pairs: n_out is even and out 2-byte aligned, so a lane's two
+//     neighbouring codes leave as one 2-byte store (a warp's store then
+//     writes 32 contiguous bytes of each of two windows).
+template <int NTHR>
+__device__ __forceinline__ void item_store_pooled_n(
+    ItemAcc& acc, const int32_t* thr_s, int cols_pad, int8_t* out, int n_out,
+    size_t win0, int windows, int col0, int cols, bool pairs, int lane) {
+  const int t = lane & 3;
+  const int u = (lane >> 2) & 3;
+  constexpr bool kSearch = NTHR == kMaxThr;
+  // block 4k of acc holds block 4k + u: its thresholds lie 8·u columns on
+  const int32_t* thr_lane = thr_s + (kSearch ? t : 2 * t) + 8 * u;
+  if constexpr (kSearch) cols_pad = search_pitch(cols_pad);
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+    pool_windows(acc, mb, lane);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      int code[2][2];
+      block_codes<NTHR>(acc, mb, 4 * k, thr_lane, cols_pad, code);
+      const int n = 8 * (4 * k + u) + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int w = 4 * mb + 2 * h + (lane >> 4);
+        if (w >= windows || n >= cols) continue;
+        int8_t* o = out + (win0 + w) * n_out + col0 + n;
+        if (pairs && n + 1 < cols) {
+          *reinterpret_cast<uint16_t*>(o) =
+              static_cast<uint16_t>(code[h][0] | (code[h][1] << 8));
+        } else {
+          o[0] = static_cast<int8_t>(code[h][0]);
+          if (n + 1 < cols) o[1] = static_cast<int8_t>(code[h][1]);
+        }
+      }
+    }
+  }
+}
+
+// The same with the number of thresholds chosen as item_store_codes does.
+template <bool WIDE = false>
+__device__ __forceinline__ void item_store_pooled(
+    ItemAcc& acc, const int32_t* thr_s, int cols_pad, int nthr,
+    int8_t* out, int n_out, size_t win0, int windows, int col0, int cols,
+    bool pairs, int lane) {
+  if constexpr (WIDE) {
+    item_store_pooled_n<kMaxThr>(acc, thr_s, cols_pad, out, n_out, win0,
+                                 windows, col0, cols, pairs, lane);
+    return;
+  }
+  if (nthr == 1) {
+    item_store_pooled_n<1>(acc, thr_s, cols_pad, out, n_out, win0, windows,
+                           col0, cols, pairs, lane);
+  } else if (nthr == 2) {
+    item_store_pooled_n<2>(acc, thr_s, cols_pad, out, n_out, win0, windows,
+                           col0, cols, pairs, lane);
+  } else {
+    item_store_pooled_n<3>(acc, thr_s, cols_pad, out, n_out, win0, windows,
+                           col0, cols, pairs, lane);
   }
 }
 

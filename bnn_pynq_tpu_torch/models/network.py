@@ -9,6 +9,10 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
   stage is gone there: the conv kernel reads the raw image itself. A
   strided conv keeps JAX's layout: `im2col{i}` (`sliding_window` with the
   stride), then `chain{i}-{j}` on `conv_chain(input_patches=True)`.
+  `forward_mega` runs each chain that a 2×2 pool follows on an even map
+  as one stage, `chain{i}-{j}+pool{k}` (`conv_chain(pool=True)`: the last
+  conv's epilogue pools), where `mega_stages` by default keeps JAX's
+  stages one by one.
 - `forward` (← `forward(impl="pallas")`, the packed routes `vpu`, `mxu`,
   `mxu_rm`): every binary or 2-bit conv and dense layer packs its input
   codes into words and runs `packed_matmul` (the CUDA kernel
@@ -209,9 +213,14 @@ Stage = Tuple[str, Callable[[torch.Tensor], torch.Tensor]]
 
 
 def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
-                out_bias: torch.Tensor) -> List[Stage]:
+                out_bias: torch.Tensor, *,
+                fuse_pools: bool = False) -> List[Stage]:
     """The kernel route as (name, fn) stages; folding the fns over
-    `prepare_input(config, x)` gives float32 logits [B, num_classes]."""
+    `prepare_input(config, x)` gives float32 logits [B, num_classes].
+    fuse_pools: a conv chain whose output map is even and that the plan
+    follows with a 2×2 pool pools in its kernel's epilogue, one stage
+    `chain{i}-{j}+pool{k}` in place of `chain{i}-{j}` and `pool{k}` (the
+    same codes: `forward_mega` runs so)."""
     if config.separable:
         return _separable_stages(config, layers, out_scale, out_bias)
     plan = make_plan(config)
@@ -258,13 +267,20 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
             stages.append((f"im2col{idx}", partial(
                 sliding_window, kh=lp.kernel, kw=lp.kernel,
                 stride=lp.stride)))
-        stages.append((f"chain{group[0]}-{group[-1]}", partial(
+        shrink = (len(group) - 1) * (lp.kernel - 1)
+        h, w = oh - shrink, ow - shrink
+        name = f"chain{group[0]}-{group[-1]}"
+        pool = (fuse_pools and j < n and plan[j].kind == "pool"
+                and plan[j].window == 2 and h % 2 == 0 and w % 2 == 0)
+        if pool:
+            name += f"+pool{j}"
+            h, w = h // 2, w // 2
+            j += 1
+        stages.append((name, partial(
             conv_chain, weights=[layers[g]["w"] for g in group],
             thresholds=[layers[g]["thr"] for g in group],
             kernel=lp.kernel, abits=abits, input_patches=prebuild,
-            input_levels=levels)))
-        shrink = (len(group) - 1) * (lp.kernel - 1)
-        h, w = oh - shrink, ow - shrink
+            input_levels=levels, pool=pool)))
         levels = False
         idx = j
 
@@ -401,7 +417,8 @@ def forward_mega(config: NetworkConfig, layers, x: torch.Tensor,
                  out_bias: torch.Tensor) -> torch.Tensor:
     """Kernel-route forward: float32 logits [B, num_classes]."""
     act = prepare_input(config, x)
-    for _, fn in mega_stages(config, layers, out_scale, out_bias):
+    for _, fn in mega_stages(config, layers, out_scale, out_bias,
+                             fuse_pools=True):
         act = fn(act)
     return act
 

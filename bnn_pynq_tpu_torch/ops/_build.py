@@ -52,9 +52,9 @@ _SIGNATURES = {
     "bnn_dense_block": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
                         _P),
     # x, b, h, w, c, ksize, input_levels, wt, k32, n_out, wsum, thr, nthr,
-    # abits, out, stream
+    # abits, pool, out, stream
     "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
-                       _I, _P, _P),
+                       _I, _I, _P, _P),
     # x, b, h, w, c, stride, wt, thr, nthr, abits, out, stream
     "bnn_dw_conv": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P),
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream

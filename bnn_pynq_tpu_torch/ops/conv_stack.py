@@ -5,7 +5,8 @@ Ports of `bnn_pynq_tpu/ops/conv_stack.py`:
   int dot + MultiThreshold to codes, on activation codes, on a raw int8
   image (`input_levels=True`), or on prebuilt first-layer patches
   (`input_patches=True`, e.g. `sliding_window` with a stride). Unlike the
-  JAX kernel it returns the valid region only. CUDA kernel:
+  JAX kernel it returns the valid region only, or (`pool=True`) the 2×2
+  max-pool of it, which the last layer's epilogue computes. CUDA kernel:
   `csrc/conv_chain.cu` (entry `bnn_conv_layer`), launched once per layer
   (the intermediate codes go through device memory); prebuilt patches are
   its layer 0 at kernel 1.
@@ -27,18 +28,21 @@ from typing import Sequence
 import torch
 
 from bnn_pynq_tpu_torch.ops import _build
-from bnn_pynq_tpu_torch.ops.conv import sliding_window
+from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
 from bnn_pynq_tpu_torch.ops.fused_mlp import (check_chain,
                                               check_cuda_operands)
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
 from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
-                                               count_search, multithreshold)
+                                               count_search, multithreshold,
+                                               pooled_epilogue)
 
 
 def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
-                     input_patches: bool = False,
-                     input_levels: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of `conv_chain` (same arguments)."""
+                     input_patches: bool = False, input_levels: bool = False,
+                     pool: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of `conv_chain` (same arguments; `pool` is
+    `maxpool2d` of the chain's codes, whose map `conv_chain` has checked
+    to be even)."""
     act = x
     for j, (w, thr) in enumerate(zip(weights, thresholds)):
         vals = act if (j == 0 and input_levels) else \
@@ -48,13 +52,13 @@ def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
         b, oh, ow, k = patches.shape
         acc = int_matmul_ref(patches.reshape(b * oh * ow, k), w.kn)
         act = multithreshold(acc, thr).reshape(b, oh, ow, w.kn.shape[1])
-    return act
+    return maxpool2d(act) if pool else act
 
 
 def conv_chain(x: torch.Tensor, weights: Sequence,
                thresholds: Sequence[torch.Tensor], *, kernel: int,
                abits: int, input_patches: bool = False,
-               input_levels: bool = False) -> torch.Tensor:
+               input_levels: bool = False, pool: bool = False) -> torch.Tensor:
     """Chained stride-1 VALID K×K convs, every one thresholded (a strided
     first conv comes as its prebuilt patches).
 
@@ -71,7 +75,11 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
        searches it; `models/params.py` sorts them so).
     Returns int8 codes [B, H - n(K-1), W - n(K-1), C_last], n the layers
     that convolve in here (all of them, or all but layer 0 with
-    `input_patches`).
+    `input_patches`). pool: their 2×2 max-pool instead, [B, OH/2, OW/2,
+    C_last], which the last layer's epilogue computes on a CUDA tensor
+    (the maximum of each window's accumulators, thresholded: the code
+    never falls as the accumulator grows, so it is the largest code); an
+    odd OH or OW raises ValueError (`maxpool2d` would drop the edge).
 
     On a CUDA tensor prebuilt patches run as the kernel's layer at kernel
     1, their lanes zero-padded to the weights' `nk32` width first (the
@@ -99,10 +107,13 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
         if h < 1 or w < 1:
             raise ValueError(f"layer {j}: {kernel}×{kernel} conv leaves no "
                              "valid region")
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"pool: the chain's {h}×{w} map is odd; a 2×2 "
+                         "pool of it would drop its edge")
     if x.device.type == "cpu":
         return conv_chain_plain(x, weights, thresholds, kernel=kernel,
                                 abits=abits, input_patches=input_patches,
-                                input_levels=input_levels)
+                                input_levels=input_levels, pool=pool)
     check_cuda_operands(x, weights, thresholds)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -115,14 +126,18 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
                 act = torch.nn.functional.pad(act, (0, k32 - act.shape[-1]))
         b, h, w, c = act.shape
         n = wt.kn.shape[1]
-        out = torch.empty((b, h - ks + 1, w - ks + 1, n),
+        pooled = pool and j == len(weights) - 1
+        f = 2 if pooled else 1
+        out = torch.empty((b, (h - ks + 1) // f, (w - ks + 1) // f, n),
                           dtype=torch.int8, device=x.device)
         lib.call("bnn_conv_layer", act.data_ptr(), b, h, w, c, ks,
                  int(j == 0 and input_levels), wt.nk32.data_ptr(),
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
-                 thr.shape[0], abits, out.data_ptr(), stream)
+                 thr.shape[0], abits, int(pooled), out.data_ptr(), stream)
         conv_chain.launches.add()
         count_search(thr)
+        if pooled:
+            pooled_epilogue.add()
         act = out
     return act
 

@@ -13,7 +13,10 @@ thresholds; the kernels' 15-threshold epilogue (`csrc/mma_tile.cuh`)
 relies on the order all the same: it searches each channel's thresholds,
 4 compares in place of 15, and needs them ascending. `sort_thresholds`
 puts them so where parameters go onto a device (`models/params.py`), and
-`threshold_search` counts the launches that search.
+`threshold_search` counts the launches that search, and
+`pooled_epilogue` those whose epilogue max-pooled 2×2 windows before
+thresholding (exact for the same reason: a code never falls as its
+accumulator grows).
 """
 
 from __future__ import annotations
@@ -68,6 +71,12 @@ def sort_thresholds(thr: np.ndarray) -> np.ndarray:
 # `conv_direct.conv2d_direct`, `fused_mlp.fused_mlp_forward`);
 # runtime/engine.py::kernel_launches reports it.
 threshold_search = LaunchCounter()
+
+
+# Kernel launches whose epilogue pooled each 2×2 window's accumulators
+# before the thresholds (`conv_stack.conv_chain(pool=True)`'s last layer);
+# runtime/engine.py::kernel_launches reports it.
+pooled_epilogue = LaunchCounter()
 
 
 def count_search(thr: torch.Tensor) -> None:

@@ -167,7 +167,8 @@ def kernel_launches() -> Dict[str, int]:
            "conv2d_direct": conv_direct.conv2d_direct.launches.value,
            "conv_chain_direct": conv_direct.conv_chain_direct.launches.value,
            "depthwise_conv": depthwise.depthwise_conv.launches.value,
-           "threshold_search": thresholds.threshold_search.value}
+           "threshold_search": thresholds.threshold_search.value,
+           "pooled_epilogue": thresholds.pooled_epilogue.value}
     out.update({f"packed_matmul[{r}]": c.value
                 for r, c in matmul.packed_matmul.launches.items()})
     return out

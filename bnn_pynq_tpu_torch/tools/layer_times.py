@@ -6,14 +6,16 @@ time goes on a CUDA card.
 Needs one CUDA card and nvcc. Without options it prints all five sections
 (`layers`, `packed`, `rates`, `profiles`, `probes`), at batch 1024:
 
-1. for CNV-W1A1's four `conv_chain` layers and its `dense_block` (block6) on
-   seeded inputs and random weights: the device ms per call under CUDA graph
-   replay (`graph_ms`: 10 calls a graph, median of 20 replays; no host
-   enqueue in the reading), the int8 operations per call, the rate reached;
-   the same for the five `conv2d_direct` layers of the `direct` route (the
-   last, whose kernel covers its map, also through the conv kernel and
-   through `dense_block`'s on the flattened rows), and for `fused_mlp` at
-   the widths of CNV's tail, LFC and SFC, at 1024 rows and at one;
+1. for CNV-W1A1's four `conv_chain` layers (conv1 and conv3 with the 2×2
+   pool in their epilogue, as the `mega` route runs them) and its
+   `dense_block` (block6) on seeded inputs and random weights: the device
+   ms per call under CUDA graph replay (`graph_ms`: 10 calls a graph,
+   median of 20 replays; no host enqueue in the reading), the int8
+   operations per call, the rate reached; the same for the five
+   `conv2d_direct` layers of the `direct` route (the last, whose kernel
+   covers its map, also through the conv kernel and through
+   `dense_block`'s on the flattened rows), and for `fused_mlp` at the
+   widths of CNV's tail, LFC and SFC, at 1024 rows and at one;
 2. `packed`: `packed_matmul` at the eight packed layers of CNV-W1A1 on the
    popcount arm ('vpu') and on the decode arm ('mxu'), at one row (batch-1
    dense layers) and at the 10-column last layer, and `conv_chain_direct`
@@ -69,6 +71,8 @@ BATCH = 1024
 # (label, input H = W, C, N): the chain layers of CNV (3×3, stride 1)
 CONV_LAYERS = (("conv0", 32, 3, 64), ("conv1", 30, 64, 64),
                ("conv2", 14, 64, 128), ("conv3", 12, 128, 128))
+# the chain layers a 2×2 pool follows, pooled in their epilogue on `mega`
+POOLED = ("conv1", "conv3")
 BLOCK6 = (9, 1152, 256)        # rows per image, K, N
 # the direct route's conv layers (3×3, stride 1): conv1-3 above, then
 DIRECT_LAYERS = CONV_LAYERS[1:] + (("conv4", 5, 128, 256),
@@ -334,11 +338,13 @@ def layer_times(device: torch.device) -> None:
             else rng.integers(0, 2, size=(BATCH, hw, hw, c))
         x = dev(x.astype(np.int8))
         w, thr = layer(9 * c, n)
+        pool = label in POOLED
         ms = graph_ms(lambda: conv_stack.conv_chain(
-            x, [w], [thr], kernel=3, abits=1, input_levels=image))
+            x, [w], [thr], kernel=3, abits=1, input_levels=image, pool=pool))
         ops = 2 * BATCH * (hw - 2) ** 2 * 9 * c * n
         total += ms
-        print(f"{label} {tuple(x.shape)} -> {n}: {ms:.4f} ms, "
+        print(f"{label}{' pooled' * pool} {tuple(x.shape)} -> {n}: "
+              f"{ms:.4f} ms, "
               f"{ops / 1e9:.1f} G operations, {ops / ms / 1e9:.1f} TOP/s")
     print(f"conv_chain, the four layers: {total:.4f} ms")
     rows, k, n = BLOCK6

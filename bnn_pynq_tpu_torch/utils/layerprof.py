@@ -9,9 +9,11 @@ CUDA graph replay (`utils/profiling.py::graph_stats`, the method of
 `tools/layer_times.py`); on the CPU (the plain versions) by the host
 clock.
 
-On the `mega` routes the stages are `models/network.py::mega_stages`: a
-`conv_chain` launch, a pool, a `dense_block`, the `fused_mlp` tail; a
-stage that runs several layers of the plan gives one row for them. On the
+On the `mega` routes the stages are the ones `forward_mega` runs,
+`models/network.py::mega_stages(fuse_pools=True)`: a `conv_chain` launch
+(with the 2×2 pool after it in its epilogue, `chain{i}-{j}+pool{k}`, where
+the map is even), a pool, a `dense_block`, the `fused_mlp` tail; a stage
+that runs several layers of the plan gives one row for them. On the
 decoded-integer routes `xla` and `xlaconv` every layer of the plan is a
 stage of its own (`_layer_fns`, JAX's rows): a pool, or a library dot or
 conv (`ops/int_dot.py`) with its MultiThreshold.
@@ -63,15 +65,16 @@ def _layer_macs(config, batch: int) -> List[int]:
 
 
 def _stage_layers(names, n_layers: int) -> List[List[int]]:
-    """The plan indices each stage runs: `chain{a}-{b}`, `pool{i}`,
+    """The plan indices each stage runs: `chain{a}-{b}`,
+    `chain{a}-{b}+pool{k}` (the pool in the chain's epilogue), `pool{i}`,
     `block{i}`, `im2col{i}` (the patches of conv i, which its chain
     computes), and the `mlp_tail` the rest."""
     spans = []
     for name in names:
-        m = re.fullmatch(r"(?:chain|pool|block|im2col)(\d+)(?:-(\d+))?",
-                         name)
+        m = re.fullmatch(r"(?:chain|pool|block|im2col)(\d+)(?:-(\d+))?"
+                         r"(?:\+pool(\d+))?", name)
         spans.append(None if m is None else list(
-            range(int(m[1]), int(m[2] or m[1]) + 1)))
+            range(int(m[1]), int(m[3] or m[2] or m[1]) + 1)))
     taken = {i for s in spans if s for i in s}
     rest = [i for i in range(n_layers) if i not in taken]
     return [rest if s is None else s for s in spans]
@@ -83,12 +86,12 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
     [{layer, layers, stage, kind, k, n, ms, macs, noise_ms, suspect,
     tops}]: `layer` the stage's first plan index, `layers` all of them,
     `kind` their kinds joined by '+', `k` the first one's contraction and
-    `n` the last one's width; `noise_ms` the half range of the readings,
-    `suspect` a time below it. route: one of MEGA_ROUTES (its stages) or
-    XLA_ROUTES (a stage a layer, named `layer{i}`). device="cuda"
-    (default) raises without CUDA; "cpu" times the plain versions and the
-    CPU's library calls. `iters`: graph replays (card) or launches a
-    window (CPU)."""
+    `n` the last conv or dense one's width (0 for a pool alone);
+    `noise_ms` the half range of the readings, `suspect` a time below it.
+    route: one of MEGA_ROUTES (its stages) or XLA_ROUTES (a stage a layer,
+    named `layer{i}`). device="cuda" (default) raises without CUDA; "cpu"
+    times the plain versions and the CPU's library calls. `iters`: graph
+    replays (card) or launches a window (CPU)."""
     if route not in MEGA_ROUTES and route not in XLA_ROUTES:
         raise ValueError(f"route {route!r}: the stage list is the mega "
                          f"route's, one of {MEGA_ROUTES}, or a layer a "
@@ -108,7 +111,8 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
         stages = [(f"layer{i}", fn) for i, fn in enumerate(fns)]
         spans = [[i] for i in range(len(plan))]
     else:
-        stages = mega_stages(config, layers, out_scale, out_bias)
+        stages = mega_stages(config, layers, out_scale, out_bias,
+                             fuse_pools=True)
         spans = _stage_layers([s for s, _ in stages], len(plan))
     rng = np.random.default_rng(0)
     if config.input_kind == "bipolar":
@@ -134,7 +138,9 @@ def profile_layers(compiled, batch: int = 1024, iters: int = 30, *,
         rows.append({
             "layer": idx[0], "layers": idx, "stage": name,
             "kind": "+".join(plan[i].kind for i in idx),
-            "k": plan[idx[0]].k, "n": plan[idx[-1]].n,
+            "k": plan[idx[0]].k,
+            "n": ([plan[i].n for i in idx if plan[i].kind != "pool"]
+                  or [0])[-1],
             "ms": ms, "macs": macs, "noise_ms": noise,
             "suspect": bool(ms < noise),
             "tops": 2 * macs / (ms / 1e3) / 1e12 if macs and ms > 0

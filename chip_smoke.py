@@ -10,8 +10,11 @@ Phases (every check raises, so any failure exits non-zero):
 2. build the kernels from bnn_pynq_tpu_torch/csrc (nvcc, first use);
 3. each kernel against its plain version on the card, on seeded inputs at
    the CNV-W1A1 main-path shapes at batch 1024 (and W2A2, LFC cases):
-   codes exactly equal, logits within rtol=atol=1e-5; the median device
-   time per call of each over 20 runs of 10 back-to-back calls, with
+   conv_chain's two chains as the path runs them, the 2×2 max-pool in the
+   last conv's epilogue (`pool=True`, one `pooled_epilogue` each; their
+   bound counts the pooled write), then unpooled at the same shapes, off
+   the row; codes exactly equal, logits within rtol=atol=1e-5; the median
+   device time per call of each over 20 runs of 10 back-to-back calls, with
    CUDA events, and for the main-path cases also under CUDA graph
    replay (no host in the way); then ragged and odd cases of conv_chain
    and dense_block (batch 1 and 1023, N = 10 and 100, C = 3 and 24, a
@@ -21,7 +24,8 @@ Phases (every check raises, so any failure exits non-zero):
    bound and graph-replay time; W2A2 with three thresholds; hidden widths
    that are no multiple of 64; thresholds at the ends of int32);
 4. the main path: InferenceEngine(cnv-w1a1, device="cuda").classify of
-   1024 seeded images, with every kernel's launch count read around it;
+   1024 seeded images, with every kernel's launch count read around it
+   (2 pooled epilogues a forward: conv1 and conv4 pool, no pool op);
    logits against runtime="ref" on the card; images/s of both runtimes;
 5. the same agreement for lfc-w1a1 (whole net in fused_mlp) and cnv-w2a2;
 6. a BatchingServer over the CUDA CNV-W1A1 engine answering 68 requests;
@@ -221,7 +225,8 @@ Phases (every check raises, so any failure exits non-zero):
    ms, graph ms, plain ms and bound on conv_chain's row; (c) strided nets
    (a strided conv on the image, and one on codes after a pool; W1A1 and
    W2A2, random parameters from a seed) on InferenceEngine 'mega' and
-   's2d' at batch 1024: the stage list JAX's (`im2col{i}`), logits
+   's2d' at batch 1024: the stage list the engine runs (JAX's, `im2col{i}`,
+   each chain a 2×2 pool follows fused, `chain0-1+pool2`), logits
    within rtol=atol=1e-5 of runtime="ref" with argmax and classify
    equal, each program equal to the eager forward bit for bit, the kernel
    launches counted from 0 around the engines; a ring step's int32
@@ -239,10 +244,10 @@ Phases (every check raises, so any failure exits non-zero):
    and under graph replay, its plain time and its bound, summed by kernel;
    then InferenceEngine on 'mega': the launches of its first use read from
    zero (the eager run and the capture, each 1 conv_chain, 13
-   depthwise_conv, 13 dense_block, 1 fused_mlp), the program's capture
-   equal to the eager forward's, logits equal to the stage walk's and to
-   runtime="ref" on the card bit for bit, argmax and `classify` of the
-   uint8 pixels equal. The depthwise kernel gets a row of its own.
+   depthwise_conv, 13 dense_block, 1 fused_mlp; no pooled epilogue), the
+   program's capture equal to the eager forward's, logits equal to the
+   stage walk's and to runtime="ref" on the card bit for bit, argmax and
+   `classify` of the uint8 pixels equal. The depthwise kernel gets a row of its own.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -407,10 +412,14 @@ def _time_ms(torch, fn, calls=10):
 
 
 def _kernel_cases(torch, device):
-    """(kernel name, case label, wrapper fn, plain fn, output kind, work) at
-    the main-path shapes, from the pretrained weights and seeded inputs;
-    then the ragged and odd cases of conv_chain and dense_block (work None:
-    checked and timed, on no kernel's row)."""
+    """(kernel name, case label, wrapper fn, plain fn, output kind, work,
+    on the row) at the main-path shapes, from the pretrained weights and
+    seeded inputs: CNV's chains as the path runs them, the 2×2 pool after
+    each in its last conv's epilogue (`pool=True`), on conv_chain's row
+    for CNV-W1A1, then unpooled at the same shapes (on no row: the direct
+    kernels' chains are timed beside them); then the ragged and odd cases
+    of conv_chain and dense_block (work None: checked and timed, on no
+    kernel's row)."""
     from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
     from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
                                                   weight_matrix)
@@ -447,31 +456,34 @@ def _kernel_cases(torch, device):
         tail = dict(weights=[layers[i]["w"] for i in (7, 8, 9, 10)],
                     thresholds=[layers[i]["thr"] for i in (7, 8, 9)],
                     out_scale=scale, out_bias=bias, abits=ab)
+        row = name == "cnv-w1a1"
+        chains = [("chain0-1", "+pool2", image, chain01, (64, 64)),
+                  ("chain3-4", "+pool5", x34, chain34, (128, 128))]
+        for pool in (True, False):
+            cases += [
+                ("conv_chain",
+                 f"{name} {chain}{suffix * pool} {tuple(x.shape)}",
+                 lambda x=x, kw=kw, p=pool: conv_stack.conv_chain(
+                     x, pool=p, **kw),
+                 lambda x=x, kw=kw, p=pool: conv_stack.conv_chain_plain(
+                     x, pool=p, **kw),
+                 "codes", _work(_conv_gemms(x.shape, 3, widths), x,
+                                *_kn(kw["weights"]), *kw["thresholds"]),
+                 row and pool)
+                for chain, suffix, x, kw, widths in chains]
         cases += [
-            ("conv_chain", f"{name} chain0-1 {tuple(image.shape)}",
-             lambda x=image, kw=chain01: conv_stack.conv_chain(x, **kw),
-             lambda x=image, kw=chain01: conv_stack.conv_chain_plain(x, **kw),
-             "codes", _work(_conv_gemms(image.shape, 3, (64, 64)), image,
-                            *_kn(chain01["weights"]),
-                            *chain01["thresholds"])),
-            ("conv_chain", f"{name} chain3-4 {tuple(x34.shape)}",
-             lambda x=x34, kw=chain34: conv_stack.conv_chain(x, **kw),
-             lambda x=x34, kw=chain34: conv_stack.conv_chain_plain(x, **kw),
-             "codes", _work(_conv_gemms(x34.shape, 3, (128, 128)), x34,
-                            *_kn(chain34["weights"]),
-                            *chain34["thresholds"])),
             ("dense_block", f"{name} block6 {tuple(x6.shape)}",
              lambda x=x6, kw=block6: conv_stack.dense_block(x, **kw),
              lambda x=x6, kw=block6: conv_stack.dense_block_plain(x, **kw),
              "codes", _work(_dense_gemms(len(x6), block6["weights"]), x6,
                             *_kn(block6["weights"]),
-                            *block6["thresholds"])),
+                            *block6["thresholds"]), row),
             ("fused_mlp", f"{name} mlp_tail {tuple(xt.shape)}",
              lambda x=xt, kw=tail: fused_mlp.fused_mlp_forward(x, **kw),
              lambda x=xt, kw=tail: fused_mlp.fused_mlp_forward_plain(x, **kw),
              "logits", _work(_dense_gemms(len(xt), tail["weights"]), xt,
                              *_kn(tail["weights"]), *tail["thresholds"],
-                             scale, bias)),
+                             scale, bias), row),
         ]
         nets[name] = layers
     c = load_artifact(_artifact("lfc-w1a1"))
@@ -487,7 +499,7 @@ def _kernel_cases(torch, device):
          lambda x=xl, kw=lfc: fused_mlp.fused_mlp_forward_plain(x, **kw),
          "logits", _work(_dense_gemms(len(xl), lfc["weights"]), xl,
                          *_kn(lfc["weights"]), *lfc["thresholds"], scale,
-                         bias)))
+                         bias), False))
     tails = {name: dict(weights=[nets[name][i]["w"] for i in (7, 8, 9, 10)],
                         thresholds=[nets[name][i]["thr"] for i in (7, 8, 9)],
                         out_scale=scale, out_bias=bias)
@@ -514,14 +526,14 @@ def _kernel_cases(torch, device):
         cases.append(("conv_chain", f"odd: {label} {tuple(x.shape)}",
                       lambda: conv_stack.conv_chain(x, **kw),
                       lambda: conv_stack.conv_chain_plain(x, **kw),
-                      "codes", None))
+                      "codes", None, False))
 
     def dense(label, x, ws, ts, **kw):
         kw = dict(weights=ws, thresholds=ts, **kw)
         cases.append(("dense_block", f"odd: {label} {tuple(x.shape)}",
                       lambda: conv_stack.dense_block(x, **kw),
                       lambda: conv_stack.dense_block_plain(x, **kw),
-                      "codes", None))
+                      "codes", None, False))
 
     def mlp(label, x, work=False, **kw):
         cases.append(("fused_mlp", f"odd: {label} {tuple(x.shape)}",
@@ -531,7 +543,7 @@ def _kernel_cases(torch, device):
                       _work(_dense_gemms(len(x), kw["weights"]), x,
                             *_kn(kw["weights"]), *kw["thresholds"],
                             kw["out_scale"], kw["out_bias"])
-                      if work else None))
+                      if work else None, False))
 
     def rand_mlp(widths, wbits, abits):
         ws, ts = rand_layers(widths, wbits, abits)
@@ -3415,7 +3427,9 @@ def _xla_layers(torch, smi):
     spans["packed_matmul"] = [i for i, k in enumerate(kinds)
                               if k in ("conv", "dense")]
     spans["conv2d_direct"] = [i for i, k in enumerate(kinds) if k == "conv"]
-    spans["conv_chain_direct"] = spans["conv_chain"]
+    # the mega chains take in the pools after them; the direct chains not
+    spans["conv_chain_direct"] = [i for i in spans["conv_chain"]
+                                  if kinds[i] != "pool"]
     by_kernel = {k: {"layers": idx, **{r: sum(rows[r][i]["ms"] for i in idx)
                                         for r in ("xla", "xlaconv")}}
                  for k, idx in spans.items()}
@@ -3561,9 +3575,8 @@ def _strided_configs():
 
 
 STRIDED_STAGES = {
-    "strided-first": ["im2col0", "chain0-1", "pool2", "block3", "mlp_tail"],
-    "strided-pool": ["chain0-1", "pool2", "im2col3", "chain3-4",
-                     "mlp_tail"]}
+    "strided-first": ["im2col0", "chain0-1+pool2", "block3", "mlp_tail"],
+    "strided-pool": ["chain0-1+pool2", "im2col3", "chain3-4", "mlp_tail"]}
 
 
 def _patch_cases(torch, device, images, smi):
@@ -3680,7 +3693,8 @@ def _strided_engines(torch, device, smi):
                                                    init_random_params,
                                                    mega_stages)
     from bnn_pynq_tpu_torch.models.params import weight_matrix
-    from bnn_pynq_tpu_torch.ops import conv_direct, conv_stack, fused_mlp
+    from bnn_pynq_tpu_torch.ops import (conv_direct, conv_stack, fused_mlp,
+                                        thresholds)
     from bnn_pynq_tpu_torch.parallel.launch import run_world
     from bnn_pynq_tpu_torch.parallel.overlap import conv_partial
     from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
@@ -3688,7 +3702,8 @@ def _strided_engines(torch, device, smi):
     rng = np.random.default_rng(23)
     counters = {"conv_chain": conv_stack.conv_chain.launches,
                 "dense_block": conv_stack.dense_block.launches,
-                "fused_mlp": fused_mlp.fused_mlp_forward.launches}
+                "fused_mlp": fused_mlp.fused_mlp_forward.launches,
+                "pooled_epilogue": thresholds.pooled_epilogue}
     nets, singles = [], {}
     for c in counters.values():
         c.reset()
@@ -3705,7 +3720,8 @@ def _strided_engines(torch, device, smi):
         for route in ("mega", "s2d"):
             eng = InferenceEngine(compiled, device="cuda", route=route)
             label = f"{cfg.name} {route}"
-            names = [n for n, _ in mega_stages(cfg, *eng._state.params)]
+            names = [n for n, _ in mega_stages(cfg, *eng._state.params,
+                                               fuse_pools=True)]
             assert names == STRIDED_STAGES[cfg.name.rsplit("-", 1)[0]], \
                 f"{label}: stages {names}"
             got, cls = eng.logits(images), eng.classify(images)
@@ -3916,9 +3932,12 @@ def _mobilenet_phase(torch, smi):
     eng = InferenceEngine(compiled, device="cuda", route="mega")
     for c in counters.values():
         c.reset()
+    pooled = thresholds.pooled_epilogue.value
     logits = eng.fetch(eng.launch_prepared(x))
     torch.cuda.synchronize()
     launches = {k: c.value for k, c in counters.items()}
+    # no 2×2 max-pool follows any of its convs
+    assert thresholds.pooled_epilogue.value == pooled, "a pooled epilogue"
     prog = _hold_program(torch, eng, ((MOBILENET_BATCH,) + cfg.input_shape,
                                       torch.int8, False, False),
                          "mobilenet")
@@ -3954,7 +3973,7 @@ def main(argv=None) -> int:
         return 1
     from bnn_pynq_tpu_torch import native
     from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
-                                        fused_mlp, matmul)
+                                        fused_mlp, matmul, thresholds)
     from bnn_pynq_tpu_torch.runtime.engine import (InferenceEngine,
                                                    library_calls)
     from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
@@ -4001,10 +4020,14 @@ def main(argv=None) -> int:
                 "conv_chain": conv_stack.conv_chain.launches}
     results = {k: _new_result() for k in counters}
     chain_ms = {}                 # conv_chain's time per case label
-    for kname, label, kern, plain, kind_out, work in \
+    for kname, label, kern, plain, kind_out, work, row in \
             _kernel_cases(torch, device):
+        pooled = thresholds.pooled_epilogue.value
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        # a pooled chain pools in its last launch's epilogue, and only it
+        assert thresholds.pooled_epilogue.value - pooled == \
+            ("+pool" in label), label
         assert got.shape == want.shape and got.dtype == want.dtype, label
         err = float((got.double() - want.double()).abs().max())
         if kind_out == "codes":
@@ -4015,12 +4038,13 @@ def main(argv=None) -> int:
         r = results[kname]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         beside = ""
-        if label.startswith("cnv-w1a1"):    # main-path time per forward
+        if row:                             # main-path time per forward
             bound = _account(torch, device, r, work, got, ms, plain_ms)
             replay_ms = graph_ms(kern)
             r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
             beside = f" (graph replay {replay_ms:.4f} ms), bound {bound:.4f} ms"
-        elif work:      # another net's whole MLP: on no row, with its bound
+        elif work:      # another net's layers, or an unpooled chain: on no
+            # row, with its bound
             ops_ms, bytes_ms = _bounds(work, got)
             beside = (f" (graph replay {graph_ms(kern):.4f} ms), bound "
                       f"{max(ops_ms, bytes_ms):.5f} ms "
@@ -4034,6 +4058,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(1)
     images = rng.integers(0, 256, size=(BATCH, 32, 32, 3), dtype=np.uint8)
     eng = InferenceEngine.from_artifact(_artifact("cnv-w1a1"), device="cuda")
+    counters["pooled_epilogue"] = thresholds.pooled_epilogue
     for c in counters.values():
         c.reset()
     pred = eng.classify(images)
@@ -4051,6 +4076,8 @@ def main(argv=None) -> int:
         assert n > 0, f"main path never launched {k}"
         assert n == 2 * prog.launches[k], (k, n, prog.launches)
     assert prog.replays.value == 1
+    # conv1 and conv4 pool in their epilogue: no pool op is left
+    assert prog.launches["pooled_epilogue"] == 2, prog.launches
     assert pred.shape == (BATCH,) and pred.min() >= 0 and pred.max() < 10
     # the host-prepared int8 batch, a program of its own: the same classes
     assert (eng.classify(eng.prepare(images), prepared=True) == pred).all()

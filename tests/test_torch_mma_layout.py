@@ -32,6 +32,7 @@ from bnn_pynq_tpu_torch.ops import conv_stack
 
 # csrc/common.cuh, csrc/mma_tile.cuh, csrc/dense_block.cu
 THREADS, VEC, MAX_SMEM = 256, 16, 227 * 1024
+SMEM_PER_SM, RESERVED_SMEM = 228 * 1024, 1024
 MMA_K, ITEM_ROWS, ITEM_COLS, PITCH_PAD = 32, 32, 64, 16
 WARPS = THREADS // 32
 SLICE, STAGES = 64, 3
@@ -155,21 +156,24 @@ def stage_thresholds(cols_pad, ep, nc0, ncols):
     return thr_s
 
 
-def block_codes(acc, mb, j, thr_s, cols_pad, nthr):
+def block_codes(acc, mb, j, thr_s, cols_pad, nthr, shift=0):
     """code [h][c][lane]: 1-3 thresholds compared one by one, 15 searched
-    (each column ascending): pos += acc >= t[pos + s - 1] ? s : 0."""
+    (each column ascending): pos += acc >= t[pos + s - 1] ? s : 0. shift:
+    each lane's thresholds that many columns on (the pooled epilogue's
+    8·u), 0 or an array over the lanes."""
     t = LANES & 3
     code = np.zeros((2, 2, 32), np.int64)
     if nthr != MAX_THR:
         for k in range(nthr):
-            th = [thr_s[k * cols_pad + 8 * j + 2 * t + c] for c in (0, 1)]
+            th = [thr_s[k * cols_pad + shift + 8 * j + 2 * t + c]
+                  for c in (0, 1)]
             for h in range(2):
                 for c in range(2):
                     code[h, c] += acc[mb, j, :, 2 * h + c] >= th[c]
         return code
     pitch = thr_pitch(nthr, cols_pad)
     for c in range(2):
-        col = 8 * j + 4 * c + t                      # the lane's slot
+        col = shift + 8 * j + 4 * c + t              # the lane's slot
         mid = thr_s[col + 7 * pitch]
         for h in range(2):
             a = acc[mb, j, :, 2 * h + c]
@@ -214,6 +218,56 @@ def item_store_codes(acc, thr_s, cols_pad, nthr, out, row0, rows, col0, cols,
                                     r * STAGE_PITCH + c16 + VEC]
 
 
+def pool_windows(acc, mb):
+    """The two exchanges of m16 block mb, in place: with the lanes 4 apart
+    (bit 0 of u = g % 4: the odd n8 blocks kept), into blocks 0, 2, 4, 6;
+    then 8 apart (bit 1: blocks 2 and 3 of each 4 kept), into blocks 0 and
+    4, which then hold the window maxima of blocks u and 4 + u."""
+    odd, high = (LANES & 4) != 0, (LANES & 8) != 0
+    for jp in range(4):
+        for e in range(4):
+            lo, hi = acc[mb, 2 * jp, :, e].copy(), acc[mb, 2 * jp + 1, :, e]
+            other = np.where(odd, lo, hi)[LANES ^ 4]  # __shfl_xor_sync 4
+            acc[mb, 2 * jp, :, e] = np.maximum(np.where(odd, hi, lo), other)
+    for k in range(2):
+        for e in range(4):
+            lo, hi = acc[mb, 4 * k, :, e].copy(), acc[mb, 4 * k + 2, :, e]
+            other = np.where(high, lo, hi)[LANES ^ 8]
+            acc[mb, 4 * k, :, e] = np.maximum(np.where(high, hi, lo), other)
+
+
+def pooled_stores(mb, k, h):
+    """(window, column) of item_store_pooled_n's store of code[h][c] in
+    each lane, c = 0 (column + 1 for c = 1): window 4·mb + 2·h + lane / 16,
+    column 8·(4k + u) + 2t."""
+    u, t = (LANES >> 2) & 3, LANES & 3
+    return 4 * mb + 2 * h + (LANES >> 4), 8 * (4 * k + u) + 2 * t
+
+
+def item_store_pooled(acc, thr_s, cols_pad, nthr, out, win0, windows, col0,
+                      cols, pairs):
+    """out: [all windows, n_out] int8. thr_s starts at the item's column
+    0. Each window's largest accumulator, thresholded; overwrites acc."""
+    u = (LANES >> 2) & 3
+    for mb in range(2):
+        pool_windows(acc, mb)
+        for k in range(2):
+            code = block_codes(acc, mb, 4 * k, thr_s, cols_pad, nthr,
+                               shift=8 * u)
+            for h in range(2):
+                w, n = pooled_stores(mb, k, h)
+                for lane in range(32):
+                    if w[lane] >= windows or n[lane] >= cols:
+                        continue
+                    o = (win0 + w[lane], col0 + n[lane])
+                    if pairs and n[lane] + 1 < cols:
+                        out[o[0], o[1]:o[1] + 2] = code[h, :, lane]
+                    else:
+                        out[o] = code[h, 0, lane]
+                        if n[lane] + 1 < cols:
+                            out[o[0], o[1] + 1] = code[h, 1, lane]
+
+
 def stage_acc_correction(cols_pad, ep, nc0, ncols):
     """sub_s [cols_pad]: off·wsum where the dot ran on codes, else 0."""
     _, wsum, _, off, codes_in = ep
@@ -246,12 +300,14 @@ def item_store_acc(acc, sub_s, mul, out, row0, rows, col0, cols, pairs):
 # -- conv_tile.cuh ------------------------------------------------------------
 
 class ConvEmu:
-    """`thr` None: the int32 epilogue (kConvAcc). grid: blocks along x;
-    room: the blocks the card holds at once (SMs × resident), which decides
-    whether the column chunks go on the grid's second axis."""
+    """`thr` None: the int32 epilogue (kConvAcc); pool: the 2×2 max-pool
+    of the codes (kConvPool), the tile's pixels window by window. grid:
+    blocks along x; room: the blocks the card holds at once (SMs ×
+    resident), which decides whether the column chunks go on the grid's
+    second axis."""
 
     def __init__(self, x, ksize, input_levels, w: WeightMatrix, thr, abits,
-                 tile=None, grid=3, room=6):
+                 tile=None, grid=3, room=6, pool=False):
         self.x = x.reshape(-1)
         b, self.h, self.w, self.c = x.shape
         self.ksize, self.input_levels = ksize, input_levels
@@ -261,6 +317,10 @@ class ConvEmu:
         self.n_out = w.kn.shape[1]
         self.oh, self.ow = self.h - ksize + 1, self.w - ksize + 1
         self.pixels = b * self.oh * self.ow
+        self.pool = pool
+        assert not pool or (self.oh % 2 == 0 and self.ow % 2 == 0), \
+            "the launcher refuses an odd map"
+        assert not (pool and thr is None)
         self.halo = halo = self.c % MMA_K == 0
         self.a_pitch = padded_pitch(self.c if halo else self.k32)
         self.w_pitch = padded_pitch(self.k32)
@@ -286,8 +346,8 @@ class ConvEmu:
             self.patch_bytes = 0 if halo else tile * self.a_pitch
             return self.n_chunk * self.w_pitch + \
                 thr_words(nthr, round_up(self.n_chunk, ITEM_COLS)) * 4 + \
-                warps * 16 * STAGE_PITCH + self.patch_bytes + \
-                2 * self.rows_bytes + tile * 4
+                (0 if pool else warps * 16 * STAGE_PITCH) + \
+                self.patch_bytes + 2 * self.rows_bytes + tile * 4
 
         while smem_of(self.tile, self.warps) > MAX_SMEM:
             if self.tile > ITEM_ROWS:
@@ -296,7 +356,7 @@ class ConvEmu:
                 assert self.n_chunk > 8
                 self.n_chunk = round_up(self.n_chunk // 2, 8)
         tile8 = self.tile
-        if 2 * smem_of(tile8, WARPS) > MAX_SMEM and \
+        if 2 * (smem_of(tile8, WARPS) + RESERVED_SMEM) > SMEM_PER_SM and \
                 smem_of(2 * tile8, 2 * WARPS) <= MAX_SMEM:
             self.warps, tile8 = 2 * WARPS, 2 * tile8
         smem = smem_of(tile8, self.warps)
@@ -305,17 +365,29 @@ class ConvEmu:
         ntiles = -(-self.pixels // self.tile)
         chunks = -(-self.n_out // self.n_chunk)
         self.grid_y = chunks if ntiles * chunks <= room else 1
-        self.out = np.full((self.pixels, self.n_out), -1,
-                           np.int32 if self.acc_out else np.int8)
+        self.out = np.full((self.pixels // (4 if pool else 1), self.n_out),
+                           -1, np.int32 if self.acc_out else np.int8)
 
     def max_tile_rows(self):
-        out_rows = (self.tile - 1) // self.ow + 2
-        images = (self.tile - 1) // (self.oh * self.ow) + 2
-        return out_rows + images * (self.ksize - 1)
+        f = 2 if self.pool else 1
+        cells = self.tile // (f * f)
+        out_rows = (cells - 1) // (self.ow // f) + 2
+        images = (cells - 1) // ((self.oh // f) * (self.ow // f)) + 2
+        return f * out_rows + images * (self.ksize - 1)
 
     def input_row_of(self, p):
+        """p: an int or an array of tile pixels."""
+        if self.pool:
+            ph = self.oh >> 1
+            q = (p >> 2) // (self.ow >> 1)
+            return (q // ph) * self.h + 2 * (q % ph) + ((p >> 1) & 1)
         q = p // self.ow
         return (q // self.oh) * self.h + q % self.oh
+
+    def column_of(self, p):
+        if self.pool:
+            return 2 * ((p >> 2) % (self.ow >> 1)) + (p & 1)
+        return p % self.ow
 
     def copy_rows(self, smem, p0, p1, buf):
         first = self.input_row_of(p0)
@@ -340,7 +412,7 @@ class ConvEmu:
             p = p0 + r
             row0 = self.input_row_of(p)
             for ki in range(tid // self.tile, self.ksize, parts):
-                src = ((row0 + ki) * self.w + p % self.ow) * self.c
+                src = ((row0 + ki) * self.w + self.column_of(p)) * self.c
                 v = self.x[src:src + run].astype(np.int64)
                 if not self.input_levels:
                     v = 2 * v - self.off
@@ -361,7 +433,7 @@ class ConvEmu:
         c_eff = self.c if halo else self.k32
         cols_pad = round_up(self.n_chunk, ITEM_COLS)
         nthr = self.thr_rows
-        out_vec = self.n_out % (2 if self.acc_out else VEC) == 0
+        out_vec = self.n_out % (2 if self.acc_out or self.pool else VEC) == 0
         for nc0 in range(block_y * self.n_chunk, self.n_out,
                          self.grid_y * self.n_chunk):
             ncols = min(self.n_chunk, self.n_out - nc0)
@@ -397,7 +469,7 @@ class ConvEmu:
                 for m in range(p1 - p0 + 1):
                     p = p0 + m
                     pix_off[m] = ((self.input_row_of(p) - first_row) * self.w
-                                  + p % self.ow) * self.a_pitch \
+                                  + self.column_of(p)) * self.a_pitch \
                         if halo else m * self.a_pitch
                 at = rows_cur if halo else patches
                 m_items = (p1 - p0 + ITEM_ROWS) // ITEM_ROWS
@@ -431,6 +503,10 @@ class ConvEmu:
                         item_store_acc(acc, thr_s[n0:],
                                        2 if self.ep[4] else 1, self.out,
                                        p0 + m0, rows, col0, cols, out_vec)
+                    elif self.pool:
+                        item_store_pooled(acc, thr_s[n0:], cols_pad, nthr,
+                                          self.out, (p0 + m0) // 4, rows // 4,
+                                          col0, cols, out_vec)
                     else:
                         item_store_codes(
                             acc, thr_s[n0:], cols_pad, nthr, self.out,
@@ -449,13 +525,15 @@ class ConvEmu:
 
 
 def emu_conv_chain(x, weights, thresholds, *, kernel, abits,
-                   input_levels=False, tile=None, grid=3):
+                   input_levels=False, tile=None, grid=3, pool=False):
     act = x.numpy()
     for j, (w, thr) in enumerate(zip(weights, thresholds)):
         b, h, wd, _ = act.shape
+        f = 2 if pool and j == len(weights) - 1 else 1
         emu = ConvEmu(act, kernel, j == 0 and input_levels, w, thr, abits,
-                      tile=tile, grid=grid)
-        act = emu.run().reshape(b, h - kernel + 1, wd - kernel + 1, -1)
+                      tile=tile, grid=grid, pool=f == 2)
+        act = emu.run().reshape(b, (h - kernel + 1) // f,
+                                (wd - kernel + 1) // f, -1)
     return act
 
 

@@ -232,6 +232,8 @@ def test_mobilenet_mega_equals_reference(card):
     assert prog.launches.get("dense_block") == 13
     # the 13 1x1 convs and the image conv search their thresholds
     assert prog.launches.get("threshold_search") == 14
+    # no max-pool follows any of its convs
+    assert prog.launches.get("pooled_epilogue", 0) == 0
 
 
 def test_cnv_mega_unchanged(card):
@@ -248,3 +250,5 @@ def test_cnv_mega_unchanged(card):
     prog = next(iter(gpu.programs.values()))
     assert prog.launches.get("conv_chain") == 4
     assert prog.launches.get("threshold_search", 0) == 0
+    # conv1 and conv4 pool in their epilogue
+    assert prog.launches.get("pooled_epilogue") == 2

@@ -9,6 +9,7 @@ import subprocess
 import sys
 import threading
 from concurrent.futures import wait
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +26,10 @@ from bnn_pynq_tpu_torch.compiler.artifacts import (CompiledNetwork,
                                                    load_artifact)
 from bnn_pynq_tpu_torch.models import config as pc
 from bnn_pynq_tpu_torch.models import network as port_net
-from bnn_pynq_tpu_torch.models.params import params_from_numpy
+from bnn_pynq_tpu_torch.models.params import (params_from_numpy,
+                                              weight_matrix)
+from bnn_pynq_tpu_torch.ops.conv import maxpool2d
+from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
 from bnn_pynq_tpu_torch.runtime.serving import BatchingServer
 
@@ -87,6 +91,97 @@ def test_mega_stages_match_jax(wbits, abits):
             np.testing.assert_allclose(act.numpy(), want, **TOL)
         else:
             np.testing.assert_array_equal(act.numpy(), want, err_msg=name)
+
+
+def _pretrained(name):
+    """(config, layers, scale, bias) of a pretrained artifact on the CPU."""
+    compiled = load_artifact(str(REPO / "pretrained" / f"{name}.npz"))
+    return (compiled.config,) + tuple(params_from_numpy(
+        compiled.config, compiled.layers, compiled.out_scale,
+        compiled.out_bias, "cpu"))
+
+
+def _narrow_cnv_33(seed, strided=False):
+    """The narrow CNV on a 33×33 image: chain0-1's map is 29×29, odd, so
+    its pool stays a stage; chain3-4's is 10×10 and pools in the chain.
+    strided: a stride-2 conv on the image (its prebuilt patches) chained
+    with a stride-1 conv to a 14×14 map, which pools in the chain."""
+    cfg = replace(_narrow_cnv(pc, 1, 1), input_shape=(33, 33, 3))
+    if strided:
+        cfg = replace(cfg, name="cnv-strided-w1a1", layers=(
+            pc.ConvSpec(32, stride=2), pc.ConvSpec(32), pc.PoolSpec(),
+            pc.ConvSpec(32), pc.DenseSpec(64), pc.DenseSpec(10)))
+    rng = np.random.default_rng(seed)
+    return (cfg,) + tuple(params_from_numpy(
+        cfg, port_net.init_random_params(cfg, seed=seed),
+        rng.uniform(0.01, 1.0, 10).astype(np.float32),
+        rng.standard_normal(10).astype(np.float32), "cpu"))
+
+
+CNV_NETS = ["cnv-w1a1", "cnv-w1a2", "cnv-w2a2"]
+
+
+@pytest.mark.parametrize("name", CNV_NETS)
+def test_pooled_chain_plain_equals_maxpool_of_chain(name):
+    """conv_chain(pool=True) on the CPU (its plain twin) is maxpool2d of the
+    unpooled chain, bit for bit, on both of CNV's pooled chains."""
+    cfg, layers, scale, bias = _pretrained(name)
+    stages = dict(port_net.mega_stages(cfg, layers, scale, bias))
+    x = np.random.default_rng(26).integers(-128, 128, size=(3, 32, 32, 3))
+    act = port_net.prepare_input(cfg, torch.from_numpy(x.astype(np.int8)))
+    for chain, pool in (("chain0-1", "pool2"), ("chain3-4", "pool5")):
+        want = stages[pool](stages[chain](act))
+        got = stages[chain](act, pool=True)
+        assert torch.equal(got, want), chain
+        assert torch.equal(want, maxpool2d(stages[chain](act)))
+        assert len(torch.unique(want)) > 1, "a degenerate case"
+        act = want
+
+
+@pytest.mark.parametrize("name", CNV_NETS + ["narrow, 33x33",
+                                             "strided, 33x33"])
+def test_forward_mega_pools_in_the_chains(name):
+    """forward_mega runs each chain that a 2×2 pool follows on an even map
+    as one pooled stage, and gives the logits of mega_stages' stages one
+    by one, bit for bit, argmax equal; an odd map keeps its pool stage."""
+    if name.startswith("narrow"):
+        cfg, layers, scale, bias = _narrow_cnv_33(5)
+        names = ["chain0-1", "pool2", "chain3-4+pool5", "block6",
+                 "mlp_tail"]
+        size = 33
+    elif name.startswith("strided"):
+        cfg, layers, scale, bias = _narrow_cnv_33(6, strided=True)
+        names = ["im2col0", "chain0-1+pool2", "block3", "mlp_tail"]
+        size = 33
+    else:
+        cfg, layers, scale, bias = _pretrained(name)
+        names = ["chain0-1+pool2", "chain3-4+pool5", "block6", "mlp_tail"]
+        size = 32
+    fused = port_net.mega_stages(cfg, layers, scale, bias, fuse_pools=True)
+    assert [n for n, _ in fused] == names
+    x = torch.from_numpy(np.random.default_rng(27).integers(
+        -128, 128, size=(4, size, size, 3)).astype(np.int8))
+    act = port_net.prepare_input(cfg, x)
+    for _, fn in port_net.mega_stages(cfg, layers, scale, bias):
+        act = fn(act)
+    got = port_net.forward_mega(cfg, layers, x, scale, bias)
+    assert torch.equal(got, act)
+    assert torch.equal(got.argmax(1), act.argmax(1))
+
+
+@pytest.mark.parametrize("h,w,kernel", [(9, 10, 1), (10, 9, 1), (11, 11, 3),
+                                        (12, 11, 3)])
+def test_pooled_chain_refuses_an_odd_map(h, w, kernel):
+    """A 2×2 pool of an odd map would drop its edge: conv_chain(pool=True)
+    raises instead."""
+    rng = np.random.default_rng(h * w)
+    x = torch.from_numpy(rng.integers(0, 2, size=(1, h, w, 32))
+                         .astype(np.int8))
+    wt = weight_matrix(torch.from_numpy(
+        rng.choice([-1, 1], size=(kernel * kernel * 32, 16)).astype(np.int8)))
+    thr = torch.zeros((1, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="odd"):
+        conv_chain(x, [wt], [thr], kernel=kernel, abits=1, pool=True)
 
 
 @pytest.mark.parametrize("wbits,abits", [(1, 1), (2, 2)])

@@ -243,7 +243,8 @@ def test_a_failed_capture_names_the_bucket_and_variant():
 def test_kernel_launches_reads_every_wrapper():
     counts = engine_mod.kernel_launches()
     assert {"fused_mlp", "conv_chain", "dense_block", "conv2d_direct",
-            "conv_chain_direct"} <= set(counts)
+            "conv_chain_direct", "threshold_search",
+            "pooled_epilogue"} <= set(counts)
     assert {k for k in counts if k.startswith("packed_matmul[")}
 
 

@@ -130,8 +130,8 @@ def test_layer_table_rows(tmp_path):
                              "--batch", "1", "--iters", "1", "--out",
                              str(out)]) == 0
     *rows, total = _rows(out)
-    assert [r["stage"] for r in rows] == ["chain0-1", "pool2", "chain3-4",
-                                          "pool5", "block6", "mlp_tail"]
+    assert [r["stage"] for r in rows] == ["chain0-1+pool2", "chain3-4+pool5",
+                                          "block6", "mlp_tail"]
     assert total["layer"] == "__total__"
     assert total["ms"] == pytest.approx(sum(r["ms"] for r in rows),
                                         abs=1e-3)

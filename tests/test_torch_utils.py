@@ -131,8 +131,10 @@ def test_profile_layers_rows(kind):
 
 
 def test_profile_layers_cnv_w1a1_stages():
-    """At CNV-W1A1's widths the chains run two layers a stage and the MLP
-    tail takes in the last conv (its kernel covers its map)."""
+    """At CNV-W1A1's widths the chains run two layers and the 2×2 pool
+    after them a stage (the pool in the last conv's epilogue, as
+    forward_mega runs them) and the MLP tail takes in the last conv (its
+    kernel covers its map)."""
     cfg = get_config("cnv-w1a1")
     compiled = CompiledNetwork(cfg, init_random_params(cfg, 0),
                                np.ones(10, np.float32),
@@ -140,11 +142,24 @@ def test_profile_layers_cnv_w1a1_stages():
     rows = layerprof.profile_layers(compiled, batch=1, iters=1,
                                     device="cpu")
     assert [(r["stage"], r["layers"]) for r in rows] == [
-        ("chain0-1", [0, 1]), ("pool2", [2]), ("chain3-4", [3, 4]),
-        ("pool5", [5]), ("block6", [6]), ("mlp_tail", [7, 8, 9, 10])]
-    assert rows[0]["kind"] == "conv_int8+conv"
+        ("chain0-1+pool2", [0, 1, 2]), ("chain3-4+pool5", [3, 4, 5]),
+        ("block6", [6]), ("mlp_tail", [7, 8, 9, 10])]
+    assert rows[0]["kind"] == "conv_int8+conv+pool"
     assert (rows[0]["k"], rows[0]["n"]) == (27, 64)
     assert sum(r["macs"] for r in rows) == 59_461_376
+
+
+@pytest.mark.parametrize("names,n_layers,want", [
+    (["chain0-1+pool2", "chain3-4+pool5", "block6", "mlp_tail"], 11,
+     [[0, 1, 2], [3, 4, 5], [6], [7, 8, 9, 10]]),
+    (["chain0-1", "pool2", "chain3-4+pool5", "block6", "mlp_tail"], 11,
+     [[0, 1], [2], [3, 4, 5], [6], [7, 8, 9, 10]]),
+    (["im2col0", "chain0-1+pool2", "block3", "mlp_tail"], 6,
+     [[0], [0, 1, 2], [3], [4, 5]])], ids=["cnv", "odd-map", "strided"])
+def test_stage_layers_reads_pooled_chains(names, n_layers, want):
+    """A pooled chain's stage spans its convs and the pool after them; an
+    unpooled chain and its pool stage keep their own spans."""
+    assert layerprof._stage_layers(names, n_layers) == want
 
 
 def test_profile_layers_refuses(monkeypatch):
