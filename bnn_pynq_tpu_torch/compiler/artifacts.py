@@ -16,8 +16,9 @@ from typing import Any, Dict, List
 
 import numpy as np
 
-from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, ConvSpec,
-                                              DenseSpec, DepthwiseSpec,
+from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, BottleneckSpec,
+                                              ConvSpec, DenseSpec,
+                                              DepthwiseSpec, MaxPoolSpec,
                                               NetworkConfig, PoolSpec)
 
 FORMAT_VERSION = 1
@@ -30,9 +31,15 @@ class CompiledNetwork:
 
     layers: one dict per config layer — `{}` for a pool; `w_int8` (int8
     levels, first conv of an int8-input net, and every layer of a
-    separable net: [K, N], a depthwise conv's [K², C]) or `w_packed`
+    MobileNet: [K, N], a depthwise conv's [K², C]) or `w_packed`
     (uint32 words packed along K), and `thr` (int32 [nthr, N]) on every
-    layer but the last (an average pool's alone: `{"thr": ...}`)."""
+    layer but the last (an average pool's alone: `{"thr": ...}`). A
+    bottleneck block's: `wa_packed` [K=C], `wb_packed` [K=9·mid, (ki, kj,
+    c) order], `wc_packed` [K=mid] and, with a projection, `wp_packed`
+    [K=C]: its 1-bit weights packed along K at their width (bit j of word
+    w is element 32w + j, level 2b − 1), whatever the net's `bits`;
+    `thr_a`, `thr_b` (int32 [nthr, mid]), `thr` (int32 [nthr, out]) and
+    `r` (int32 [out], the shortcut's multiplier)."""
     config: NetworkConfig
     layers: List[Dict[str, np.ndarray]]
     out_scale: np.ndarray                 # float32 [num_classes]
@@ -42,8 +49,10 @@ class CompiledNetwork:
 
 def config_to_json(cfg: NetworkConfig) -> dict:
     """The manifest's form of a config. A layer's `pad` and `wbits` are
-    written only where they are set (MobileNet's), so the BNN-PYNQ
-    configs' manifests stay the JAX package's byte for byte."""
+    written only where they are set (MobileNet's, ResNet's), and so is
+    `unsigned` (ResNet's), so the BNN-PYNQ configs' manifests stay the JAX
+    package's byte for byte and MobileNet's as its committed artifact has
+    it."""
     layers = []
     for s in cfg.layers:
         if isinstance(s, ConvSpec):
@@ -56,6 +65,12 @@ def config_to_json(cfg: NetworkConfig) -> dict:
             d = {"kind": "pool", "window": s.window}
         elif isinstance(s, AvgPoolSpec):
             d = {"kind": "avgpool", "window": s.window}
+        elif isinstance(s, MaxPoolSpec):
+            d = {"kind": "maxpool", "kernel": s.kernel, "stride": s.stride,
+                 "pad": s.pad}
+        elif isinstance(s, BottleneckSpec):
+            d = {"kind": "bottleneck", "mid": s.mid, "out_ch": s.out,
+                 "stride": s.stride, "projection": s.projection}
         else:
             d = {"kind": "dense", "out_features": s.out_features}
         if getattr(s, "pad", 0) and "pad" not in d:
@@ -63,10 +78,13 @@ def config_to_json(cfg: NetworkConfig) -> dict:
         if getattr(s, "wbits", 0):
             d["wbits"] = s.wbits
         layers.append(d)
-    return {"name": cfg.name, "wbits": cfg.wbits, "abits": cfg.abits,
-            "input_kind": cfg.input_kind,
-            "input_shape": list(cfg.input_shape), "layers": layers,
-            "num_classes": cfg.num_classes, "dataset": cfg.dataset}
+    out = {"name": cfg.name, "wbits": cfg.wbits, "abits": cfg.abits,
+           "input_kind": cfg.input_kind,
+           "input_shape": list(cfg.input_shape), "layers": layers,
+           "num_classes": cfg.num_classes, "dataset": cfg.dataset}
+    if cfg.unsigned:
+        out["unsigned"] = True
+    return out
 
 
 def config_from_json(d: dict) -> NetworkConfig:
@@ -85,13 +103,20 @@ def config_from_json(d: dict) -> NetworkConfig:
             specs.append(PoolSpec(s["window"]))
         elif s["kind"] == "avgpool":
             specs.append(AvgPoolSpec(s["window"]))
-        else:
+        elif s["kind"] == "maxpool":
+            specs.append(MaxPoolSpec(s["kernel"], s["stride"], s["pad"]))
+        elif s["kind"] == "bottleneck":
+            specs.append(BottleneckSpec(s["mid"], s["out_ch"], s["stride"],
+                                        s["projection"], s.get("wbits", 0)))
+        elif s["kind"] == "dense":
             specs.append(DenseSpec(s["out_features"], s.get("wbits", 0)))
+        else:
+            raise ValueError(f"unknown layer kind {s['kind']!r}")
     return NetworkConfig(
         name=d["name"], wbits=d["wbits"], abits=d["abits"],
         input_kind=d["input_kind"], input_shape=tuple(d["input_shape"]),
         layers=tuple(specs), num_classes=d["num_classes"],
-        dataset=d.get("dataset", ""))
+        dataset=d.get("dataset", ""), unsigned=d.get("unsigned", False))
 
 
 def save_artifact(path: str, compiled: CompiledNetwork):

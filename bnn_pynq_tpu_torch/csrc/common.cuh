@@ -20,14 +20,15 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// An activation code c stands for the level mul·c − off: 2c − 1 (abits 1),
-// 2c − 3 (abits 2), and c itself for MobileNet's unsigned 4-bit codes
-// (abits 4), which the kernels therefore read as levels.
+// A bipolar activation code c stands for the level 2c − off: 2c − 1
+// (abits 1), 2c − 3 (abits 2). Unsigned codes (MobileNet's 4-bit ones,
+// ResNet's 2-bit ones: a QuantReLU's output, level = code) are their own
+// levels; which a network's codes are is its config's to say, so the
+// launchers take them as levels where the caller says so (input_levels).
 inline bool abits_ok(int abits) {
   return abits == 1 || abits == 2 || abits == 4;
 }
 inline int level_off(int abits) { return abits == 1 ? 1 : abits == 2 ? 3 : 0; }
-inline bool codes_are_levels(int abits) { return abits == 4; }
 
 // The threshold counts the epilogues are built for: 1-3 (abits <= 2) and 15.
 inline bool nthr_ok(int nthr) {

@@ -499,32 +499,33 @@ extern "C" {
 
 int bnn_dense_codes(const void* x, int m, int k0, const void* tiles, int k32,
                     int n_out, const void* wsum, const void* thr, int nthr,
-                    int abits, void* out, void* stream);
+                    int abits, int input_levels, void* out, void* stream);
 
 // One layer. x: int8 codes [b, h, w, c]; wt: int8 levels [n_out, k32] with
 // k32 = round_up(ksize²·c, 32), (ki, kj, c) order, zero past K; tiles: the
 // same weights as 128-byte K tiles (WeightMatrix.tiles: what
 // bnn_dense_codes reads); wsum: int32 [n_out], the column sums of wt; thr:
 // int32 [nthr, n_out], or null with nthr = 0 for int32 output;
+// input_levels: the codes are their own levels (unsigned);
 // out: [b, h-ksize+1, w-ksize+1, n_out], int8 codes or int32.
 int bnn_conv_direct(const void* x, int b, int h, int w, int c, int ksize,
                     const void* wt, const void* tiles, int k32, int n_out,
                     const void* wsum, const void* thr, int nthr, int abits,
-                    void* out, void* stream) {
+                    int input_levels, void* out, void* stream) {
   using namespace bnn;
   if ((thr == nullptr) != (nthr == 0)) return cudaErrorInvalidValue;
   if (thr == nullptr) {
-    return launch_conv<kConvAcc>(x, b, h, w, c, ksize, 0, wt, k32, n_out,
-                                 wsum, nullptr, 0, abits, out,
+    return launch_conv<kConvAcc>(x, b, h, w, c, ksize, input_levels, wt,
+                                 k32, n_out, wsum, nullptr, 0, abits, out,
                                  static_cast<cudaStream_t>(stream));
   }
   if (b > 0 && c > 0 && h == ksize && w == ksize) {
     // the kernel covers the map: a dense layer on [b, ksize²·c] rows
     return bnn_dense_codes(x, b, ksize * ksize * c, tiles, k32, n_out, wsum,
-                           thr, nthr, abits, out, stream);
+                           thr, nthr, abits, input_levels, out, stream);
   }
-  return launch_conv<kConvCodes>(x, b, h, w, c, ksize, 0, wt, k32, n_out,
-                                 wsum, thr, nthr, abits, out,
+  return launch_conv<kConvCodes>(x, b, h, w, c, ksize, input_levels, wt,
+                                 k32, n_out, wsum, thr, nthr, abits, out,
                                  static_cast<cudaStream_t>(stream));
 }
 

@@ -326,7 +326,6 @@ int launch_conv(const void* x, int b, int h, int w, int c, int ksize,
   if (OUT == kConvAcc ? nthr != 0 : !nthr_ok(nthr)) {
     return cudaErrorInvalidValue;
   }
-  if (codes_are_levels(abits)) input_levels = 1;
   const int oh = h - ksize + 1;
   const int ow = w - ksize + 1;
   if (OUT == kConvPool && (oh % 2 != 0 || ow % 2 != 0)) {

@@ -6,7 +6,26 @@
 //
 // Replaces bnn_pynq_tpu/ops/conv_stack.py::dense_block (CNV's conv5 on B·9
 // im2col rows). Entry point: bnn_dense_block. (bnn_fused_mlp, the whole-MLP
-// kernel, stays in dense_chain.cu.)
+// kernel, stays in dense_chain.cu.) A second entry, bnn_dense_residual
+// (ops/conv_stack.py::dense_residual), runs ResNet-50's block-closing 1×1
+// convs: the same kernel with its residual template argument RES set, so
+// that the bottleneck block's shortcut joins the accumulator before the
+// thresholds, y = MT(c + r ⊙ p), and no int32 map goes through memory:
+// - kResIdentity: p = x, the block input's unsigned codes [m, n_out]; the
+//   epilogue adds r[n]·x[m, n] to each accumulator (item_add_residual);
+// - kResProjection: p = x_s · W_p, the 1×1 projection of the block input
+//   at the block's stride; the weights are [W_c ; W_p·diag(r)] (int8, as
+//   |r| ≤ 127), and the K loop runs on past the rows' k0 bytes into the
+//   block input's codes at the strided pixel of each row, so both products
+//   fall into one accumulator. A 16-byte K chunk comes wholly from one
+//   source where k0 and the input's channels are multiples of 16.
+// Both take unsigned codes (their own levels) and 1-3 thresholds; the
+// instantiations without a shortcut (RES = kResNone) are CNV's and
+// MobileNet's, and take DenseArgs alone, so that their code is what it was.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; ResNet-50 v1.5 W1A2 at batch
+// 256 under graph replay in its benchmark cell): the 12 identity junctions
+// 3.21 ms a forward, the 4 projection junctions 1.05, against 0.92 ms by
+// the larger of operations and bytes for each (PERF.md §6).
 //
 // What bounds it on the H100: bytes. CNV's block6 at batch 1024 is
 // M = 9216, K = 1152, N = 256: 13.3 MB in and out (0.004 ms at 3.35 TB/s)
@@ -50,11 +69,14 @@ constexpr int kSlicePitch = kSlice + kPitchPad;   // 80 ≡ 16 (mod 32)
 constexpr int kStages = 3;
 constexpr int kMaxCols = 4 * kItemCols;           // columns of a block
 
+enum Residual : int { kResNone = 0, kResIdentity = 1, kResProjection = 2 };
+
 struct DenseArgs {
   const int8_t* x;     // [m, k0]
   int m, k0;
   int vec_rows;        // rows of x are 16-byte vectors (k0 % 16 == 0, aligned)
-  const int8_t* wt;    // [n_out, k32] levels, zero past k0
+                       // (kResProjection: and so are the input's pixels)
+  const int8_t* wt;    // [n_out, k32] levels, zero past k0 (+ c2)
   int k32;
   int8_t* out;         // [m, n_out] codes
   int col_warps;       // 1, 2 or 4 warps across the columns
@@ -62,10 +84,46 @@ struct DenseArgs {
   EpilogueArgs ep;
 };
 
-// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh).
-template <bool WIDE>
+// What dense_kernel<WIDE, RES> takes (ArgsOf<RES>::type). With a shortcut
+// (RES != kResNone), DenseArgs and the block input [b, h2, w2, c2] codes:
+// row m of x and out is pixel (oy, ox) of image m / (oh·ow), whose shortcut
+// reads input pixel (oy·stride, ox·stride). Without, DenseArgs itself: the
+// kernels without a shortcut then compile to the code they did (a larger
+// parameter block, or DenseArgs as a base, changes ptxas' schedule).
+struct Shortcut {
+  const int8_t* x2;
+  int h2, w2, c2, stride, oh, ow;
+  const int32_t* r;    // kResIdentity: [n_out], the shortcut's multiplier
+  int res_pairs;       // kResIdentity: n_out even and x2 2-byte aligned
+};
+struct ResidualArgs : DenseArgs {
+  Shortcut sc;
+};
+template <int RES>
+struct ArgsOf {
+  using type = ResidualArgs;
+};
+template <>
+struct ArgsOf<kResNone> {
+  using type = DenseArgs;
+};
+
+// The input pixel (flattened [b·h2·w2]) whose codes row `row` adds.
+__device__ __forceinline__ size_t shortcut_pixel(const Shortcut& a, int row) {
+  if (a.stride == 1) return static_cast<size_t>(row);
+  const int q = row / a.ow;              // flattened output row
+  const int ox = row - q * a.ow;
+  const int img = q / a.oh;
+  const int oy = q - img * a.oh;
+  return (static_cast<size_t>(img) * a.h2 + oy * a.stride) * a.w2 +
+         static_cast<size_t>(ox) * a.stride;
+}
+
+// WIDE: the 15-threshold epilogue of 4-bit codes (mma_tile.cuh); RES: the
+// shortcut (kResNone: none).
+template <bool WIDE, int RES>
 __global__ void __launch_bounds__(kThreads, 2)
-dense_kernel(const DenseArgs a) {
+dense_kernel(const typename ArgsOf<RES>::type a) {
   extern __shared__ __align__(16) int8_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -97,6 +155,12 @@ dense_kernel(const DenseArgs a) {
         if (kb < a.k0) {
           cp_async16(smem_addr(as + r * kSlicePitch + (kb - k)),
                      a.x + static_cast<size_t>(row) * a.k0 + kb);
+        } else if constexpr (RES == kResProjection) {
+          if (kb < a.k0 + a.sc.c2) {
+            cp_async16(smem_addr(as + r * kSlicePitch + (kb - k)),
+                       a.sc.x2 + shortcut_pixel(a.sc, row) * a.sc.c2 +
+                           (kb - a.k0));
+          }
         }
       }
     } else {
@@ -107,6 +171,11 @@ dense_kernel(const DenseArgs a) {
         if (kb < a.k0) {
           as[r * kSlicePitch + (kb - k)] =
               __ldg(a.x + static_cast<size_t>(row) * a.k0 + kb);
+        } else if constexpr (RES == kResProjection) {
+          if (kb < a.k0 + a.sc.c2) {
+            as[r * kSlicePitch + (kb - k)] = __ldg(
+                a.sc.x2 + shortcut_pixel(a.sc, row) * a.sc.c2 + (kb - a.k0));
+          }
         }
       }
     }
@@ -161,11 +230,50 @@ dense_kernel(const DenseArgs a) {
   if (!active) return;
 
   const int col0 = nc0 + n0;
+  if constexpr (RES == kResIdentity) {
+    item_add_residual(acc, a.sc.x2, a.sc.r, a.ep.n_out,
+                      static_cast<size_t>(row0 + mi * kItemRows),
+                      min(kItemRows, a.m - row0 - mi * kItemRows), col0, cols,
+                      a.sc.res_pairs, lane);
+  }
   item_store_codes<8, WIDE>(
       acc, thr_s + n0, tile_cols, a.ep.nthr, stage, a.out, a.ep.n_out,
       static_cast<size_t>(row0 + mi * kItemRows),
       min(kItemRows, a.m - row0 - mi * kItemRows), col0, cols,
       a.out_vec && cols % kVec == 0, lane);
+}
+
+// Fill the launch geometry of `a` (x, m, k0, wt, k32, n_out, the epilogue's
+// thresholds and sums set) and launch dense_kernel<WIDE, RES>.
+template <int RES>
+int launch_dense(typename ArgsOf<RES>::type a, const void* out,
+                 cudaStream_t stream) {
+  a.vec_rows = a.k0 % kVec == 0 &&
+               reinterpret_cast<uintptr_t>(a.x) % kVec == 0;
+  if constexpr (RES == kResProjection) {
+    a.vec_rows = a.vec_rows && a.sc.c2 % kVec == 0 &&
+                 reinterpret_cast<uintptr_t>(a.sc.x2) % kVec == 0;
+  }
+  a.out = static_cast<int8_t*>(const_cast<void*>(out));
+  a.col_warps = a.ep.n_out <= kItemCols ? 1 : a.ep.n_out <= 2 * kItemCols ? 2 : 4;
+  a.out_vec = a.ep.n_out % kVec == 0 &&
+              reinterpret_cast<uintptr_t>(out) % kVec == 0;
+
+  const int tile_rows = kWarps / a.col_warps * kItemRows;
+  const int tile_cols = a.col_warps * kItemCols;
+  const size_t smem =
+      static_cast<size_t>(kStages) * (tile_rows + tile_cols) * kSlicePitch +
+      epilogue_smem(a.ep.nthr, tile_cols);
+  // the residual epilogue takes 1-3 thresholds: no wide instantiation
+  constexpr bool kWide = RES == kResNone;
+  const auto kernel = kWide && a.ep.nthr == kMaxThr ? dense_kernel<kWide, RES>
+                                                     : dense_kernel<false, RES>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.m + tile_rows - 1) / tile_rows,
+                  (a.ep.n_out + kMaxCols - 1) / kMaxCols);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -191,31 +299,59 @@ int bnn_dense_block(const void* x, int m, int k0, int input_levels,
   a.x = static_cast<const int8_t*>(x);
   a.m = m;
   a.k0 = k0;
-  a.vec_rows = k0 % kVec == 0 && reinterpret_cast<uintptr_t>(x) % kVec == 0;
   a.wt = static_cast<const int8_t*>(wt);
   a.k32 = k32;
-  a.out = static_cast<int8_t*>(out);
-  a.col_warps = n_out <= kItemCols ? 1 : n_out <= 2 * kItemCols ? 2 : 4;
   a.ep.thr = static_cast<const int32_t*>(thr);
   a.ep.wsum = static_cast<const int32_t*>(wsum);
   a.ep.nthr = nthr;
   a.ep.n_out = n_out;
   a.ep.level_off = level_off(abits);
-  a.ep.codes_in = !input_levels && !codes_are_levels(abits);
-  a.out_vec = n_out % kVec == 0 && reinterpret_cast<uintptr_t>(out) % kVec == 0;
+  a.ep.codes_in = !input_levels;
+  return launch_dense<kResNone>(a, out, static_cast<cudaStream_t>(stream));
+}
 
-  const int tile_rows = kWarps / a.col_warps * kItemRows;
-  const int tile_cols = a.col_warps * kItemCols;
-  const size_t smem =
-      static_cast<size_t>(kStages) * (tile_rows + tile_cols) * kSlicePitch +
-      epilogue_smem(nthr, tile_cols);
-  const auto kernel = nthr == kMaxThr ? dense_kernel<true> : dense_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + tile_rows - 1) / tile_rows,
-                  (n_out + kMaxCols - 1) / kMaxCols);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+// rows: int8 [m, k0] unsigned codes (levels) of the block's 3×3 conv, m =
+// b·oh·ow; x2: int8 [b, h2, w2, c2] unsigned codes, the block input, with
+// oh = (h2 − 1) / stride + 1 (and so ow); projection 0: the identity (c2 ==
+// n_out, stride 1), r int32 [n_out], wt int8 [n_out, k32], k32 =
+// round_up(k0, 32); projection 1: r unused, wt = [W_c ; W_p·diag(r)]
+// transposed, int8 [n_out, k32], k32 = round_up(k0 + c2, 32), zero past
+// k0 + c2; thr: int32 [nthr, n_out], nthr 1-3 (no weight sums: levels in);
+// out: int8 [m, n_out] codes of MT(rows · W_c + r ⊙ p).
+int bnn_dense_residual(const void* rows, int m, int k0, const void* x2,
+                       int h2, int w2, int c2, int stride, int oh, int ow,
+                       int projection, const void* r, const void* wt, int k32,
+                       int n_out, const void* thr, int nthr, void* out,
+                       void* stream) {
+  using namespace bnn;
+  const long long pixels = static_cast<long long>(m);
+  if (m < 0 || k0 < 1 || n_out < 1 || c2 < 1 || stride < 1 || nthr < 1 ||
+      nthr > 3 || oh != (h2 - 1) / stride + 1 || ow != (w2 - 1) / stride + 1 ||
+      pixels % (static_cast<long long>(oh) * ow) != 0 ||
+      k32 != round_up(projection ? k0 + c2 : k0, kMmaK) ||
+      (!projection && (c2 != n_out || stride != 1 || r == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  if (m == 0) return cudaSuccess;
+
+  DenseArgs a = {};
+  a.x = static_cast<const int8_t*>(rows);
+  a.m = m;
+  a.k0 = k0;
+  a.wt = static_cast<const int8_t*>(wt);
+  a.k32 = k32;
+  a.ep.thr = static_cast<const int32_t*>(thr);
+  a.ep.nthr = nthr;
+  a.ep.n_out = n_out;
+  a.ep.codes_in = 0;
+  const Shortcut sc = {
+      static_cast<const int8_t*>(x2), h2, w2, c2, stride, oh, ow,
+      static_cast<const int32_t*>(r),
+      n_out % 2 == 0 && reinterpret_cast<uintptr_t>(x2) % 2 == 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ResidualArgs ra = {a, sc};
+  return projection ? launch_dense<kResProjection>(ra, out, s)
+                    : launch_dense<kResIdentity>(ra, out, s);
 }
 
 }  // extern "C"

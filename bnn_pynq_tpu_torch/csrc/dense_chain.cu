@@ -390,6 +390,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1) mlp_kernel(const MlpArgs a) {
 int launch_mlp(const void* x, int m, int k0, const void* const* wp,
                const void* const* sp, const void* const* tp, const int* k32s,
                const int* ns, int n_layers, int nthr, int abits,
+               int input_levels,
                const void* scale, const void* bias, void* out_logits,
                void* out_codes, cudaStream_t stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || !nthr_ok(nthr) ||
@@ -406,7 +407,7 @@ int launch_mlp(const void* x, int m, int k0, const void* const* wp,
   a.vec_rows = k0 % kVec == 0 && reinterpret_cast<uintptr_t>(x) % kVec == 0;
   a.n_layers = n_layers;
   a.nthr = nthr;
-  a.codes_in = !codes_are_levels(abits);
+  a.codes_in = !input_levels;
   a.level_off = a.codes_in ? level_off(abits) : 0;
   int width[2] = {0, 0};          // the widest input of each activation tile
   int pass_cols = 0;
@@ -468,27 +469,28 @@ extern "C" {
 // (the weights' 128-byte K tiles, int8 [ceil(k32 / 128), n, 128], swizzled
 // as WeightMatrix.tiles; their int32 column sums [n]; int32 thresholds
 // [nthr, n], the last layer's unused); k32 / n: host int arrays of n_layers
-// entries, k32 the layer's K rounded up to 32.
+// entries, k32 the layer's K rounded up to 32; input_levels: the codes are
+// their own levels (unsigned), every layer's.
 int bnn_fused_mlp(const void* x, int m, int k0, const void* tile_ptrs,
                   const void* wsum_ptrs, const void* thr_ptrs,
                   const void* k32, const void* n, int n_layers, int nthr,
-                  int abits, const void* scale, const void* bias, void* out,
-                  void* stream) {
+                  int abits, int input_levels, const void* scale,
+                  const void* bias, void* out, void* stream) {
   return bnn::launch_mlp(
       x, m, k0, static_cast<const void* const*>(tile_ptrs),
       static_cast<const void* const*>(wsum_ptrs),
       static_cast<const void* const*>(thr_ptrs), static_cast<const int*>(k32),
-      static_cast<const int*>(n), n_layers, nthr, abits, scale, bias, out,
-      nullptr, static_cast<cudaStream_t>(stream));
+      static_cast<const int*>(n), n_layers, nthr, abits, input_levels, scale,
+      bias, out, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // One thresholded dense layer: x codes [m, k0] → int8 codes [m, n_out].
-// tiles, wsum, thr as one layer of bnn_fused_mlp.
+// tiles, wsum, thr, input_levels as one layer of bnn_fused_mlp.
 int bnn_dense_codes(const void* x, int m, int k0, const void* tiles, int k32,
                     int n_out, const void* wsum, const void* thr, int nthr,
-                    int abits, void* out, void* stream) {
+                    int abits, int input_levels, void* out, void* stream) {
   return bnn::launch_mlp(x, m, k0, &tiles, &wsum, &thr, &k32, &n_out, 1, nthr,
-                         abits, nullptr, nullptr, nullptr, out,
+                         abits, input_levels, nullptr, nullptr, nullptr, out,
                          static_cast<cudaStream_t>(stream));
 }
 

@@ -5,7 +5,8 @@
 // both operands read from shared memory by ldmatrix, cp.async staging, and
 // the MultiThreshold epilogue run on the accumulator fragments (or, for a
 // conv that a 2×2 max-pool follows, on each window's largest of them:
-// item_store_pooled).
+// item_store_pooled; for a ResNet block's closing conv, after its shortcut
+// joins them: item_add_residual).
 // (packed_matmul.cu's popcount arm runs the same item on the 1-bit
 // m16n8k256, whose fragments are these counted in bytes; it and the decode
 // arm read A from packed words.)
@@ -486,6 +487,53 @@ __device__ __forceinline__ void item_store_codes(
   } else {
     item_store_codes_n<3, NJ>(acc, thr_s, cols_pad, stage, out, n_out, row0,
                               rows, col0, cols, vec, lane);
+  }
+}
+
+// Add a bottleneck block's identity shortcut to the item's accumulators
+// before the thresholds: acc[row][col] += r[col]·res[row][col], res the
+// block input's unsigned codes [*, n_out] (their own levels; ResNet's
+// dense_block.cu kResIdentity), r its int32 multiplier [n_out].
+//   res + row0 · n_out + col0, r + col0: item row 0, column 0;
+//   rows, cols: the item's real rows (1..32) and columns (1..64);
+//   pairs: n_out even and res 2-byte aligned, so a lane's two neighbouring
+//     codes come as one 2-byte load.
+// Each lane reads the codes of its own accumulators (rows g, g + 8, g + 16,
+// g + 24; columns 8j + 2t, + 1); a warp's load of one (j, row block) takes
+// 8 bytes of each of 8 rows, and the next three j read the rest of the same
+// 32-byte sectors, from L1.
+__device__ __forceinline__ void item_add_residual(
+    ItemAcc& acc, const int8_t* res, const int32_t* r, int n_out,
+    size_t row0, int rows, int col0, int cols, bool pairs, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = 8 * j + 2 * t;
+    if (n >= cols) continue;
+    const bool two = n + 1 < cols;
+    const int r0 = __ldg(r + col0 + n);
+    const int r1 = two ? __ldg(r + col0 + n + 1) : 0;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = 16 * mb + 8 * h + g;
+        if (rr >= rows) continue;
+        const int8_t* p = res + (row0 + rr) * n_out + col0 + n;
+        int v0, v1 = 0;
+        if (pairs && two) {
+          const char2 v = __ldg(reinterpret_cast<const char2*>(p));
+          v0 = v.x;
+          v1 = v.y;
+        } else {
+          v0 = __ldg(p);
+          if (two) v1 = __ldg(p + 1);
+        }
+        acc.c[mb][j][2 * h] += r0 * v0;
+        acc.c[mb][j][2 * h + 1] += r1 * v1;
+      }
+    }
   }
 }
 

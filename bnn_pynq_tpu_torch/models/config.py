@@ -23,8 +23,16 @@ Table 1): conv3×3 s2 (32) with 8-bit weights on the int8 image, 13
 depthwise-separable blocks (a depthwise 3×3 conv, then a 1×1 pointwise
 conv) with 4-bit weights, SAME zero padding (pad 1) on every 3×3 conv,
 unsigned 4-bit activations (level = code), a thresholded 7×7 average
-pool and a 1024→classes dense layer with 8-bit weights. Only the `mega`
-route and the reference forward run it.
+pool and a 1024→classes dense layer with 8-bit weights; and
+`resnet50_v1_5()`: ResNet-50 v1.5 W1A2 of FINN's model zoo
+(Xilinx/finn-examples `resnet50-w1a2`; topology: He et al.,
+arXiv:1512.03385, Table 1, with the stride of each downsampling block on
+its 3×3 conv as in v1.5): conv7×7 s2 pad 3 (64) with 8-bit weights on
+the int8 image, a 3×3 s2 pad 1 max pool, 16 bottleneck blocks with 1-bit
+weights whose shortcut joins before the block's last MultiThreshold,
+unsigned 2-bit activations (level = code), a thresholded 7×7 average pool
+and a 2048→classes dense layer with 8-bit weights. Only the `mega` route
+and the reference forward run these two (`NetworkConfig.mega_only`).
 """
 
 from __future__ import annotations
@@ -32,14 +40,16 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import ClassVar, Tuple, Union
 
+from bnn_pynq_tpu_torch.ops.thresholds import codes_are_levels
+
 
 def _repr_set(self) -> str:
-    """The dataclass repr without the MobileNet-only fields `pad` and
-    `wbits` where they hold their default, so that the BNN-PYNQ configs
-    print as the JAX package's do."""
+    """The dataclass repr without the port-only fields `pad`, `wbits` and
+    `unsigned` where they hold their default, so that the BNN-PYNQ
+    configs print as the JAX package's do."""
     args = ", ".join(f"{f.name}={getattr(self, f.name)!r}"
                      for f in fields(self)
-                     if f.name not in ("pad", "wbits")
+                     if f.name not in ("pad", "wbits", "unsigned")
                      or getattr(self, f.name) != f.default)
     return f"{type(self).__name__}({args})"
 
@@ -71,6 +81,16 @@ class PoolSpec:
 
 
 @dataclass(frozen=True)
+class MaxPoolSpec:
+    """An overlapping max pool, zero-padded: on unsigned codes (never
+    below 0) the padding never wins, so it is the max pool that pads with
+    −∞. ResNet's 3×3, stride 2, pad 1."""
+    kernel: int = 3
+    stride: int = 2
+    pad: int = 1
+
+
+@dataclass(frozen=True)
 class AvgPoolSpec:
     """A thresholded average pool: the int32 sum of each window's codes,
     then a MultiThreshold (the artifact's thresholds carry the divisor)."""
@@ -84,10 +104,25 @@ class DenseSpec:
     __repr__ = _repr_set
 
 
-LayerSpec = Union[ConvSpec, DepthwiseSpec, PoolSpec, AvgPoolSpec, DenseSpec]
-
-
 @dataclass(frozen=True)
+class BottleneckSpec:
+    """A ResNet bottleneck block (v1.5) on input codes x of C channels:
+    a = MT(conv1×1(x; W_a)), b = MT(conv3×3(a; W_b, stride, pad 1)),
+    y = MT(conv1×1(b; W_c) + r ⊙ p), r an int32 multiplier a channel and
+    p the shortcut: x itself, or with `projection` conv1×1(x; W_p,
+    stride), an int32 accumulator. mid: the width of a and b; out: y's."""
+    mid: int
+    out: int
+    stride: int = 1
+    projection: bool = False
+    wbits: int = 0
+
+
+LayerSpec = Union[ConvSpec, DepthwiseSpec, PoolSpec, MaxPoolSpec,
+                  AvgPoolSpec, BottleneckSpec, DenseSpec]
+
+
+@dataclass(frozen=True, repr=False)
 class NetworkConfig:
     name: str
     wbits: int
@@ -97,6 +132,11 @@ class NetworkConfig:
     layers: Tuple[LayerSpec, ...]
     num_classes: int
     dataset: str = ""
+    # 2-bit activation codes are unsigned (a QuantReLU's: level = code)
+    # rather than bipolar (level 2c − 3): ResNet-50's; `codes_are_levels`
+    # reads it with the width
+    unsigned: bool = False
+    __repr__ = _repr_set
 
     @property
     def bits(self) -> int:
@@ -112,11 +152,20 @@ class NetworkConfig:
         return (1 << self.abits) - 1
 
     @property
-    def separable(self) -> bool:
-        """Layers that only the `mega` route and the reference forward
-        run: depthwise or padded convs, average pools, 4-bit codes."""
-        return self.abits == 4 or any(
-            isinstance(s, (DepthwiseSpec, AvgPoolSpec)) or
+    def codes_are_levels(self) -> bool:
+        """The activation codes are unsigned, their own levels
+        (`ops/thresholds.py::codes_are_levels` of the width and
+        `unsigned`)."""
+        return codes_are_levels(self.abits, self.unsigned)
+
+    @property
+    def mega_only(self) -> bool:
+        """What only the `mega` route and the reference forward run:
+        depthwise, padded or residual layers, average or overlapping max
+        pools, unsigned codes."""
+        return self.codes_are_levels or any(
+            isinstance(s, (DepthwiseSpec, AvgPoolSpec, MaxPoolSpec,
+                           BottleneckSpec)) or
             getattr(s, "pad", 0) for s in self.layers)
 
     def scheme(self) -> str:
@@ -176,6 +225,41 @@ def mobilenet_v1(width: float = 1.0, num_classes: int = 1000) -> NetworkConfig:
               else f"mobilenetv1-w4a4-x{width:g}-c{num_classes}"),
         wbits=4, abits=4, input_kind="int8", input_shape=(224, 224, 3),
         layers=tuple(layers), num_classes=num_classes, dataset="imagenet")
+
+
+# ResNet-50's stages: (blocks, mid width, out width, stride of the first
+# block), Table 1 of arXiv:1512.03385
+RESNET50_STAGES = ((3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2),
+                   (3, 512, 2048, 2))
+
+
+def resnet50_v1_5(width: float = 1.0, num_classes: int = 1000,
+                  image: int = 224) -> NetworkConfig:
+    """ResNet-50 v1.5 W1A2 on image×image×3 int8 image levels: the image
+    conv, the max pool, 16 bottleneck blocks (the first of each stage
+    with a projection shortcut, its stride on the 3×3 conv and the
+    projection), the average pool over the image/32 map and the
+    classifier; every width scaled by `width` (1/16 gives 4 to 128
+    channels) and `image` a multiple of 32, for tests."""
+    if image % 32:
+        raise ValueError(f"image {image}: ResNet-50 halves it five times")
+
+    def ch(n):
+        return max(1, int(n * width))
+    layers = [ConvSpec(ch(64), kernel=7, stride=2, pad=3, wbits=8),
+              MaxPoolSpec()]
+    for blocks, mid, out, stride in RESNET50_STAGES:
+        layers += [BottleneckSpec(ch(mid), ch(out), stride if i == 0 else 1,
+                                  projection=i == 0, wbits=1)
+                   for i in range(blocks)]
+    layers += [AvgPoolSpec(image // 32), DenseSpec(num_classes, wbits=8)]
+    return NetworkConfig(
+        name=("resnet50-w1a2" if (width, num_classes, image) ==
+              (1.0, 1000, 224) else
+              f"resnet50-w1a2-x{width:g}-c{num_classes}-i{image}"),
+        wbits=1, abits=2, input_kind="int8", input_shape=(image, image, 3),
+        layers=tuple(layers), num_classes=num_classes, dataset="imagenet",
+        unsigned=True)
 
 
 AVAILABLE_CONFIGS = {

@@ -33,15 +33,24 @@ Port of `bnn_pynq_tpu/models/network.py`, five forwards:
   sliding window, an exact int matmul and a MultiThreshold. The port's
   independent reference.
 
-MobileNet-v1 W4A4 (`config.separable`: depthwise and SAME-padded convs, a
-thresholded average pool, unsigned 4-bit codes) runs on `mega` and
-`forward_ref` alone; the packed, direct and decoded-integer routes raise
-NotImplementedError for it. Its `mega` stages: `im2col0` (the padded,
-strided image patches) → `chain0-0` (`conv_chain` on them) → per
-separable block `dw{i}` (`depthwise_conv`) and `pw{i}` (`dense_block` on
-the B·H·W rows of codes) → `gap{i}` (the int32 window sum and its
-MultiThreshold) → `mlp_tail` (`fused_mlp_forward_padded`: the classifier
-with scale and bias).
+MobileNet-v1 W4A4 and ResNet-50 v1.5 W1A2 (`config.mega_only`:
+depthwise, padded or residual layers, average or overlapping max pools,
+unsigned codes) run on `mega` and `forward_ref` alone; the packed, direct
+and decoded-integer routes raise NotImplementedError for them
+(`refuse_mega_only`). Their `mega` stages come a layer at a time
+(`_layer_stages`), on unsigned codes, which are their own levels:
+`im2col0` (the padded, strided image patches) → `chain0-0` (`conv_chain`
+on them); MobileNet's `dw{i}` (`depthwise_conv`) and `pw{i}`
+(`dense_block` on the B·H·W rows of codes); ResNet's `pool1` (the 3×3
+stride-2 max pool, glue over codes) and one stage a bottleneck block,
+`res{stage}.{block}`, which keeps its input for the shortcut: the 1×1
+conv on `dense_block`, the 3×3 conv on `conv_chain` over the map padded
+with code 0 (at stride 2 `dense_block` on the rows of its padded
+patches, whose 2,304-4,608 lanes `conv_chain`'s staged tile cannot
+hold), and the block's last 1×1 conv on `dense_residual`, whose
+accumulator takes the shortcut before the thresholds; then `gap{i}` (the
+int32 window sum and its MultiThreshold) → `mlp_tail`
+(`fused_mlp_forward_padded`: the classifier with scale and bias).
 
 `layers` is the first element of `params_from_numpy`'s result: per config
 layer `{}` (pool) or `{"w": WeightMatrix, "w_packed": int32 words [Kw, N]
@@ -60,14 +69,17 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, ConvSpec,
-                                              DenseSpec, DepthwiseSpec,
+from bnn_pynq_tpu_torch.models.config import (AvgPoolSpec, BottleneckSpec,
+                                              ConvSpec, DenseSpec,
+                                              DepthwiseSpec, MaxPoolSpec,
                                               NetworkConfig, PoolSpec)
 from bnn_pynq_tpu_torch.ops.conv import (conv2d_packed, conv_weight_matrix,
                                          maxpool2d, pack_along_last,
                                          sliding_window)
 from bnn_pynq_tpu_torch.ops.conv_direct import conv2d_direct
-from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain, dense_block
+from bnn_pynq_tpu_torch.ops.conv_stack import (conv_chain, dense_block,
+                                               dense_residual,
+                                               dense_residual_plain)
 from bnn_pynq_tpu_torch.ops.depthwise import depthwise_acc, depthwise_conv
 from bnn_pynq_tpu_torch.ops.fused_mlp import fused_mlp_forward_padded
 from bnn_pynq_tpu_torch.ops.int_dot import int_conv2d, int_matmul
@@ -81,15 +93,19 @@ from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
 @dataclass(frozen=True)
 class LayerPlan:
     kind: str                     # 'dense' | 'conv' | 'conv_int8' | 'pool'
-                                  # | 'dwconv' | 'avgpool'
+                                  # | 'dwconv' | 'avgpool' | 'maxpool'
+                                  # | 'bottleneck'
     k: int = 0                    # contraction length (dense/conv; K² for
-                                  # a depthwise conv)
+                                  # a depthwise conv; a bottleneck block's
+                                  # input channels)
     n: int = 0                    # output features/channels
     kernel: int = 0
     stride: int = 1
     window: int = 0
     last: bool = False            # last compute layer → int32 logits
     pad: int = 0                  # zero padding on each side
+    mid: int = 0                  # a bottleneck block's inner width
+    projection: bool = False      # ... whose shortcut is a 1×1 conv
 
 
 def _out_size(n: int, kernel: int, stride: int, pad: int) -> int:
@@ -102,7 +118,8 @@ def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
     plans = []
     specs = config.layers
     last_compute = max(i for i, s in enumerate(specs)
-                       if not isinstance(s, (PoolSpec, AvgPoolSpec)))
+                       if not isinstance(s, (PoolSpec, AvgPoolSpec,
+                                             MaxPoolSpec)))
     flat = False
     for i, spec in enumerate(specs):
         if isinstance(spec, ConvSpec):
@@ -129,6 +146,20 @@ def make_plan(config: NetworkConfig) -> Tuple[LayerPlan, ...]:
             plans.append(LayerPlan(kind="avgpool", n=c, window=spec.window))
             h //= spec.window
             w //= spec.window
+        elif isinstance(spec, MaxPoolSpec):
+            plans.append(LayerPlan(kind="maxpool", n=c, kernel=spec.kernel,
+                                   stride=spec.stride, pad=spec.pad))
+            h = _out_size(h, spec.kernel, spec.stride, spec.pad)
+            w = _out_size(w, spec.kernel, spec.stride, spec.pad)
+        elif isinstance(spec, BottleneckSpec):
+            plans.append(LayerPlan(kind="bottleneck", k=c, n=spec.out,
+                                   kernel=3, stride=spec.stride,
+                                   last=(i == last_compute), pad=1,
+                                   mid=spec.mid,
+                                   projection=spec.projection))
+            h = _out_size(h, 3, spec.stride, 1)
+            w = _out_size(w, 3, spec.stride, 1)
+            c = spec.out
         elif isinstance(spec, DenseSpec):
             if not flat:
                 k = h * w * c
@@ -154,8 +185,8 @@ def init_random_params(config: NetworkConfig, seed: int = 0):
     `np.random.default_rng(seed)` in the same order, so one (config, seed)
     gives equal arrays in both packages. `params_from_numpy` takes them.
     """
-    refuse_separable(config, "init_random_params (its artifact comes from "
-                     "portbench/configs/make_mobilenetv1_w4a4.py)")
+    refuse_mega_only(config, "init_random_params (such a net's artifact "
+                     "comes from its generator in portbench/configs/)")
     rng = np.random.default_rng(seed)
     bits = config.bits
     params = []
@@ -221,8 +252,8 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
     follows with a 2×2 pool pools in its kernel's epilogue, one stage
     `chain{i}-{j}+pool{k}` in place of `chain{i}-{j}` and `pool{k}` (the
     same codes: `forward_mega` runs so)."""
-    if config.separable:
-        return _separable_stages(config, layers, out_scale, out_bias)
+    if config.mega_only:
+        return _layer_stages(config, layers, out_scale, out_bias)
     plan = make_plan(config)
     abits = config.abits
     if config.input_kind == "bipolar":
@@ -331,17 +362,20 @@ def mega_stages(config: NetworkConfig, layers, out_scale: torch.Tensor,
     return stages
 
 
-def _separable_stages(config: NetworkConfig, layers, out_scale, out_bias):
-    """MobileNet's stages: an image conv on its prebuilt padded, strided
-    patches, then depthwise and pointwise convs, a thresholded average
-    pool and the classifier, on unsigned 4-bit codes (their own levels,
-    which the pool sums and the depthwise kernel reads)."""
+def _layer_stages(config: NetworkConfig, layers, out_scale, out_bias):
+    """MobileNet's and ResNet's stages, a layer at a time: an image conv
+    on its prebuilt padded, strided patches, then depthwise and pointwise
+    convs (MobileNet), a max pool and bottleneck blocks (ResNet), a
+    thresholded average pool and the classifier, on unsigned codes (their
+    own levels, which the pool sums and the kernels read as levels)."""
     abits = config.abits
-    if abits != 4:
+    if not config.codes_are_levels:
         raise NotImplementedError(
-            f"mega route: a separable network with abits={abits} (4 only)")
+            f"mega route: {config.name}'s layers run a layer at a time, on "
+            "unsigned codes only")
     stages: List[Stage] = []
     plan = make_plan(config)
+    stage, block = 1, 0
     for idx, (lp, p) in enumerate(zip(plan, layers)):
         if lp.kind == "conv_int8" and not lp.last:
             stages.append((f"im2col{idx}", partial(
@@ -349,8 +383,8 @@ def _separable_stages(config: NetworkConfig, layers, out_scale, out_bias):
                 pad=lp.pad)))
             stages.append((f"chain{idx}-{idx}", partial(
                 conv_chain, weights=[p["w"]], thresholds=[p["thr"]],
-                kernel=lp.kernel, abits=abits, input_patches=True,
-                input_levels=True)))
+                kernel=lp.kernel, input_patches=True, input_levels=True,
+                abits=abits)))
         elif lp.kind == "dwconv" and not lp.last:
             stages.append((f"dw{idx}", partial(
                 depthwise_conv, w=p["w"], thr=p["thr"], stride=lp.stride,
@@ -359,17 +393,28 @@ def _separable_stages(config: NetworkConfig, layers, out_scale, out_bias):
                 not lp.pad and not lp.last:
             stages.append((f"pw{idx}", partial(
                 _pointwise, w=p["w"], thr=p["thr"], abits=abits)))
+        elif lp.kind == "maxpool":
+            stages.append((f"pool{idx}", partial(
+                maxpool_padded, kernel=lp.kernel, stride=lp.stride,
+                pad=lp.pad)))
+        elif lp.kind == "bottleneck" and not lp.last:
+            stage, block = (stage + 1, 1) if lp.projection else \
+                (stage, block + 1)
+            stages.append((f"res{stage}.{block}", partial(
+                _bottleneck, p=p, stride=lp.stride,
+                projection=lp.projection, abits=abits)))
         elif lp.kind == "avgpool":
             stages.append((f"gap{idx}", partial(
                 _avgpool_threshold, window=lp.window, thr=p["thr"])))
         elif lp.kind == "dense" and lp.last and idx == len(plan) - 1:
             stages.append(("mlp_tail", partial(
                 _mlp_tail, weights=[p["w"]], thresholds=[],
-                out_scale=out_scale, out_bias=out_bias, abits=abits)))
+                out_scale=out_scale, out_bias=out_bias, abits=abits,
+                input_levels=True)))
         else:
             raise NotImplementedError(
-                f"mega route: no stage for layer {idx} ({lp}) of a "
-                "separable network")
+                f"mega route: no stage for layer {idx} ({lp}) of "
+                f"{config.name}")
     return stages
 
 
@@ -380,15 +425,58 @@ def _padded_patches(x, *, kernel, stride, pad):
 
 
 def _pointwise(a, *, w, thr, abits):
-    """A 1×1 conv as `dense_block` on the B·H·W rows of codes."""
+    """A 1×1 conv as `dense_block` on the B·H·W rows of unsigned codes
+    (their own levels)."""
     b, h, wd, c = a.shape
-    rows = dense_block(a.reshape(b * h * wd, c), [w], [thr], abits=abits)
+    rows = dense_block(a.reshape(b * h * wd, c), [w], [thr], abits=abits,
+                       input_levels=True)
     return rows.reshape(b, h, wd, w.kn.shape[1])
+
+
+def maxpool_padded(a, *, kernel, stride, pad):
+    """The max pool over kernel×kernel windows at `stride` of codes
+    [B, H, W, C] padded with code 0 (codes are never below 0, so the
+    padding never wins): the largest of the kernel² strided views, plain
+    glue over int8 → [B, OH, OW, C]."""
+    b, h, w, c = a.shape
+    oh = (h + 2 * pad - kernel) // stride + 1
+    ow = (w + 2 * pad - kernel) // stride + 1
+    x = torch.nn.functional.pad(a, (0, 0, pad, pad, pad, pad))
+    out = None
+    for i in range(kernel):
+        for j in range(kernel):
+            v = x[:, i:i + stride * (oh - 1) + 1:stride,
+                  j:j + stride * (ow - 1) + 1:stride]
+            out = v.clone() if out is None else torch.maximum(out, v)
+    return out
+
+
+def _bottleneck(x, *, p, stride, projection, abits):
+    """One bottleneck block on codes x [B, H, W, C]: the 1×1 conv and its
+    MultiThreshold (`dense_block`), the 3×3 conv over the map padded with
+    code 0 (`conv_chain`; at stride 2 `dense_block` on the rows of the
+    padded map's patches: `conv_chain` stages a tile's whole patch rows in
+    shared memory, which at K = 9·mid = 2,304-4,608 leaves no room, where
+    `dense_block` streams K), then `dense_residual`: the last 1×1 conv
+    with the shortcut (x's codes, or the projection of x at the stride) in
+    its accumulator, thresholded → codes [B, OH, OW, out]."""
+    a = _pointwise(x, w=p["wa"], thr=p["thr_a"], abits=abits)
+    if stride == 1:
+        b = conv_chain(torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1)),
+                       [p["wb"]], [p["thr_b"]], kernel=3, input_levels=True,
+                       abits=abits)
+    else:
+        b = _pointwise(_padded_patches(a, kernel=3, stride=stride, pad=1),
+                       w=p["wb"], thr=p["thr_b"], abits=abits)
+    n, oh, ow, mid = b.shape
+    y = dense_residual(b.reshape(n * oh * ow, mid), x, p["wc"], p["r"],
+                       p["thr"], stride=stride, projection=projection)
+    return y.reshape(n, oh, ow, -1)
 
 
 def _avgpool_threshold(a, *, window, thr):
     """The thresholded average pool over the whole map: the int32 sum of
-    each channel's codes (levels: unsigned 4-bit), then a MultiThreshold
+    each channel's codes (unsigned: their own levels), then a MultiThreshold
     of its thresholds (which carry the divisor), as one compare and one
     sum on the device → int8 codes [B, C]."""
     if a.shape[1] != window or a.shape[2] != window:
@@ -406,10 +494,11 @@ def _conv_block(a, *, w, thr, kernel, stride, abits, levels):
     return rows.reshape(b, oh, ow, w.kn.shape[1])
 
 
-def _mlp_tail(a, *, weights, thresholds, out_scale, out_bias, abits):
+def _mlp_tail(a, *, weights, thresholds, out_scale, out_bias, abits,
+              input_levels=False):
     return fused_mlp_forward_padded(a.reshape(a.shape[0], -1), weights,
                                     thresholds, out_scale, out_bias,
-                                    abits=abits)
+                                    abits=abits, input_levels=input_levels)
 
 
 def forward_mega(config: NetworkConfig, layers, x: torch.Tensor,
@@ -433,7 +522,7 @@ def forward(config: NetworkConfig, layers, x: torch.Tensor, *,
        int8 nets: int8 levels [B, H, W, C].
     route: 'vpu' (W1A1 only), 'mxu' or 'mxu_rm' (see ops/matmul.py).
     """
-    refuse_separable(config, f"the packed route {route!r}")
+    refuse_mega_only(config, f"the packed route {route!r}")
     plan = make_plan(config)
     bits = config.bits
     packed_input = config.input_kind == "bipolar" and x.dtype == torch.int32
@@ -486,11 +575,17 @@ def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
     """One layer of `forward_ref`: pool, or sliding window + exact int
     matmul + MultiThreshold (int32 accumulators on the last layer); a
     depthwise conv's sum of shifted products; an average pool's window
-    sum."""
+    sum; a bottleneck block's three products and its shortcut."""
+    lv = dict(abits=config.abits, unsigned=config.unsigned)
     if lp.kind == "pool":
         return maxpool2d(act, lp.window)
+    if lp.kind == "maxpool":
+        return maxpool_padded(act, kernel=lp.kernel, stride=lp.stride,
+                              pad=lp.pad)
+    if lp.kind == "bottleneck":
+        return _bottleneck_ref(lp, p, act, **lv)
     if lp.kind == "avgpool":
-        vals = codes_to_values(act, config.abits).to(torch.int32)
+        vals = codes_to_values(act, **lv).to(torch.int32)
         acc = vals.reshape(act.shape[0], -1, act.shape[-1]).sum(
             dim=1, dtype=torch.int32)
         return multithreshold(acc, p["thr"])
@@ -499,7 +594,7 @@ def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
     else:
         if act.ndim > 2 and lp.kind == "dense":
             act = act.reshape(act.shape[0], -1)
-        vals = codes_to_values(act, config.abits)
+        vals = codes_to_values(act, **lv)
     if lp.kind == "dwconv":
         acc = depthwise_acc(vals, p["w"].kn, stride=lp.stride)
         return acc if lp.last else multithreshold(acc, p["thr"])
@@ -515,6 +610,28 @@ def _ref_layer(config: NetworkConfig, lp: LayerPlan, p,
     return acc if lp.last else multithreshold(acc, p["thr"])
 
 
+def _bottleneck_ref(lp: LayerPlan, p, x: torch.Tensor, *, abits,
+                    unsigned) -> torch.Tensor:
+    """`forward_ref`'s bottleneck block: each conv a sliding window (the
+    3×3 over the map padded with level 0) and an exact int matmul, each
+    MultiThreshold, and the shortcut as `dense_residual_plain` adds it."""
+    def conv(a, w, kernel, stride, pad):
+        vals = codes_to_values(a, abits, unsigned)
+        if pad:
+            vals = torch.nn.functional.pad(vals, (0, 0) + (pad,) * 4)
+        patches = sliding_window(vals, kernel, kernel, stride)
+        b, oh, ow, k = patches.shape
+        return int_matmul_ref(patches.reshape(b * oh * ow, k),
+                              w.kn).reshape(b, oh, ow, -1)
+    a = multithreshold(conv(x, p["wa"], 1, 1, 0), p["thr_a"])
+    b = multithreshold(conv(a, p["wb"], 3, lp.stride, 1), p["thr_b"])
+    n, oh, ow, mid = b.shape
+    y = dense_residual_plain(b.reshape(-1, mid), x, p["wc"], p["r"],
+                             p["thr"], stride=lp.stride,
+                             projection=lp.projection)
+    return y.reshape(n, oh, ow, -1)
+
+
 def decode_params(config: NetworkConfig, layers):
     """The port's layers → the JAX package's decoded form
     (`bnn_pynq_tpu/models/network.py::decode_params`), array for array:
@@ -525,7 +642,7 @@ def decode_params(config: NetworkConfig, layers):
     layout `int_matmul` takes without a copy; `w_hwio` is then
     channels-last for `int_conv2d` too (O outermost), and
     `conv_weight_matrix` of it a view."""
-    refuse_separable(config, "decode_params (the decoded-integer routes)")
+    refuse_mega_only(config, "decode_params (the decoded-integer routes)")
     out = []
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "pool":
@@ -563,7 +680,7 @@ def forward_xla(config: NetworkConfig, decoded, x: torch.Tensor, *,
     if conv_mode not in CONV_MODES:
         raise ValueError(f"unknown conv_mode {conv_mode!r}; one of "
                          f"{CONV_MODES}")
-    refuse_separable(config, "the decoded-integer routes")
+    refuse_mega_only(config, "the decoded-integer routes")
     act = prepare_input(config, x)
     for lp, p in zip(make_plan(config), decoded):
         act = xla_layer(config, lp, p, act, conv_mode=conv_mode,
@@ -611,7 +728,7 @@ def forward_direct(config: NetworkConfig, layers,
     first conv and dense layers are `xla_layer`'s: `int_matmul` on the
     K-contiguous `w_int8`, where JAX's `forward_direct` runs XLA's int8
     dot."""
-    refuse_separable(config, "the direct route")
+    refuse_mega_only(config, "the direct route")
     act = prepare_input(config, x)
     for lp, p in zip(make_plan(config), layers):
         if lp.kind == "conv":
@@ -623,13 +740,14 @@ def forward_direct(config: NetworkConfig, layers,
     return act
 
 
-def refuse_separable(config: NetworkConfig, what: str) -> None:
-    """The one check of what runs a separable net: `what` (a route or a
-    function of one) does not, so a separable `config` raises."""
-    if config.separable:
+def refuse_mega_only(config: NetworkConfig, what: str) -> None:
+    """The one check of what runs `config.mega_only` layers: `what` (a
+    route or a function of one) does not, so such a `config` raises."""
+    if config.mega_only:
         raise NotImplementedError(
-            f"{config.name}: {what} runs no depthwise or padded conv, "
-            "average pool or 4-bit code; use route='mega' or runtime='ref'")
+            f"{config.name}: {what} runs no depthwise, padded or residual "
+            "layer, average or overlapping max pool, or unsigned code; use "
+            "route='mega' or runtime='ref'")
 
 
 def input_shape(config: NetworkConfig, batch: int) -> Tuple[int, ...]:

@@ -123,9 +123,9 @@ def params_from_numpy(config: NetworkConfig,
     the levels [K, N] stored K-contiguous (`ops/int_dot.py::k_contiguous`):
     the weight `int_matmul` (cuBLASLt's int8 GEMM) takes without a copy,
     where a route leaves a product to the library as JAX leaves it to
-    XLA's int8 dot, and what `decode_params` reshapes; out_scale and
-    out_bias float32 [num_classes]. The engine publishes this tuple as one
-    unit.
+    XLA's int8 dot, and what `decode_params` reshapes; a bottleneck
+    block's `bottleneck_params`; out_scale and out_bias float32
+    [num_classes]. The engine publishes this tuple as one unit.
     """
     device = torch.device(device)
     plan = make_plan(config)
@@ -135,12 +135,15 @@ def params_from_numpy(config: NetworkConfig,
     out = []
     # np.array copies: the inputs may be read-only (jax or np.load views)
     for lp, p in zip(plan, layers):
-        if lp.kind == "pool":
+        if lp.kind in ("pool", "maxpool"):
             out.append({})
             continue
         if lp.kind == "avgpool":
             out.append({"thr": torch.from_numpy(
                 sort_thresholds(p["thr"])).to(device)})
+            continue
+        if lp.kind == "bottleneck":
+            out.append(bottleneck_params(lp, p, device))
             continue
         if "w_int8" in p:
             w_lev = np.array(p["w_int8"], dtype=np.int8)
@@ -160,3 +163,47 @@ def params_from_numpy(config: NetworkConfig,
     scale = torch.from_numpy(np.array(out_scale, dtype=np.float32)).to(device)
     bias = torch.from_numpy(np.array(out_bias, dtype=np.float32)).to(device)
     return out, scale, bias
+
+
+# the largest shortcut multiplier r: W_p·diag(r) must stay int8
+MAX_SHORTCUT_MUL = 127
+
+
+def bottleneck_params(lp, p: Dict[str, np.ndarray], device) -> Dict:
+    """A bottleneck block's artifact arrays (`compiler/artifacts.py`) on
+    `device`: `wa`, `wb` (WeightMatrix of W_a [C, mid] and W_b [9·mid,
+    mid]) with `thr_a`, `thr_b`; `r` (int32 [out]); `wc`, the block's last
+    product: W_c [mid, out] where the shortcut is the identity, and where
+    it is a projection [W_c ; W_p·diag(r)] [mid + C, out], whose product
+    with the codes [b | x at the stride] is c + r ⊙ p in one accumulator;
+    `thr` (int32 [nthr, out]). Raises ValueError on a shape that is not
+    the plan's or an r outside [1, MAX_SHORTCUT_MUL]."""
+    c, mid, n = lp.k, lp.mid, lp.n
+
+    def levels(name, k, cols):
+        w = unpack_levels(p[name], k, 1)
+        if w.shape != (k, cols):
+            raise ValueError(f"{name}: weights {w.shape} != {(k, cols)}")
+        return w
+
+    r = np.array(p["r"], dtype=np.int32)
+    if r.shape != (n,) or r.min() < 1 or r.max() > MAX_SHORTCUT_MUL:
+        raise ValueError(f"shortcut multipliers r: shape {r.shape}, range "
+                         f"[{r.min()}, {r.max()}]; want [{n}] in "
+                         f"[1, {MAX_SHORTCUT_MUL}]")
+    wc = levels("wc_packed", mid, n)
+    if lp.projection:
+        wp = levels("wp_packed", c, n).astype(np.int32) * r[None, :]
+        wc = np.concatenate([wc, wp.astype(np.int8)])
+    elif c != n or lp.stride != 1:
+        raise ValueError(f"an identity shortcut maps {c} channels to {n} "
+                         f"at stride {lp.stride}")
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {"wa": weight_matrix(dev(levels("wa_packed", c, mid))),
+            "thr_a": dev(sort_thresholds(p["thr_a"])),
+            "wb": weight_matrix(dev(levels("wb_packed", 9 * mid, mid))),
+            "thr_b": dev(sort_thresholds(p["thr_b"])),
+            "wc": weight_matrix(dev(wc)), "r": dev(r),
+            "thr": dev(sort_thresholds(p["thr"]))}

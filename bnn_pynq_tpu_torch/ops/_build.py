@@ -44,13 +44,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # returns a cudaError_t as int, or DECLINED.
 _SIGNATURES = {
     # x, m, k0, w_ptrs, wsum_ptrs, thr_ptrs, k32, n, n_layers, nthr, abits,
-    # scale, bias, out, stream
-    "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                      _P, _P),
+    # input_levels, scale, bias, out, stream
+    "bnn_fused_mlp": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                      _P, _P, _P),
     # x, m, k0, input_levels, wt, k32, n_out, wsum, thr, nthr, abits, out,
     # stream
     "bnn_dense_block": (_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
                         _P),
+    # rows, m, k0, x2, h2, w2, c2, stride, oh, ow, projection, r, wt, k32,
+    # n_out, thr, nthr, out, stream
+    "bnn_dense_residual": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _I, _I, _P, _I, _P, _P),
     # x, b, h, w, c, ksize, input_levels, wt, k32, n_out, wsum, thr, nthr,
     # abits, pool, out, stream
     "bnn_conv_layer": (_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
@@ -60,9 +64,9 @@ _SIGNATURES = {
     # a, m, kw, w, n, k, bits, popc, thr, nthr, out, stream
     "bnn_packed_matmul": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P),
     # x, b, h, w, c, ksize, wt, tiles, k32, n_out, wsum, thr, nthr, abits,
-    # out, stream
+    # input_levels, out, stream
     "bnn_conv_direct": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I,
-                        _I, _P, _P),
+                        _I, _I, _P, _P),
     # x, b, h, w, c, ksize, input_levels, w_ptrs, k32s, n_outs, wsum_ptrs,
     # thr_ptrs, n_layers, nthr, abits, out, stream
     "bnn_conv_chain_direct": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -32,7 +32,8 @@ from bnn_pynq_tpu_torch.ops.conv import sliding_window
 from bnn_pynq_tpu_torch.ops.conv_stack import conv_chain
 from bnn_pynq_tpu_torch.ops.fused_mlp import check_cuda_operands
 from bnn_pynq_tpu_torch.ops.ref import conv2d_int_ref
-from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
+from bnn_pynq_tpu_torch.ops.thresholds import (codes_are_levels,
+                                               codes_to_values,
                                                count_search, multithreshold)
 
 
@@ -126,7 +127,8 @@ def conv2d_direct(x_codes: torch.Tensor, w, thr: Optional[torch.Tensor] = None,
         "bnn_conv_direct", x_codes.data_ptr(), b, h, wd, c, kernel,
         w.nk32.data_ptr(), w.tiles.data_ptr(), k32, n, w.wsum.data_ptr(),
         None if thr is None else thr.data_ptr(),
-        0 if thr is None else thr.shape[0], abits, out.data_ptr(), stream)
+        0 if thr is None else thr.shape[0], abits,
+        int(codes_are_levels(abits)), out.data_ptr(), stream)
     conv2d_direct.launches.add()
     if thr is not None:
         count_search(thr)

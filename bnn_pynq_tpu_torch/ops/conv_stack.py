@@ -15,6 +15,15 @@ Ports of `bnn_pynq_tpu/ops/conv_stack.py`:
 - `dense_block` ← `dense_block`: chained dense layers, all thresholded,
   codes (or levels) in, codes out. CUDA kernel: `csrc/dense_block.cu`
   (entry `bnn_dense_block`), launched once per layer likewise.
+- `dense_residual` (no JAX counterpart: ResNet-50's block-closing 1×1
+  conv): one thresholded dense layer whose accumulator takes a bottleneck
+  block's shortcut before the thresholds, MT(c + r ⊙ p). The same kernel
+  (entry `bnn_dense_residual`): the identity's codes added in the
+  epilogue, or the projection's product in the K loop.
+
+Codes are bipolar (level 2c − off), 4-bit codes their own levels; a
+first layer's input is levels with `input_levels` (the image, or
+ResNet's unsigned 2-bit codes), and `dense_residual` takes unsigned codes.
 
 Both kernels run their dots on the int8 tensor cores (`csrc/mma_tile.cuh`)
 and read the weights' `nk32` layout and `wsum` (models/params.py). A CPU
@@ -32,9 +41,11 @@ from bnn_pynq_tpu_torch.ops.conv import maxpool2d, sliding_window
 from bnn_pynq_tpu_torch.ops.fused_mlp import (check_chain,
                                               check_cuda_operands)
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
-from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
+from bnn_pynq_tpu_torch.ops.thresholds import (codes_are_levels,
+                                               codes_to_values,
                                                count_search, multithreshold,
-                                               pooled_epilogue)
+                                               pooled_epilogue,
+                                               residual_epilogue)
 
 
 def conv_chain_plain(x, weights, thresholds, *, kernel: int, abits: int,
@@ -115,6 +126,7 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
                                 abits=abits, input_patches=input_patches,
                                 input_levels=input_levels, pool=pool)
     check_cuda_operands(x, weights, thresholds)
+    levels = codes_are_levels(abits)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     act = x
@@ -131,7 +143,7 @@ def conv_chain(x: torch.Tensor, weights: Sequence,
         out = torch.empty((b, (h - ks + 1) // f, (w - ks + 1) // f, n),
                           dtype=torch.int8, device=x.device)
         lib.call("bnn_conv_layer", act.data_ptr(), b, h, w, c, ks,
-                 int(j == 0 and input_levels), wt.nk32.data_ptr(),
+                 int((j == 0 and input_levels) or levels), wt.nk32.data_ptr(),
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
                  thr.shape[0], abits, int(pooled), out.data_ptr(), stream)
         conv_chain.launches.add()
@@ -195,6 +207,7 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
         return dense_block_plain(x_codes, weights, thresholds, abits=abits,
                                  input_levels=input_levels)
     check_cuda_operands(x_codes, weights, thresholds)
+    levels = codes_are_levels(abits)
     lib = _build.library()
     stream = torch.cuda.current_stream(x_codes.device).cuda_stream
     act = x_codes
@@ -203,7 +216,7 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
         n = wt.kn.shape[1]
         out = torch.empty((m, n), dtype=torch.int8, device=act.device)
         lib.call("bnn_dense_block", act.data_ptr(), m, k,
-                 int(j == 0 and input_levels), wt.nk32.data_ptr(),
+                 int((j == 0 and input_levels) or levels), wt.nk32.data_ptr(),
                  wt.nk32.shape[1], n, wt.wsum.data_ptr(), thr.data_ptr(),
                  thr.shape[0], abits, out.data_ptr(), stream)
         dense_block.launches.add()
@@ -213,3 +226,76 @@ def dense_block(x_codes: torch.Tensor, weights: Sequence,
 
 
 dense_block.launches = _build.LaunchCounter()
+
+
+def _shortcut_rows(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """The block input's codes at the output's pixels, [B·OH·OW, C]."""
+    xs = x[:, ::stride, ::stride, :] if stride != 1 else x
+    return xs.reshape(-1, x.shape[-1])
+
+
+def dense_residual_plain(rows, x, w, r, thr, *, stride: int,
+                         projection: bool) -> torch.Tensor:
+    """Plain PyTorch version of `dense_residual` (same arguments): the
+    identity's r ⊙ x added to the product, or the product over
+    [rows | x at the stride]."""
+    xs = _shortcut_rows(x, stride)
+    if projection:
+        acc = int_matmul_ref(torch.cat([rows, xs], dim=1), w.kn)
+    else:
+        acc = int_matmul_ref(rows, w.kn) + r * xs.to(torch.int32)
+    return multithreshold(acc, thr)
+
+
+def dense_residual(rows: torch.Tensor, x: torch.Tensor, w, r: torch.Tensor,
+                   thr: torch.Tensor, *, stride: int,
+                   projection: bool) -> torch.Tensor:
+    """A bottleneck block's last 1×1 conv with its shortcut, thresholded:
+    codes MT(rows · W_c + r ⊙ p) [M, N].
+
+    rows: int8 [M, K1] unsigned codes (their own levels) of the block's
+      3×3 conv, M = B·OH·OW pixels of its output map.
+    x: int8 [B, H, W, C] unsigned codes, the block's input, with
+      OH = (H − 1) // stride + 1 (and so OW).
+    w: WeightMatrix. Identity (stride 1, C = N): W_c [K1, N], and p = x,
+      which the kernel's epilogue adds, r[n]·x[m, n], to each accumulator.
+      Projection: [W_c ; W_p·diag(r)] [K1 + C, N] (models/params.py), and
+      the kernel's K loop runs over rows, then over x at the stride, so p
+      = x_s · W_p enters the same accumulator.
+    r: int32 [N], the shortcut's multiplier (the projection's is in w).
+    thr: int32 [nthr, N] (1-3 rows).
+    No int32 map goes through memory. A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel (a `dense_kernel` whose
+    residual template argument is 1 for the identity and 2 for the
+    projection), which `residual_epilogue` counts."""
+    m, k1 = rows.shape
+    b, h, wd, c = x.shape
+    oh, ow = (h - 1) // stride + 1, (wd - 1) // stride + 1
+    n = w.kn.shape[1]
+    if rows.dtype != torch.int8 or x.dtype != torch.int8 or \
+            m != b * oh * ow:
+        raise ValueError(f"rows int8 [{b * oh * ow}, K1] and x int8 "
+                         f"[B, H, W, C], got {rows.dtype} "
+                         f"{tuple(rows.shape)}, {x.dtype} {tuple(x.shape)}")
+    if w.kn.shape[0] != k1 + (c if projection else 0) or \
+            (not projection and (c != n or stride != 1)):
+        raise ValueError(f"weights [{w.kn.shape[0]}, {n}] for K1 {k1}, C "
+                         f"{c}, stride {stride}, projection {projection}")
+    if r.dtype != torch.int32 or tuple(r.shape) != (n,) or \
+            thr.dtype != torch.int32 or thr.ndim != 2 or thr.shape[1] != n:
+        raise ValueError(f"r int32 [{n}] and thresholds int32 [nthr, {n}]")
+    if rows.device.type == "cpu":
+        return dense_residual_plain(rows, x, w, r, thr, stride=stride,
+                                    projection=projection)
+    check_cuda_operands(rows, [w], [thr], x, r)
+    if thr.shape[0] > 3:
+        raise ValueError("dense_residual takes 1-3 thresholds a channel")
+    out = torch.empty((m, n), dtype=torch.int8, device=rows.device)
+    _build.library().call(
+        "bnn_dense_residual", rows.data_ptr(), m, k1, x.data_ptr(), h, wd,
+        c, stride, oh, ow, int(projection), r.data_ptr(),
+        w.nk32.data_ptr(), w.nk32.shape[1], n, thr.data_ptr(), thr.shape[0],
+        out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream)
+    dense_block.launches.add()
+    residual_epilogue.add()
+    return out

@@ -20,31 +20,37 @@ import torch
 
 from bnn_pynq_tpu_torch.ops import _build
 from bnn_pynq_tpu_torch.ops.ref import int_matmul_ref
-from bnn_pynq_tpu_torch.ops.thresholds import (codes_to_values,
+from bnn_pynq_tpu_torch.ops.thresholds import (codes_are_levels,
+                                               codes_to_values,
                                                count_search, multithreshold)
 
 MAX_LAYERS = 8   # csrc/dense_chain.cu kMaxLayers
 
 
 def fused_mlp_forward_plain(x_codes, weights, thresholds, out_scale,
-                            out_bias, *, abits: int) -> torch.Tensor:
+                            out_bias, *, abits: int,
+                            input_levels: bool = False) -> torch.Tensor:
     """Plain PyTorch version of `fused_mlp_forward` (same arguments)."""
-    act = codes_to_values(x_codes, abits)
+    act = x_codes if input_levels else codes_to_values(x_codes, abits)
     for i, w in enumerate(weights):
         acc = int_matmul_ref(act, w.kn)
         if i < len(weights) - 1:
-            act = codes_to_values(multithreshold(acc, thresholds[i]), abits)
+            act = multithreshold(acc, thresholds[i])
+            if not input_levels:
+                act = codes_to_values(act, abits)
     return acc.to(torch.float32) * out_scale + out_bias
 
 
 def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
                       thresholds: Sequence[torch.Tensor],
                       out_scale: torch.Tensor, out_bias: torch.Tensor, *,
-                      abits: int) -> torch.Tensor:
+                      abits: int,
+                      input_levels: bool = False) -> torch.Tensor:
     """Run a whole quantized MLP.
 
     x_codes: int8 activation codes [B, K0] ({0,1} abits=1 / {0..3} abits=2
-    / {0..15} abits=4, their own levels).
+    / {0..15} abits=4, their own levels); with `input_levels` unsigned
+    codes, their own levels, and so are the hidden layers'.
     weights: WeightMatrix per layer (models/params.py), levels [K_i, N_i].
     thresholds: int32 [nthr, N_i] for all but the last layer (15 rows:
     ascending in each channel on a CUDA tensor, as in `conv_stack`).
@@ -62,7 +68,8 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
                              f"{t.dtype} {tuple(t.shape)}")
     if x_codes.device.type == "cpu":
         return fused_mlp_forward_plain(x_codes, weights, thresholds,
-                                       out_scale, out_bias, abits=abits)
+                                       out_scale, out_bias, abits=abits,
+                                       input_levels=input_levels)
     check_cuda_operands(x_codes, weights, thresholds, out_scale, out_bias)
     out = torch.empty((x_codes.shape[0], ncls), dtype=torch.float32,
                       device=x_codes.device)
@@ -75,8 +82,9 @@ def fused_mlp_forward(x_codes: torch.Tensor, weights: Sequence,
              _build.pointer_array(list(thresholds) + [None]),
              _build.int_array([w.nk32.shape[1] for w in weights]),
              _build.int_array([w.kn.shape[1] for w in weights]),
-             len(weights), nthr, abits, out_scale.data_ptr(),
-             out_bias.data_ptr(), out.data_ptr(),
+             len(weights), nthr, abits,
+             int(input_levels or codes_are_levels(abits)),
+             out_scale.data_ptr(), out_bias.data_ptr(), out.data_ptr(),
              torch.cuda.current_stream(x_codes.device).cuda_stream)
     fused_mlp_forward.launches.add()
     if len(thresholds):
@@ -90,12 +98,14 @@ fused_mlp_forward.launches = _build.LaunchCounter()
 def fused_mlp_forward_padded(x_codes: torch.Tensor, weights: Sequence,
                              thresholds: Sequence[torch.Tensor],
                              out_scale: torch.Tensor, out_bias: torch.Tensor,
-                             *, abits: int) -> torch.Tensor:
+                             *, abits: int,
+                             input_levels: bool = False) -> torch.Tensor:
     """JAX's any-batch entry: `fused_mlp_forward` itself, which takes any
     batch (its launches count there). JAX's `block_b` (the batch tile its
     padding rounds to) and `interpret` are TPU arguments, left out."""
     return fused_mlp_forward(x_codes, weights, thresholds, out_scale,
-                             out_bias, abits=abits)
+                             out_bias, abits=abits,
+                             input_levels=input_levels)
 
 
 def check_chain(x, weights, thresholds) -> None:

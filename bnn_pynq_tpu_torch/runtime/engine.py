@@ -12,10 +12,12 @@ Runtimes:
   tensor runs follows from its device, not from the name. The engine
   keeps the resolved name in `runtime`. Routes (models/network.py):
   - 'mega' (default): `forward_mega`, the conv_chain / dense_block /
-    fused_mlp stage list (and MobileNet-v1's depthwise_conv: MobileNet
-    runs on this route and 'ref' alone, the others raise
-    NotImplementedError). 's2d', the JAX package's default, computes the
-    same function in a TPU layout, so it runs this stage list too;
+    fused_mlp stage list (and MobileNet-v1's depthwise_conv, ResNet-50's
+    dense_residual: these two run on this route and 'ref' alone, the
+    others raise NotImplementedError through
+    `models/network.py::refuse_mega_only`). 's2d', the JAX package's
+    default, computes the same function in a TPU layout, so it runs this
+    stage list too;
   - 'xla' and 'xlaconv', the JAX package's other decoded-integer routes:
     `forward_xla` with conv_mode 'patches' and 'native', as JAX maps them,
     on the parameters `decode_params` made at load: every dot and conv a
@@ -110,7 +112,7 @@ from bnn_pynq_tpu_torch.models.config import (ConvSpec, DenseSpec,
 from bnn_pynq_tpu_torch.models.network import (decode_params, forward,
                                                forward_direct, forward_mega,
                                                forward_ref, forward_xla,
-                                               input_shape, refuse_separable)
+                                               input_shape, refuse_mega_only)
 from bnn_pynq_tpu_torch.models.params import Params, params_from_numpy
 from bnn_pynq_tpu_torch.ops import (_build, conv_direct, conv_stack,
                                     depthwise, int_dot, matmul, ref,
@@ -168,7 +170,8 @@ def kernel_launches() -> Dict[str, int]:
            "conv_chain_direct": conv_direct.conv_chain_direct.launches.value,
            "depthwise_conv": depthwise.depthwise_conv.launches.value,
            "threshold_search": thresholds.threshold_search.value,
-           "pooled_epilogue": thresholds.pooled_epilogue.value}
+           "pooled_epilogue": thresholds.pooled_epilogue.value,
+           "residual_epilogue": thresholds.residual_epilogue.value}
     out.update({f"packed_matmul[{r}]": c.value
                 for r, c in matmul.packed_matmul.launches.items()})
     return out
@@ -512,7 +515,7 @@ class InferenceEngine(WordsInput, Engine):
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; one of {ROUTES}")
         if runtime == "kernels" and route not in ("mega", "s2d"):
-            refuse_separable(compiled.config, f"route {route!r}")
+            refuse_mega_only(compiled.config, f"route {route!r}")
         if route == "vpu" and runtime == "kernels" and \
                 compiled.config.bits != 1:
             raise ValueError("route='vpu' (XNOR popcount) requires a W1A1 "

@@ -248,6 +248,26 @@ Phases (every check raises, so any failure exits non-zero):
    program's capture equal to the eager forward's, logits equal to the
    stage walk's and to runtime="ref" on the card bit for bit, argmax and
    `classify` of the uint8 pixels equal. The depthwise kernel gets a row of its own.
+25. ResNet-50 v1.5 W1A2 (portbench/configs/resnet50-w1a2.npz) at batch
+   256 on seeded int8 224×224×3 images, as the benchmark's
+   `resnet50-w1a2.resident` runs it: each kernel call of its 'mega'
+   forward against its plain version on the call's own input, bit for
+   bit, codes in 0..3 — conv1 on its padded stride-2 patches
+   (conv_chain), in each of the 16 bottleneck blocks the first 1×1 conv
+   (dense_block on unsigned 2-bit codes), the 3×3 conv (stride 1:
+   conv_chain over the map padded with code 0; stride 2: dense_block on
+   the padded patches' rows) and the block-closing 1×1 conv with its
+   shortcut (dense_residual: the identity's codes added in the epilogue,
+   or the projection's product in the K loop), and the 2048 → 1000
+   classifier (fused_mlp) — each with its time by events and under graph
+   replay, its plain time and its bound, summed by kernel; then
+   InferenceEngine on 'mega': the launches of its first use read from
+   zero (the eager run and the capture, each 14 conv_chain, 35
+   dense_block, 1 fused_mlp, 16 residual epilogues; no pooled epilogue,
+   no threshold search), the program's capture equal to the eager
+   forward's, logits equal to the walk's and to runtime="ref" on the card
+   bit for bit, argmax and `classify` of the uint8 pixels equal.
+   dense_residual gets a row of its own.
 
     python3 chip_smoke.py --spread  # a host with two or more cards
 
@@ -3959,6 +3979,200 @@ def _mobilenet_phase(torch, smi):
     return sums["depthwise_conv"], launches["depthwise_conv"]
 
 
+# -- phase 25: ResNet-50 v1.5 W1A2 -------------------------------------------
+
+RESNET = os.path.join(HERE, "portbench", "configs", "resnet50-w1a2.npz")
+RESNET_BATCH = 256            # the batch of the benchmark's resident cell
+# the kernel launches of one ResNet-50 forward on 'mega': conv1 on its
+# patches and the 13 stride-1 3×3 convs (conv_chain); each block's first
+# 1×1 conv, the 3 strided 3×3 convs on their patches' rows and the 16
+# block-closing 1×1 convs with their shortcut (dense_block's kernel); the
+# classifier; the 16 launches whose epilogue adds a shortcut
+RESNET_LAUNCHES = {"conv_chain": 14, "dense_block": 35, "fused_mlp": 1,
+                   "residual_epilogue": 16}
+
+
+def _resnet_check(torch, label, kname, kern, plain, work, sums):
+    """One kernel call of ResNet's forward: bit for bit its plain
+    version's, unsigned 2-bit codes, timed by events and under graph
+    replay beside its plain time and its bound, added to `sums[kname]`.
+    Returns the kernel's output."""
+    from bnn_pynq_tpu_torch.tools.layer_times import graph_ms
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        f"resnet {label}: {kname} != plain"
+    if got.dtype == torch.int8:
+        assert 0 <= int(got.min()) and int(got.max()) <= 3, label
+    ms, replay_ms = _time_ms(torch, kern), graph_ms(kern)
+    plain_ms = _time_ms(torch, plain, calls=1)
+    ops_ms, bytes_ms = _bounds(work, got)
+    r = sums[kname]
+    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("ops_ms", ops_ms),
+                   ("bytes_ms", bytes_ms),
+                   ("bound_ms", max(ops_ms, bytes_ms))):
+        r[key] += v
+    r["graph_ms"] = (r["graph_ms"] or 0.0) + replay_ms
+    r["calls"] = r.get("calls", 0) + 1
+    print(f"resnet {label} {kname}: == plain; kernel {ms:.4f} ms (graph "
+          f"replay {replay_ms:.4f}), plain {plain_ms:.4f}, bound "
+          f"{max(ops_ms, bytes_ms):.5f} "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    return got
+
+
+def _resnet_block(torch, name, x, kw, sums):
+    """The three kernel calls of bottleneck stage `name` (`_bottleneck`)
+    on its input codes x, each checked and timed by `_resnet_check`: the
+    first 1×1 conv (dense_block), the 3×3 conv (stride 1: conv_chain over
+    the map padded with code 0; stride 2: dense_block on the rows of the
+    padded map's patches) and the block-closing 1×1 conv with its
+    shortcut (dense_residual). Returns the block's output codes."""
+    from bnn_pynq_tpu_torch.models.network import _padded_patches
+    from bnn_pynq_tpu_torch.ops import conv_stack
+    p, stride, proj = kw["p"], kw["stride"], kw["projection"]
+    b, h, w, c = x.shape
+    lv = dict(abits=kw["abits"], input_levels=True)
+
+    def dense(label, rows, wt, thr):
+        args = (rows, [wt], [thr])
+        return _resnet_check(
+            torch, f"{name}.{label} {tuple(rows.shape)}", "dense_block",
+            functools.partial(conv_stack.dense_block, *args, **lv),
+            functools.partial(conv_stack.dense_block_plain, *args, **lv),
+            _work(_dense_gemms(len(rows), [wt]), rows, wt.kn, thr), sums)
+    a = dense("a", x.reshape(-1, c), p["wa"], p["thr_a"])
+    mid = a.shape[-1]
+    a = a.reshape(b, h, w, mid)
+    if stride == 1:
+        inp = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+        args = (inp, [p["wb"]], [p["thr_b"]])
+        out = _resnet_check(
+            torch, f"{name}.b {tuple(inp.shape)}", "conv_chain",
+            functools.partial(conv_stack.conv_chain, *args, kernel=3, **lv),
+            functools.partial(conv_stack.conv_chain_plain, *args, kernel=3,
+                              **lv),
+            _work([(b * h * w, 9 * mid, mid)], inp, p["wb"].kn,
+                  p["thr_b"]), sums)
+    else:
+        out = dense("b", _padded_patches(a, kernel=3, stride=stride, pad=1)
+                    .reshape(-1, 9 * mid), p["wb"], p["thr_b"])
+    rows = out.reshape(-1, mid)
+    args = (rows, x, p["wc"], p["r"], p["thr"])
+    sc = dict(stride=stride, projection=proj)
+    # the shortcut's bytes: x's codes at the output's pixels
+    y = _resnet_check(
+        torch, f"{name}.c {'projection' if proj else 'identity'} "
+        f"{tuple(rows.shape)}", "dense_residual",
+        functools.partial(conv_stack.dense_residual, *args, **sc),
+        functools.partial(conv_stack.dense_residual_plain, *args, **sc),
+        _work(_dense_gemms(len(rows), [p["wc"]]), rows,
+              x[:, ::stride, ::stride], p["wc"].kn, p["r"], p["thr"]),
+        sums)
+    return y.reshape(b, (h - 1) // stride + 1, (w - 1) // stride + 1, -1)
+
+
+def _resnet_phase(torch, smi):
+    """Phase 25: ResNet-50 v1.5 W1A2 at batch 256 (the benchmark's
+    `resnet50-w1a2.resident`): each kernel call of its 'mega' forward bit
+    for bit against its plain version on the call's own input, timed;
+    then InferenceEngine on 'mega', its captured program's launches (the
+    counters zeroed just before its first use), logits equal to the walk's
+    and to runtime='ref' on the card, classes and uint8 pixels. Returns
+    (dense_residual's row result, its launches)."""
+    from bnn_pynq_tpu_torch.compiler.artifacts import load_artifact
+    from bnn_pynq_tpu_torch.models.network import mega_stages, prepare_input
+    from bnn_pynq_tpu_torch.models.params import params_from_numpy
+    from bnn_pynq_tpu_torch.ops import conv_stack, fused_mlp, thresholds
+    from bnn_pynq_tpu_torch.runtime.engine import InferenceEngine
+    t0 = time.perf_counter()
+    device = torch.device("cuda", 0)
+    compiled = load_artifact(RESNET)
+    cfg = compiled.config
+    layers, scale, bias = params_from_numpy(
+        cfg, compiled.layers, compiled.out_scale, compiled.out_bias, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3_000_000_253)
+    x = torch.randint(-128, 128, (RESNET_BATCH,) + cfg.input_shape,
+                      dtype=torch.int8, device=device, generator=gen)
+
+    # -- 25(a): the kernels against their plain versions, call by call -----
+    sums = {k: _new_result() for k in ("conv_chain", "dense_block",
+                                       "dense_residual", "fused_mlp")}
+    act = prepare_input(cfg, x)
+    for name, fn in mega_stages(cfg, layers, scale, bias):
+        kw = dict(fn.keywords)
+        if name.startswith("res"):
+            act = _resnet_block(torch, name, act, kw, sums)
+        elif name.startswith("chain"):
+            b, oh, ow, k = act.shape
+            w, thr = kw.pop("weights")[0], kw.pop("thresholds")[0]
+            args = (act, [w], [thr])
+            act = _resnet_check(
+                torch, f"{name} {tuple(act.shape)}", "conv_chain",
+                functools.partial(conv_stack.conv_chain, *args, **kw),
+                functools.partial(conv_stack.conv_chain_plain, *args, **kw),
+                _work([(b * oh * ow, k, w.kn.shape[1])], act, w.kn, thr),
+                sums)
+        elif name == "mlp_tail":
+            rows = act.reshape(act.shape[0], -1)
+            act = _resnet_check(
+                torch, f"{name} {tuple(rows.shape)}", "fused_mlp",
+                functools.partial(fused_mlp.fused_mlp_forward, rows, **kw),
+                functools.partial(fused_mlp.fused_mlp_forward_plain, rows,
+                                  **kw),
+                _work(_dense_gemms(len(rows), kw["weights"]), rows,
+                      *_kn(kw["weights"]), kw["out_scale"], kw["out_bias"]),
+                sums)
+        else:
+            act = fn(act)
+    walked = act
+    for kname, r in sums.items():
+        print(f"resnet {kname}, its {r['calls']} call(s) at "
+              f"batch {RESNET_BATCH}: kernel {r['ms']:.4f} ms (graph replay "
+              f"{r['graph_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} (operations {r['ops_ms']:.5f}, bytes "
+              f"{r['bytes_ms']:.5f}) ({smi})")
+
+    # -- 25(b): the engine's captured program ------------------------------
+    counters = {"conv_chain": conv_stack.conv_chain.launches,
+                "dense_block": conv_stack.dense_block.launches,
+                "fused_mlp": fused_mlp.fused_mlp_forward.launches,
+                "residual_epilogue": thresholds.residual_epilogue}
+    eng = InferenceEngine(compiled, device="cuda", route="mega")
+    for c in counters.values():
+        c.reset()
+    others = (thresholds.pooled_epilogue.value,
+              thresholds.threshold_search.value)
+    logits = eng.fetch(eng.launch_prepared(x))
+    torch.cuda.synchronize()
+    launches = {k: c.value for k, c in counters.items()}
+    # no pooled epilogue, no 15-threshold search: 2-bit codes, no 2×2 pool
+    assert (thresholds.pooled_epilogue.value,
+            thresholds.threshold_search.value) == others, "pooled or wide"
+    prog = _hold_program(torch, eng, ((RESNET_BATCH,) + cfg.input_shape,
+                                      torch.int8, False, False), "resnet")
+    assert prog.launches == RESNET_LAUNCHES, prog.launches
+    assert launches == {k: 2 * n for k, n in RESNET_LAUNCHES.items()}, \
+        launches
+    np.testing.assert_array_equal(logits, walked.cpu().numpy())
+    ref = InferenceEngine(compiled, device="cuda", runtime="ref")
+    np.testing.assert_array_equal(ref.fetch(ref.launch_prepared(x)), logits)
+    cls = eng.fetch(eng.launch_prepared(x, argmax=True))
+    np.testing.assert_array_equal(cls, logits.argmax(1))
+    pixels = (x.cpu().numpy().view(np.uint8) ^ 0x80)       # p - 128 == x
+    np.testing.assert_array_equal(eng.classify(pixels), cls)
+    print(f"resnet engine 'mega' batch {RESNET_BATCH}: launches {launches} "
+          f"(the eager run before the capture and the capture); the "
+          f"program's capture {prog.launches} == the eager forward's; "
+          f"logits == the walk's == runtime='ref' bit for bit, argmax and "
+          f"classify of the uint8 pixels equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del eng, ref
+    torch.cuda.empty_cache()
+    return sums["dense_residual"], launches["residual_epilogue"]
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -4335,6 +4549,10 @@ def main(argv=None) -> int:
     results["depthwise_conv"], launches["depthwise_conv"] = \
         _mobilenet_phase(torch, smi)
 
+    # -- 25. ResNet-50 v1.5 W1A2: the residual epilogue, 2-bit unsigned codes
+    results["dense_residual"], launches["dense_residual"] = \
+        _resnet_phase(torch, smi)
+
     src = {"fused_mlp": ("bnn_pynq_tpu_torch/csrc/dense_chain.cu",
                          "bnn_pynq_tpu/ops/fused_mlp.py:30"),
            "dense_block": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
@@ -4349,17 +4567,22 @@ def main(argv=None) -> int:
                                  "bnn_pynq_tpu/ops/conv_direct.py:170"),
            "depthwise_conv": ("bnn_pynq_tpu_torch/csrc/depthwise.cu",
                               "none (the JAX package runs no depthwise "
-                              "conv)")}
+                              "conv)"),
+           "dense_residual": ("bnn_pynq_tpu_torch/csrc/dense_block.cu",
+                              "none (the JAX package runs no residual "
+                              "block)")}
     for name, line in PROBE_LINES.items():
         src[name] = ("bnn_pynq_tpu_torch/csrc/mosaic_probes.cu",
                      f"tools/mosaic_probes.py:{line}")
     results["packed_matmul"] = packed
     kernels = []
     print("kernel rows (launches: counted in the run of its path, phases "
-          "4, 8, 12, 14 and 24; an engine's forward counts twice, the eager "
-          "run before its capture and the capture, then replays; ms summed "
-          "over that path's calls at batch 1024, depthwise_conv's "
-          f"(dw_kernel) over MobileNet-v1's at {MOBILENET_BATCH}; library: "
+          "4, 8, 12, 14, 24 and 25; an engine's forward counts twice, the "
+          "eager run before its capture and the capture, then replays; ms "
+          "summed over that path's calls at batch 1024, depthwise_conv's "
+          f"(dw_kernel) over MobileNet-v1's at {MOBILENET_BATCH}, "
+          "dense_residual's over ResNet-50's 16 block-closing convs at "
+          f"{RESNET_BATCH}; library: "
           "the one PyTorch call "
           "that computes the same function, where there is one; int_mm: "
           "torch._int_mm on the same M x K x N, dot only, no im2col, no "
@@ -4379,6 +4602,8 @@ def main(argv=None) -> int:
                "launch_floor_ms": floor_ms}
         if k == "depthwise_conv":   # MobileNet-v1's 13 layers (phase 24)
             row.update(kernel="dw_kernel", batch=MOBILENET_BATCH)
+        if k == "dense_residual":   # ResNet-50's 16 junctions (phase 25)
+            row.update(kernel="dense_kernel<false, 1|2>", batch=RESNET_BATCH)
         if k == "conv_chain":       # on prebuilt patches (phase 23)
             row["input_patches"] = {"cases": patch_rows,
                                     "launches": strided_launches[k]}

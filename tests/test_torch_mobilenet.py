@@ -378,7 +378,7 @@ def test_existing_artifacts_load_unchanged(path):
         manifest = json.loads(bytes(z["manifest"]).decode())
     cfg = config_from_json(manifest["config"])
     assert json.dumps(config_to_json(cfg)) == json.dumps(manifest["config"])
-    assert not cfg.separable
+    assert not cfg.mega_only
 
 
 def test_committed_artifact_is_the_published_network():
